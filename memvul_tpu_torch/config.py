@@ -1,0 +1,277 @@
+"""Config loading with reference-compatible override merging.
+
+A port-local copy of the JAX package's ``memvul_tpu/config.py`` (the parts
+the scoring path uses): ``loads_config`` reads JSON with ``//`` comments,
+trailing commas and top-level ``local name = <literal>;`` bindings (the
+Jsonnet subset the reference configs use), ``merge_overrides`` deep-merges
+overrides with dotted keys reaching into nested objects, and
+``evaluation_config`` merges the ``evaluation`` section over its defaults.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import logging
+import re
+from pathlib import Path
+from typing import Any, Dict, Optional, Union
+
+
+def _split_strings(text: str) -> list:
+    """Split into alternating ``(is_string, chunk)`` segments — the
+    string-aware scanner the locals/body passes below share.  String
+    chunks include their quotes and honor backslash escapes; an
+    unterminated string runs to end-of-text (json.loads reports it).
+    Only valid on COMMENT-STRIPPED text: a quote inside a ``//`` comment
+    would otherwise open a phantom string (config_memory_large_tp.json's
+    header comment quotes axis names).
+    """
+    segments = []
+    i, n = 0, len(text)
+    while i < n:
+        if text[i] == '"':
+            j = i + 1
+            while j < n:
+                if text[j] == "\\":
+                    j += 2
+                elif text[j] == '"':
+                    j += 1
+                    break
+                else:
+                    j += 1
+            else:
+                j = n
+            segments.append((True, text[i:j]))
+            i = j
+        else:
+            j = text.find('"', i)
+            if j == -1:
+                j = n
+            segments.append((False, text[i:j]))
+            i = j
+    return segments
+
+
+_LOCAL_RE = re.compile(r"\s*local\s+([A-Za-z_]\w*)\s*=")
+# the lookbehind keeps substitution off identifier-looking tails of
+# numeric literals: with a local named ``e5``, the body literal ``1e5``
+# must stay a number, not become ``1<value>``
+_IDENT_RE = re.compile(r"(?<![\w.])[A-Za-z_]\w*")
+_TRAILING_COMMA_RE = re.compile(r",(?=\s*[}\]])")
+_JSON_WORDS = frozenset({"true", "false", "null"})
+
+
+def _strip_comments(text: str) -> str:
+    """Drop ``//`` line comments that are outside JSON strings.
+
+    The reference's configs carry trailing comments, e.g.
+    ``"max_length": 512  // different from the data reader``
+    (reference: MemVul/config_no_online.json:89), and ``//`` also appears
+    inside string values (URLs), so the scan must be string-aware.  This
+    one pass cannot reuse ``_split_strings``: comments and strings each
+    hide the other's delimiter, so quote- and comment-state must advance
+    together; every later pass runs on comment-free text and can.
+    """
+    out = []
+    i, n = 0, len(text)
+    in_string = False
+    while i < n:
+        c = text[i]
+        if in_string:
+            out.append(c)
+            if c == "\\" and i + 1 < n:
+                out.append(text[i + 1])
+                i += 2
+                continue
+            if c == '"':
+                in_string = False
+        elif c == '"':
+            in_string = True
+            out.append(c)
+        elif c == "/" and i + 1 < n and text[i + 1] == "/":
+            while i < n and text[i] != "\n":
+                i += 1
+            continue
+        else:
+            out.append(c)
+        i += 1
+    return "".join(out)
+
+
+def _parse_locals(text: str) -> tuple:
+    """Consume leading ``local name = <value>;`` bindings.
+
+    Returns ``(bindings, body)``.  Values are JSON literals (the only
+    forms the reference's configs use: strings and numbers,
+    config_memory.json:1-3) or references to earlier locals.  The
+    terminating ``;`` is found outside strings so string values
+    containing semicolons parse correctly.
+    """
+    bindings: Dict[str, Any] = {}
+    pos = 0
+    while True:
+        m = _LOCAL_RE.match(text, pos)
+        if not m:
+            break
+        end = m.end()
+        for is_str, chunk in _split_strings(text[end:]):
+            if not is_str and ";" in chunk:
+                end += chunk.index(";")
+                break
+            end += len(chunk)
+        else:
+            raise ValueError(f"unterminated 'local {m.group(1)} = ...' binding")
+        raw = text[m.end() : end].strip()
+        if _IDENT_RE.fullmatch(raw) and raw in bindings:
+            bindings[m.group(1)] = bindings[raw]
+        else:
+            bindings[m.group(1)] = json.loads(raw)
+        pos = end + 1
+    return bindings, text[pos:]
+
+
+def _jsonnetise_body(body: str, bindings: Dict[str, Any]) -> str:
+    """Make the Jsonnet body valid JSON: substitute bare identifiers with
+    their bound JSON value and drop trailing commas (both Jsonnet-legal,
+    both used by the reference configs — config_memory.json:6,69).
+
+    Body keys are always quoted in the reference configs, so any bare
+    identifier outside a string is a reference.  Unbound identifiers are
+    left for json.loads to reject with its own error position.  A comma
+    is trailing only when whitespace separates it from the closing
+    bracket, so the per-chunk regex never crosses a string boundary.
+    """
+
+    def substitute(m: "re.Match") -> str:
+        word = m.group(0)
+        if word in bindings and word not in _JSON_WORDS:
+            return json.dumps(bindings[word])
+        return word
+
+    return "".join(
+        chunk
+        if is_str
+        else _TRAILING_COMMA_RE.sub("", _IDENT_RE.sub(substitute, chunk))
+        for is_str, chunk in _split_strings(body)
+    )
+
+
+def loads_config(text: str) -> Dict[str, Any]:
+    stripped = _strip_comments(text)
+    bindings, body = _parse_locals(stripped)
+    return json.loads(_jsonnetise_body(body, bindings))
+
+
+def load_config(
+    path: Union[str, Path],
+    overrides: Optional[Union[str, Dict[str, Any]]] = None,
+) -> Dict[str, Any]:
+    cfg = loads_config(Path(path).read_text())
+    if overrides:
+        if isinstance(overrides, str):
+            overrides = loads_config(overrides)
+        cfg = merge_overrides(cfg, overrides)
+    return cfg
+
+
+def merge_overrides(base: Dict[str, Any], overrides: Dict[str, Any]) -> Dict[str, Any]:
+    """Deep-merge ``overrides`` onto ``base`` (returns a new dict).
+
+    A *top-level* dotted key like ``"trainer.optimizer.lr"`` addresses a
+    nested value, matching AllenNLP's override syntax used by the reference
+    eval scripts.  Keys inside nested override dicts are taken literally
+    and deep-merged (the reference's with_fallback semantics).
+    """
+    out = copy.deepcopy(base)
+    for key, value in overrides.items():
+        _assign(out, key.split("."), value)
+    return out
+
+
+def _assign(node: Dict[str, Any], parts: list, value: Any) -> None:
+    key = parts[0]
+    if len(parts) > 1:
+        child = node.setdefault(key, {})
+        if not isinstance(child, dict):
+            child = node[key] = {}
+        _assign(child, parts[1:], value)
+    elif isinstance(value, dict) and isinstance(node.get(key), dict):
+        _deep_merge(node[key], value)
+    else:
+        # deepcopy, never alias: the merged config must not share
+        # structure with the caller's overrides dict — a later dotted-key
+        # assignment (or any downstream edit of the merged config) would
+        # otherwise mutate the overrides object the caller still holds
+        node[key] = copy.deepcopy(value)
+
+
+def _deep_merge(node: Dict[str, Any], overrides: Dict[str, Any]) -> None:
+    for key, value in overrides.items():
+        if isinstance(value, dict) and isinstance(node.get(key), dict):
+            _deep_merge(node[key], value)
+        else:
+            node[key] = copy.deepcopy(value)  # same no-aliasing contract
+
+
+# The ``evaluation`` config section, with its documented defaults.  The
+# eval entry points (build.evaluate_from_archive) read this one merged
+# view instead of scattering per-key ``.get`` defaults, so a new knob is
+# added exactly once.  ``None`` means "feature off / model default".
+EVALUATION_DEFAULTS: Dict[str, Any] = {
+    "batch_size": 512,       # rows per batch without a token budget
+    "max_length": 512,       # token cap (clamped to the model's positions)
+    "buckets": None,         # length-bin boundaries; "auto" derives them
+    "n_buckets": 8,          # boundary count for "auto" buckets
+    "tokens_per_batch": None,  # constant token budget per batch
+    "inflight": 2,           # async device dispatch depth (0 = sync)
+    "anchor_match_impl": None,  # None → model config ("auto"|"fused"|"xla")
+    "aot_warmup": True,      # precompile every stream shape at startup
+    # fault tolerance (docs/fault_tolerance.md) — all off by default so
+    # short interactive evals keep their exact historical behavior;
+    # docs/full_corpus.md turns the whole block on for the 1.2M job
+    "resume": False,         # journal + skip-completed restartable scoring
+    "quarantine": False,     # dead-letter malformed/over-long records
+    "heartbeat_batches": 0,  # progress log every N batches (0 = off)
+    "score_retries": 0,      # transient-failure retries per batch (0 = off)
+    # add the winning anchor id/index to every output record
+    # (docs/anchor_bank.md) — off so the default output format stays
+    # byte-stable with the reference's
+    "attribute_anchors": False,
+    # sharded corpus scoring (distributed/, docs/full_corpus.md) — the
+    # score-corpus CLI reads these; shards=1 keeps the single-worker
+    # degenerate case the default
+    "shards": 1,               # supervised worker subprocesses
+    "max_shard_attempts": 3,   # launches per shard before quarantine
+    "shard_stall_timeout_s": 120.0,  # heartbeat age that counts as wedged
+    "shard_poll_interval_s": 1.0,    # supervisor poll cadence
+    "shard_backoff_s": 2.0,    # restart backoff base (exponential)
+}
+
+
+def _section_over_defaults(
+    cfg: Optional[Dict[str, Any]], key: str, defaults: Dict[str, Any]
+) -> Dict[str, Any]:
+    """``cfg[key]`` merged over its documented defaults.
+
+    Explicit JSON ``null`` values fall back to the default (matching the
+    historical null-tolerant handling of ``tokens_per_batch``/
+    ``inflight``; 0 and "" are real values and survive).  Unknown keys
+    are kept — they may belong to a newer reader — but logged so a typo
+    like ``"ancor_match_impl"`` doesn't silently disable a feature.
+    """
+    section = dict((cfg or {}).get(key) or {})
+    unknown = sorted(set(section) - set(defaults))
+    if unknown:
+        logging.getLogger(__name__).warning(
+            "%s config: unknown key(s) %s (known: %s)",
+            key, unknown, sorted(defaults),
+        )
+    out = dict(defaults)
+    out.update({k: v for k, v in section.items() if v is not None})
+    return out
+
+
+def evaluation_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """``cfg["evaluation"]`` merged over :data:`EVALUATION_DEFAULTS`."""
+    return _section_over_defaults(cfg, "evaluation", EVALUATION_DEFAULTS)

@@ -1,0 +1,331 @@
+"""Siamese memory-model inference — the corpus-scoring path (the JAX
+package's ``evaluate/predict_memory.py``, bucketed scoring only).
+
+Encode the anchor bank in fixed chunks and keep it on the device in the
+working dtype; stream the corpus in length buckets, each batch one
+encoder pass plus the anchor match and per-anchor softmax, with two
+batches in flight before the oldest is pulled to the host; write the
+reference-format result lines on a writer thread; then ``cal_metrics``.
+
+PyTorch runs eagerly, so the JAX package's AOT warmup has no
+counterpart here.  Resume/journal/quarantine, meshes, the int8 cascade
+and the ragged path belong to later slices.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import queue
+import threading
+import time
+from collections import deque
+from pathlib import Path
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..data.batching import (
+    LABELS_SIAMESE,
+    CachedEncoder,
+    _pad_block,
+    batches_from_instances,
+    bucket_batch_sizes,
+    bucketed_batches_from_instances,
+    prefetch,
+    validate_buckets,
+)
+from ..data.readers import MemoryReader
+from ..models.memory import MemoryModel, anchor_probs
+from .measure import cal_metrics
+from .metrics import SiameseMeasure
+
+logger = logging.getLogger(__name__)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class SiamesePredictor:
+    def __init__(
+        self,
+        model: MemoryModel,
+        tokenizer,
+        batch_size: int = 512,
+        max_length: int = 512,
+        buckets: Optional[Sequence[int]] = None,
+        tokens_per_batch: Optional[int] = None,
+        anchor_chunk: int = 128,
+        anchor_match_impl: Optional[str] = None,
+    ) -> None:
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
+        self.batch_size = batch_size
+        self.anchor_chunk = anchor_chunk
+        self.anchor_match_impl = anchor_match_impl
+        self.encoder = CachedEncoder(tokenizer, max_length=max_length)
+        self.buckets = validate_buckets(buckets, max_length) if buckets else None
+        # constant-token-budget batching: short buckets run bigger batches
+        self.bucket_sizes = (
+            bucket_batch_sizes(self.buckets, tokens_per_batch, multiple_of=8)
+            if self.buckets and tokens_per_batch else None
+        )
+        self.anchor_bank: Optional[torch.Tensor] = None  # [A, D] on the device
+        self.n_anchors = 0
+        self.anchor_labels: List[str] = []
+        # what the last run did: anchor chunks and seconds, scored batches,
+        # and device seconds per bucket length
+        self.stats: Dict = {}
+
+    def _to_device(self, block: Dict[str, np.ndarray]):
+        return (
+            torch.from_numpy(block["input_ids"]).to(self.device).long(),
+            torch.from_numpy(block["attention_mask"]).to(self.device),
+        )
+
+    # -- phase 1: anchor bank ------------------------------------------------
+
+    def encode_anchors(self, anchor_instances: Iterable[Dict]) -> None:
+        """Encode anchors in chunks of ``anchor_chunk`` rows padded to
+        ``max_length`` and keep the bank on the device."""
+        start = time.perf_counter()
+        bank, labels, n_anchors, chunks = self.encode_bank(anchor_instances)
+        _sync(self.device)
+        self.anchor_bank, self.anchor_labels, self.n_anchors = bank, labels, n_anchors
+        self.stats["anchor_encode_s"] = time.perf_counter() - start
+        self.stats["anchor_chunks"] = chunks
+        logger.info("anchor bank: %d anchors, dim %d", n_anchors, bank.shape[1])
+
+    @torch.no_grad()
+    def encode_bank(
+        self, anchor_instances: Iterable[Dict]
+    ) -> Tuple[torch.Tensor, List[str], int, int]:
+        """(bank [A, D] on the device, labels, A, chunks encoded)."""
+        instances = list(anchor_instances)
+        labels = [inst["meta"]["label"] for inst in instances]
+        parts: List[torch.Tensor] = []
+        for start in range(0, len(instances), self.anchor_chunk):
+            chunk = instances[start : start + self.anchor_chunk]
+            seqs = self.encoder.encode_many([inst["text1"] for inst in chunk])
+            block = _pad_block(seqs, self.anchor_chunk, self.encoder.pad_id, self.encoder.max_length)
+            parts.append(self.model.encode(*self._to_device(block))[: len(chunk)])
+        bank = torch.cat(parts, dim=0)
+        return bank, labels, bank.shape[0], len(parts)
+
+    # -- phase 2: streaming scoring ------------------------------------------
+
+    @torch.no_grad()
+    def _score(self, block: Dict[str, np.ndarray]) -> torch.Tensor:
+        ids, mask = self._to_device(block)
+        logits = self.model(ids, mask, anchors=self.anchor_bank, anchor_impl=self.anchor_match_impl)
+        return anchor_probs(logits)
+
+    def score_instances(
+        self, instances: Iterable[Dict], inflight: int = 2, prefetch_depth: int = 4
+    ) -> Iterator[Tuple[np.ndarray, List[Dict]]]:
+        """Yields (per-anchor probabilities [b, A], metas) per batch, dead
+        rows and padded anchors sliced off.  Up to ``inflight`` batches are
+        launched before the oldest is synced to the host (once per batch)."""
+        if self.anchor_bank is None:
+            raise RuntimeError("call encode_anchors() first")
+        if self.buckets is not None:
+            batches = bucketed_batches_from_instances(
+                instances, self.encoder, batch_size=self.bucket_sizes or self.batch_size,
+                label_map=LABELS_SIAMESE, buckets=self.buckets,
+            )
+        else:
+            batches = batches_from_instances(
+                instances, self.encoder, batch_size=self.batch_size, label_map=LABELS_SIAMESE,
+            )
+        seconds: Dict[int, float] = {}
+        counts: Dict[int, int] = {}
+        # per bucket length: live rows (reports) and row slots (with dead rows)
+        rows: Dict[int, int] = {}
+        slots: Dict[int, int] = {}
+        self.stats["bucket_seconds"], self.stats["bucket_batches"] = seconds, counts
+        self.stats["bucket_rows"], self.stats["bucket_row_slots"] = rows, slots
+        # host seconds: waiting on the feed thread, enqueueing a batch's
+        # launches, and blocked in the D2H sync
+        host = {"feed_wait_s": 0.0, "launch_s": 0.0, "sync_s": 0.0}
+        self.stats.update(host)
+        on_card = self.device.type == "cuda"
+        pending: deque = deque()
+
+        def launch(batch):
+            # each batch's device time, by CUDA events around its launches
+            # (host time on the CPU, where the forward is synchronous)
+            if on_card:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                probs = self._score(batch["sample1"])
+                end.record()
+                return probs, batch, (start, end)
+            t0 = time.perf_counter()
+            probs = self._score(batch["sample1"])
+            return probs, batch, time.perf_counter() - t0
+
+        def drain():
+            probs, batch, timing = pending.popleft()
+            t0 = time.perf_counter()
+            arr = probs.cpu().numpy()  # the one host sync of this batch
+            host["sync_s"] += time.perf_counter() - t0
+            elapsed = timing[0].elapsed_time(timing[1]) / 1e3 if on_card else timing
+            n_slots, length = batch["sample1"]["input_ids"].shape
+            metas = batch["meta"]
+            seconds[length] = seconds.get(length, 0.0) + elapsed
+            counts[length] = counts.get(length, 0) + 1
+            rows[length] = rows.get(length, 0) + len(metas)
+            slots[length] = slots.get(length, 0) + n_slots
+            return arr[: len(metas), : self.n_anchors], metas
+
+        feed = iter(prefetch(batches, depth=prefetch_depth))
+        while True:
+            t0 = time.perf_counter()
+            batch = next(feed, None)
+            t1 = time.perf_counter()
+            host["feed_wait_s"] += t1 - t0
+            if batch is None:
+                break
+            pending.append(launch(batch))
+            host["launch_s"] += time.perf_counter() - t1
+            if len(pending) > inflight:
+                yield drain()
+        while pending:
+            yield drain()
+        self.stats.update(host)
+        self.stats["batches"] = sum(counts.values())
+
+    def predict_single(self, text: str) -> Dict:
+        """Score one report: per-anchor probabilities, the best score and
+        the winning anchor's id and bank index.  Uses the smallest bucket
+        covering the text (over-long texts truncate into the largest)."""
+        if self.anchor_bank is None:
+            raise RuntimeError("call encode_anchors() first")
+        seq = self.encoder.encode_many([text])[0]
+        lengths = sorted(self.buckets) if self.buckets else [self.encoder.max_length]
+        length = next((b for b in lengths if b >= len(seq)), lengths[-1])
+        row = self._score(_pad_block([seq], 1, self.encoder.pad_id, length))
+        row = row.cpu().numpy()[0, : self.n_anchors]
+        best = int(np.argmax(row))
+        return {
+            "predict": {label: float(p) for label, p in zip(self.anchor_labels, row)},
+            "score": float(row[best]),
+            "anchor": self.anchor_labels[best],
+            "anchor_index": best,
+        }
+
+    def predict_file(
+        self,
+        reader: MemoryReader,
+        test_path: Union[str, Path],
+        out_path: Union[str, Path],
+        split: Optional[str] = None,
+        inflight: int = 2,
+    ) -> Dict[str, float]:
+        """Stream a corpus file, write the reference-format result lines
+        (one JSON list of records per batch, serialised on a writer
+        thread), and return the threshold-swept siamese metrics."""
+        out_path = Path(out_path)
+        measure = SiameseMeasure()
+        n = 0
+        q: "queue.Queue" = queue.Queue(maxsize=16)
+        writer_error: List[BaseException] = []
+        failed = threading.Event()
+
+        def _writer() -> None:
+            try:
+                with open(out_path, "w") as f:
+                    while True:
+                        item = q.get()
+                        if item is None:
+                            return
+                        probs, metas = item
+                        records = [
+                            {
+                                "Issue_Url": meta.get("Issue_Url"),
+                                "label": meta.get("label"),
+                                "predict": {
+                                    anchor: float(p)
+                                    for anchor, p in zip(self.anchor_labels, row)
+                                },
+                            }
+                            for row, meta in zip(probs, metas)
+                        ]
+                        f.write(json.dumps(records) + "\n")
+            except BaseException as e:  # re-raised in the caller below
+                writer_error.append(e)
+                failed.set()
+
+        def _put(item) -> None:
+            while not failed.is_set():
+                try:
+                    q.put(item, timeout=1.0)
+                    return
+                except queue.Full:
+                    continue
+
+        writer = threading.Thread(target=_writer, daemon=True)
+        writer.start()
+        start = time.perf_counter()
+        try:
+            for probs, metas in self.score_instances(
+                reader.read(str(test_path), split=split), inflight=inflight
+            ):
+                _put((probs, metas))
+                if failed.is_set():
+                    break
+                measure.update(probs.max(axis=-1), metas)
+                n += len(metas)
+        finally:
+            _put(None)
+            writer.join()
+        if writer_error:
+            raise writer_error[0]
+        elapsed = time.perf_counter() - start
+        logger.info("scored %d reports in %.1fs (%.0f reports/s)", n, elapsed, n / max(elapsed, 1e-9))
+        metrics = measure.compute(reset=True)
+        metrics["num_samples"] = n
+        metrics["elapsed_s"] = elapsed
+        metrics.update(self.stats)
+        return metrics
+
+
+def test_siamese(
+    model: MemoryModel,
+    tokenizer,
+    test_file: Union[str, Path],
+    golden_file: Union[str, Path],
+    out_results: Union[str, Path],
+    out_metrics: Optional[Union[str, Path]] = None,
+    reader: Optional[MemoryReader] = None,
+    batch_size: int = 512,
+    max_length: int = 512,
+    buckets: Optional[Sequence[int]] = None,
+    tokens_per_batch: Optional[int] = None,
+    thres: float = 0.5,
+    inflight: int = 2,
+    anchor_match_impl: Optional[str] = None,
+    device: Union[str, torch.device] = "cuda",
+) -> Dict[str, float]:
+    """End-to-end evaluation: encode the anchor bank, score the corpus,
+    then ``cal_metrics``.  The scoring metrics come back under ``s_`` keys
+    beside the ``cal_metrics`` dict.  Runs on ``device`` (the card unless
+    the caller asks for the CPU)."""
+    from ..build import resolve_device
+
+    device = resolve_device(device)
+    model = model.to(device)
+    reader = reader or MemoryReader()
+    predictor = SiamesePredictor(
+        model, tokenizer, batch_size=batch_size, max_length=max_length,
+        buckets=buckets, tokens_per_batch=tokens_per_batch,
+        anchor_match_impl=anchor_match_impl,
+    )
+    predictor.encode_anchors(reader.read_anchors(str(golden_file)))
+    eval_metrics = predictor.predict_file(reader, test_file, out_results, inflight=inflight)
+    final = cal_metrics(out_results, thres=thres, out_file=out_metrics)
+    final.update({f"s_{k}": v for k, v in eval_metrics.items()})
+    return final

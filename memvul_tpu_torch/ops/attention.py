@@ -1,0 +1,66 @@
+"""Attention with a swappable implementation (the JAX package's
+``ops/attention.py``).
+
+:func:`dot_product_attention` is the one function the encoder calls, on
+``[B, T, H, Dh]`` tensors; ``impl`` picks the backend:
+
+* ``"xla"``   the plain einsum formulation of the JAX package's
+              ``_xla_attention``: scores scaled in the query dtype, softmax
+              in f32, weights cast back before the PV product;
+* ``"flash"`` blockwise exact attention (:mod:`.flash_attention`): the
+              hand-written CUDA kernel on the card, its plain version on
+              the CPU.
+
+The ragged path (``segment_ids``) belongs to a later slice of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .flash_attention import flash_attention
+
+
+def dot_product_attention(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    impl: str = "xla",
+    segment_ids: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Scaled dot-product attention, [B, T, H, Dh] in, [B, Tq, H, Dh] out
+    in the query dtype; ``bias`` broadcastable to [B, H, Tq, Tk]."""
+    if segment_ids is not None:
+        raise NotImplementedError(
+            "segment-masked (ragged) attention is not ported yet: it belongs "
+            "to the ragged/continuous serving slice in ROADMAP.md"
+        )
+    if impl == "flash":
+        return flash_attention(query, key, value, bias)
+    if impl != "xla":
+        raise ValueError(f"unknown attention impl {impl!r} (want xla | flash)")
+    return xla_attention(query, key, value, bias)
+
+
+def xla_attention(query, key, value, bias=None) -> torch.Tensor:
+    """The JAX package's ``_xla_attention`` (inference: no dropout)."""
+    depth = query.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", query, key) / torch.sqrt(
+        torch.tensor(depth, dtype=query.dtype, device=query.device)
+    )
+    if bias is not None:
+        scores = scores + bias
+    weights = torch.softmax(scores.to(torch.float32), dim=-1).to(query.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, value)
+
+
+def mask_to_bias(attention_mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """[B, T] {0,1} mask → additive bias [B, 1, 1, T] in ``dtype``, with the
+    finite ``finfo(dtype).min`` (never -inf) on padded keys."""
+    neg = torch.finfo(dtype).min
+    zero = torch.zeros((), dtype=dtype, device=attention_mask.device)
+    fill = torch.full((), neg, dtype=dtype, device=attention_mask.device)
+    return torch.where(attention_mask[:, None, None, :] > 0, zero, fill)

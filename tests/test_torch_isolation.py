@@ -1,0 +1,81 @@
+"""The port stands alone: it imports nothing of the JAX package nor of
+the libraries the card's machine lacks, and it runs on the card unless
+the caller asks for the CPU."""
+
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "memvul_tpu_torch"
+FORBIDDEN = ("memvul_tpu", "jax", "jaxlib", "flax", "msgpack", "tokenizers", "sklearn", "transformers")
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    bad = sorted({root for root in _imported_roots(path) if root in FORBIDDEN})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_with_forbidden_modules_blocked():
+    code = f"""
+import importlib, pkgutil, sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None  # any import of it now raises ImportError
+import memvul_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(memvul_tpu_torch.__path__, "memvul_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+loaded = sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!r} and sys.modules[k] is not None)
+assert not loaded, loaded
+print(len(names))
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.strip()) >= 15
+
+
+def test_default_device_refuses_a_host_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for CUDA-less hosts")
+    from memvul_tpu_torch.build import evaluate_from_archive, resolve_device
+    from memvul_tpu_torch.evaluate.predict_memory import test_siamese as port_test_siamese
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_from_archive(tmp_path / "missing.tar.gz", tmp_path / "test_x.json", tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_test_siamese(None, None, "t", "g", tmp_path / "r.json")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "script_alone"])
+def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path, alone):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for CUDA-less hosts")
+    cwd = ROOT
+    if alone:
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
