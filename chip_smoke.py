@@ -8,14 +8,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. ``env``       the card's name, and its name and power limit from nvidia-smi;
 2. ``build``     builds every CUDA kernel from ``memvul_tpu_torch/csrc``;
-3. ``kernel_anchor_match`` / ``kernel_flash``
+3. ``kernel_anchor_match`` / ``kernel_flash`` / ``kernel_ragged``
                  each kernel against its plain PyTorch version at the main
-                 path's shapes, with its time, the plain version's time, the
+                 paths' shapes, with its time, the plain version's time, the
                  card's bound for the same work and (attention) the time of
                  PyTorch's own ``scaled_dot_product_attention`` as a yardstick
                  the port never calls.  The attention inputs give peaked
-                 softmaxes and outputs of order 1, and the phase shows that a
-                 lost key tile would fail the check;
+                 softmaxes and outputs of order 1, and the phases show that a
+                 lost key tile (and, ragged, a leak across requests) would
+                 fail the check;
 4. ``main_path`` the port's corpus-scoring path end to end at the full width of
                  ``configs/config_memory_longctx.json`` (BERT-base, 4096
                  positions, bf16, flash attention): deterministic vocabulary,
@@ -23,15 +24,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  seed, a ``model.tar.gz``, then ``evaluate_from_archive`` on the
                  card.  The kernels' launch counts are set to 0 just before it
                  and read just after;
-5. ``main_path_profile``
+5. ``serve_path`` the packed serving path on the same archive:
+                 ``serve_from_archive`` with ``score_impl`` "ragged" and then
+                 "continuous", 256 requests from 16 client threads and 8 over
+                 HTTP, the launch counts set to 0 after each service is built
+                 and read after its traffic, and the responses held against
+                 the bucketed path on the card;
+   ``serve_identity`` the small f32 model's archive served "continuous" with
+                 ``prefix_share`` on (duplicates aliased inside packs), each
+                 response held against its own request's answer on the CPU,
+                 tightly enough that an answer handed to another request
+                 would fail;
+6. ``main_path_profile`` / ``serve_pack_profile``
                  device time by kernel (torch.profiler) for one batch of the
-                 main path's 2048 bucket through the archived model;
-6. ``main_path_reference``
+                 main path's 2048 bucket and for one serve pack's round trip
+                 through the archived model;
+7. ``main_path_reference`` / ``ragged_reference``
                  a small model scored on the card (kernels) and on the CPU
-                 (plain versions), which must agree: in f32 through both
-                 attention impls, and in bf16 at head dim 64 through the
-                 tensor-core flash kernel the main path runs;
-7. ``kernels``   one line per ported kernel, then the card's nvidia-smi line,
+                 (plain versions), padded and then packed, which must agree:
+                 in f32, and in bf16 at head dim 64 through the tensor-core
+                 attention kernels the main paths run;
+8. ``kernels``   one line per ported kernel, then the card's nvidia-smi line,
                  then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every f32 comparison runs with TF32 off for matmuls and convolutions
@@ -85,6 +98,13 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time per call of ``fn``: its kernels' own time, summed by
+    torch.profiler over ``iters`` calls, without the gaps between them."""
+    groups, _ = _kernel_breakdown(lambda: [fn() for _ in range(iters)])
+    return sum(groups.values()) / iters
 
 
 def max_err(got, want, atol: float, rtol: float):
@@ -271,6 +291,162 @@ def phase_flash(records: dict) -> None:
     }
 
 
+def _realistic_pack(budget: int, cap: int, max_rows: int = 16, seed: int = 0):
+    """The fullest pack (the most rows, up to ``max_rows``) the serve path
+    builds at ``budget`` from synthetic reports of realistic lengths
+    (``generate_corpus(realistic_lengths=True)``, tokenized with a
+    deterministic vocabulary and capped at ``cap``): its segment ids
+    [1, budget] and its row lengths."""
+    from memvul_tpu_torch.data.batching import collate_ragged, pack_token_budget
+    from memvul_tpu_torch.data.synthetic import corpus_texts, generate_corpus
+    from memvul_tpu_torch.data.tokenizer import WordPieceTokenizer
+
+    reports, _ = generate_corpus(num_projects=16, reports_per_project=16, seed=seed,
+                                 realistic_lengths=True)
+    texts = corpus_texts(reports)
+    tok = WordPieceTokenizer.build_deterministic(texts, vocab_size=30522)
+    seqs = [tok.encode(t, max_length=cap) for t in texts]
+    pack = max(pack_token_budget([len(s) for s in seqs], budget, max_rows), key=len)
+    sample = collate_ragged([seqs[i] for i in pack], budget, max_rows, tok.pad_id)
+    return sample["segment_ids"], [len(seqs[i]) for i in pack]
+
+
+def _random_layout(b: int, t: int, seed: int):
+    """Segment ids in no order and with gaps: runs of random lengths whose
+    ids are drawn from {0, 2, 3, 5, 7, 11} (0 = dead), as the JAX
+    package's random-layout tests and aliased packs can give."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    seg = np.zeros((b, t), np.int32)
+    for i in range(b):
+        offset = 0
+        while offset < t:
+            n = int(rng.integers(1, 90))
+            seg[i, offset : offset + n] = rng.choice([0, 2, 3, 5, 7, 11])
+            offset += n
+    return seg
+
+
+def _masked_attention(q, k, v, allowed):
+    """The plain version's arithmetic under an arbitrary [B, T, T] mask:
+    what a kernel that leaked across requests, or lost a key tile, would
+    give (dense, for the serve path's T = 2048)."""
+    import math
+
+    import torch
+
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    s = torch.where(allowed[:, None], s, torch.finfo(torch.float32).min)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return (pv / p.sum(-1).clamp_min(1e-30).permute(0, 2, 1)[..., None]).to(q.dtype)
+
+
+def phase_ragged(records: dict) -> None:
+    """K3 against its plain version on live rows; dead rows finite; the
+    check shown to catch a leak across requests and a lost key tile."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from memvul_tpu_torch.ops import ragged_attention as ra
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    serve_seg, serve_lens = _realistic_pack(2048, 512)
+    long_seg, long_lens = _realistic_pack(16384, 4096)
+    cases = [
+        # (name, segment ids [B, T], H, D, dtype, tol)
+        ("serve_pack", serve_seg, 12, 64, torch.bfloat16, 3e-2),
+        ("long_pack", long_seg, 12, 64, torch.bfloat16, 3e-2),
+        ("random_layout_bf16", _random_layout(2, 300, seed=5), 12, 64, torch.bfloat16, 3e-2),
+        ("random_layout_f32", _random_layout(2, 160, seed=6), 4, 32, torch.float32, 2e-5),
+    ]
+    results = []
+    for name, seg_np, h, d, dtype, tol in cases:
+        b, t = seg_np.shape
+        seg = torch.as_tensor(seg_np, device="cuda")
+        q, k, v = ((torch.randn(b, t, h, d, device="cuda", generator=gen) * scale).to(dtype)
+                   for scale in (2.0, 2.0, 1.0))
+        got = ra.ragged_flash_attention(q, k, v, seg)
+        want = ra.ragged_flash_attention_reference(q, k, v, seg)
+        torch.cuda.synchronize()
+        live = seg > 0
+        err, ok = max_err(got[live], want[live], tol, tol)
+        dead_finite = bool(torch.isfinite(got[~live].float()).all())
+        seg_tokens = [int(n) for n in np.unique(seg_np[seg_np > 0], return_counts=True)[1]] \
+            if b == 1 else None
+        row = {"case": name, "shape": [b, t, h, d], "dtype": str(dtype), "tol": tol,
+               "max_abs_err": err, "ok": ok and dead_finite, "dead_rows_finite": dead_finite,
+               "live_tokens": int(live.sum()), "want_rms": rms(want[live])}
+        if b == 1:
+            item = q.element_size()
+            # dense work reads q, k, v at every position; segment work needs
+            # them only at the live tokens (dead ones are never seen), and
+            # both write out at every position and read the segment ids once
+            dense_bytes = 4 * t * h * d * item + t * 4
+            seg_bytes = (3 * row["live_tokens"] + t) * h * d * item + t * 4
+            dense_flops = 4 * h * t * t * d
+            seg_flops = 4 * h * sum(n * n for n in seg_tokens) * d
+            row["rows"] = len(seg_tokens)
+            row["row_tokens"] = serve_lens if name == "serve_pack" else long_lens
+            row["dense_bound_ms"], row["dense_bound_by"] = bound(dense_bytes, dense_flops, BF16_TENSOR_FLOPS)
+            row["segment_bound_ms"], row["segment_bound_by"] = bound(seg_bytes, seg_flops, BF16_TENSOR_FLOPS)
+            row["bound_rate"] = "989 TFLOP/s bf16 tensor cores, 3.35 TB/s"
+            # a pack's kernel runs for tens of microseconds, less than the
+            # host takes to launch it, so back-to-back CUDA events time the
+            # launches; its own time, and SDPA's, come from the profiler.
+            # The tile table is built once per pack (not per layer), and is
+            # timed on its own
+            packed = ra.pack_segments(seg)
+            kernel = lambda: ra.ragged_flash_attention(q, k, v, packed)  # noqa: E731
+            row["kernel_event_ms"] = time_ms(kernel, 20)
+            row["kernel_ms"] = device_ms(kernel, 20)
+            row["tile_ranges_ms_per_pack"] = device_ms(lambda: ra.pack_segments(seg), 20)
+            row["plain_ms"] = time_ms(lambda: ra.ragged_flash_attention_reference(q, k, v, seg), 2)
+            mask = ra.segment_bias(seg, dtype)  # [1, 1, T, T], never used by the port
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+            row["library_event_ms"] = time_ms(sdpa, 5)
+            row["library_ms"] = device_ms(sdpa, 5)
+            del mask
+        if name == "serve_pack":
+            # power of the check: a kernel that leaked across requests (the
+            # pack's padding mask instead of its segments) or lost the first
+            # key tile of every segment must fail it
+            same = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0)
+            pad_only = live[:, :, None] & live[:, None, :]
+            first = torch.zeros_like(live)
+            for s_id in torch.unique(seg[live]).tolist():
+                first[0, torch.nonzero(seg[0] == s_id)[:64, 0]] = True
+            lost = same & ~first[:, None, :]
+            for key, allowed in (("leak_err", pad_only), ("lost_tile_err", lost)):
+                row[key], caught_ok = max_err(_masked_attention(q, k, v, allowed)[live],
+                                              want[live], tol, tol)
+                if caught_ok:
+                    emit("kernel_ragged", ok=False, cases=results + [row])
+                    raise SystemExit(f"the ragged check cannot see a {key[:-4]}: {row}")
+        results.append(row)
+        if not row["ok"]:
+            emit("kernel_ragged", ok=False, cases=results)
+            raise SystemExit(f"ragged kernel disagrees with its plain version: {row}")
+    emit("kernel_ragged", ok=True, cases=results)
+    main = results[0]
+    records["ragged_flash_attention"] = {
+        "name": "ragged_flash_attention",
+        "route": "cuda",
+        "source": "memvul_tpu_torch/csrc/ragged_fwd.cu",
+        "replaces": "memvul_tpu/ops/pallas/ragged_attention.py:135",
+        "max_abs_err": main["max_abs_err"],
+        "ms": main["kernel_ms"],
+        "plain_ms": main["plain_ms"],
+        # the work this pack's data needs: pairs inside one segment
+        "bound_ms": main["segment_bound_ms"],
+        "bound_by": main["segment_bound_by"],
+        "library_ms": main["library_ms"],
+    }
+
+
 # -- main path ---------------------------------------------------------------
 
 
@@ -357,19 +533,16 @@ def _synthetic_anchors(n: int, seed: int) -> dict:
     return anchors
 
 
-def phase_main_path(workdir: Path, records: dict, reports_wanted: int = 512) -> None:
-    import numpy as np
-    import torch
-
-    from memvul_tpu_torch.archive import save_archive
-    from memvul_tpu_torch.build import evaluate_from_archive
+def _write_corpus(workdir: Path, reports_wanted: int):
+    """The main path's data in ``workdir``: a synthetic corpus of realistic
+    lengths (``test_project.json``, ``CVE_dict.json``), 129 anchors
+    (``CWE_anchor_golden_project.json``) and a deterministic vocabulary
+    (``vocab.txt``).  Returns (reports, anchors, tokenizer, the config
+    with the reader pointed at these files)."""
     from memvul_tpu_torch.config import load_config
     from memvul_tpu_torch.data.synthetic import corpus_texts, generate_corpus
     from memvul_tpu_torch.data.tokenizer import WordPieceTokenizer
-    from memvul_tpu_torch.ops import anchor_match as am
-    from memvul_tpu_torch.ops import flash_attention as fa
 
-    t0 = time.perf_counter()
     cfg = load_config(CONFIG)
     per_project = 32
     reports, cve = generate_corpus(
@@ -377,8 +550,7 @@ def phase_main_path(workdir: Path, records: dict, reports_wanted: int = 512) -> 
         reports_per_project=per_project, seed=0, realistic_lengths=True,
     )
     anchors = _synthetic_anchors(129, seed=1)
-    test_path = workdir / "test_project.json"
-    test_path.write_text(json.dumps(reports))
+    (workdir / "test_project.json").write_text(json.dumps(reports))
     cve_path = workdir / "CVE_dict.json"
     cve_path.write_text(json.dumps(cve))
     anchor_path = workdir / "CWE_anchor_golden_project.json"
@@ -386,14 +558,29 @@ def phase_main_path(workdir: Path, records: dict, reports_wanted: int = 512) -> 
     tok = WordPieceTokenizer.build_deterministic(
         corpus_texts(reports) + list(anchors.values()), vocab_size=30522
     )
+    tok.save_vocab_txt(workdir / "vocab.txt")
+    cfg["dataset_reader"] = dict(cfg["dataset_reader"], cve_path=str(cve_path),
+                                 anchor_path=str(anchor_path))
+    return reports, anchors, tok, cfg
+
+
+def phase_main_path(workdir: Path, records: dict, reports_wanted: int = 512) -> None:
+    import numpy as np
+    import torch
+
+    from memvul_tpu_torch.archive import save_archive
+    from memvul_tpu_torch.build import evaluate_from_archive
+    from memvul_tpu_torch.ops import anchor_match as am
+    from memvul_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    reports, anchors, tok, cfg = _write_corpus(workdir, reports_wanted)
+    test_path = workdir / "test_project.json"
     vocab_path = workdir / "vocab.txt"
-    tok.save_vocab_txt(vocab_path)
     # the synthetic corpus has a few hundred distinct words; the embedding
     # table keeps bert-base's 30522 rows all the same
     model_cfg = dict(cfg["model"], encoder=dict(cfg["model"]["encoder"], vocab_size=30522))
     archived = dict(cfg, model=model_cfg)
-    archived["dataset_reader"] = dict(cfg["dataset_reader"], cve_path=str(cve_path),
-                                      anchor_path=str(anchor_path))
     params = _random_flax_params(model_cfg, tok.vocab_size, seed=0)
     archive = save_archive(workdir / "model.tar.gz", archived, params, tokenizer_file=vocab_path)
     del params
@@ -451,29 +638,273 @@ def phase_main_path(workdir: Path, records: dict, reports_wanted: int = 512) -> 
     )
 
 
-def phase_profile(archive: Path, rows: int = 128, length: int = 2048) -> None:
-    """Device time by kernel for one scoring batch of the main path's
-    2048 bucket (128 rows), through the archived full-width model, by
-    torch.profiler (CUDA events give the batch's total device time)."""
+# bf16 parity of the packed serve path against the bucketed path on the
+# same texts.  The two differ only in how rows reach the card (one
+# [1, 2048] pack through the ragged kernel against [16, 512] padded blocks
+# through the flash kernel), so every difference is bf16 rounding taken in
+# a different order: a few units of 2^-9 in the hidden states over 12
+# layers, which moves a probability of this random-weight model by about
+# 1e-3.  This bounds the serve path's own error; it cannot see a leak
+# across requests or an answer handed to the wrong request, because with
+# N(0, 0.02) weights the answers barely depend on the request (their spread
+# across requests is printed beside it).  ``kernel_ragged`` and
+# ``ragged_reference`` carry the power to see a leak, and ``serve_identity``
+# the power to see a swap.
+BF16_SERVE_PROBS_ABS = 1e-2
+
+
+def phase_serve_path(workdir: Path, records: dict, requests: int = 256, threads: int = 16,
+                     http_requests: int = 8) -> None:
+    """``serve_from_archive`` on the main path's archive with
+    ``score_impl`` "ragged" and then "continuous" (the serving section's
+    defaults otherwise: max_length 512, a pack of 2048 tokens and 16 rows):
+    ``requests`` texts of the main path's corpus from ``threads`` client
+    threads through ``InprocessClient``, then ``http_requests`` through
+    ``HTTPClient`` to the front end on 127.0.0.1:0.  The launch counts are
+    set to 0 after each service is built and read after its traffic; the
+    responses are then held against the bucketed ``score_texts`` of the
+    same texts on the card."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from memvul_tpu_torch.build import serve_from_archive
+    from memvul_tpu_torch.data.synthetic import corpus_texts
+    from memvul_tpu_torch.ops import anchor_match as am
+    from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.ops import ragged_attention as ra
+    from memvul_tpu_torch.serving import HTTPClient, InprocessClient
+    from memvul_tpu_torch.serving.frontend import run_http_server
+
+    archive = workdir / "model.tar.gz"
+    texts = corpus_texts(json.loads((workdir / "test_project.json").read_text()))[:requests]
+    layers = 12
+    ragged_launches = 0
+    runs = {}
+    for impl in ("ragged", "continuous"):
+        t0 = time.perf_counter()
+        service = serve_from_archive(
+            archive, device="cuda",
+            overrides={"serving": {"score_impl": impl, "default_deadline_ms": 30000}},
+        )
+        build_s = time.perf_counter() - t0
+        predictor = service.predictor
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ra.launches = fa.launches = am.launches = 0
+        client = InprocessClient(service)
+        results = [None] * len(texts)
+
+        def worker(indices):
+            for i in indices:
+                results[i] = client.score(texts[i])
+
+        pool = [threading.Thread(target=worker, args=(range(k, len(texts), threads),))
+                for k in range(threads)]
+        t1 = time.perf_counter()
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join()
+        traffic_s = time.perf_counter() - t1
+        server = run_http_server(service, host="127.0.0.1", port=0)
+        try:
+            host, port = server.server_address[:2]
+            http = HTTPClient(f"http://{host}:{port}")
+            over_http = [http.score(texts[i]) for i in range(http_requests)]
+            health = http.health()
+        finally:
+            server.shutdown()
+        service.drain()
+        launches = {"ragged": ra.launches, "flash": fa.launches, "anchor_match": am.launches}
+        peak_bytes = torch.cuda.max_memory_allocated()
+        snap = service.registry.snapshot()
+        counters, hists = snap["counters"], snap["histograms"]
+
+        bad = [r for r in results + over_http if r is None or r.get("status") != "ok"]
+        if bad:
+            raise SystemExit(f"serve_path ({impl}): {len(bad)} responses not ok, first {bad[0]}")
+        labels = predictor.anchor_labels
+        got = np.array([[r["predict"][a] for a in labels] for r in results], np.float64)
+        if got.shape != (len(texts), 129) or not np.isfinite(got).all() \
+                or got.min() < 0.0 or got.max() > 1.0:
+            raise SystemExit(f"serve_path ({impl}): probabilities out of range, shape {got.shape}")
+        packs = counters["serve.batches"]
+        budget = predictor.token_budget
+        checks = {
+            "served_eq_requests": counters["serve.served"] == counters["serve.requests"]
+            == len(texts) + http_requests,
+            "padded_multiple_of_budget": counters["serve.tokens_padded"] % budget == 0,
+            "ragged_launches_eq_layers_x_packs": launches["ragged"] == layers * packs,
+            "anchor_match_launches_eq_packs": launches["anchor_match"] == packs,
+            "health_ok": health.get("status") == "ok" and health.get("score_impl") == impl,
+        }
+        # the oracle: the same texts through the bucketed blocks on the card
+        want = predictor.score_texts(texts, impl="bucketed")
+        parity = float(np.abs(got - want).max())
+        checks["bucketed_parity"] = parity <= BF16_SERVE_PROBS_ABS
+        latency = hists.get("serve.latency_s", {})
+        runs[impl] = {
+            "ok": all(checks.values()), "checks": checks,
+            "requests": len(texts), "client_threads": threads, "http_requests": http_requests,
+            "build_and_warmup_s": build_s, "traffic_s": traffic_s,
+            "requests_per_s": len(texts) / traffic_s,
+            "latency_p50_ms": latency.get("p50", 0.0) * 1e3,
+            "latency_p99_ms": latency.get("p99", 0.0) * 1e3,
+            "packs": packs, "token_budget": budget, "max_rows_per_pack": predictor.max_rows_per_pack,
+            "tokens_real": counters["serve.tokens_real"],
+            "tokens_padded": counters["serve.tokens_padded"],
+            "token_utilization": counters["serve.tokens_real"] / counters["serve.tokens_padded"],
+            "pack_topups": counters.get("serve.pack_topups", 0),
+            "truncated": counters.get("serve.truncated", 0),
+            "batch_latency_p50_ms": hists.get("serve.batch_latency_s", {}).get("p50", 0.0) * 1e3,
+            "launches": launches,
+            "bucketed_parity_max_abs": parity, "parity_tol": BF16_SERVE_PROBS_ABS,
+            "probs_std_across_requests": float(got.std(axis=0).mean()),
+            "peak_memory_gib": peak_bytes / 2**30,
+        }
+        ragged_launches += launches["ragged"]
+        del service, predictor
+        torch.cuda.empty_cache()
+        if not runs[impl]["ok"]:
+            emit("serve_path", ok=False, runs=runs, card=nvidia_smi_line())
+            raise SystemExit(f"serve_path ({impl}) failed: {runs[impl]['checks']}")
+    emit("serve_path", ok=True, archive="main_path's model.tar.gz", runs=runs, card=nvidia_smi_line())
+    records["ragged_flash_attention"]["launches"] = ragged_launches
+
+
+# the small f32 model served on the card against its plain bucketed path on
+# the CPU, per request and per anchor.  f32 rounding in a different order
+# moves a probability by about 1e-7; the phase shows that any two distinct
+# requests' answers differ by more than twice this limit, so an answer
+# handed to the wrong request cannot pass.
+SERVE_IDENTITY_ABS = 1e-6
+
+
+def _small_archive(workdir: Path) -> Path:
+    """An archive of the reference phases' small model (2 layers, 2 heads
+    of 64, FFN 256, header 64, 512 positions, f32) beside the main path's
+    data in ``workdir``: weights from a seed, the attention weights scaled
+    up as in ``_small_model`` so each request's answers differ strongly
+    from every other's."""
+    from memvul_tpu_torch.archive import save_archive
+    from memvul_tpu_torch.config import load_config
+
+    cfg = load_config(CONFIG)
+    vocab_path = workdir / "vocab.txt"
+    vocab_size = len(vocab_path.read_text().splitlines())
+    encoder = dict(cfg["model"]["encoder"], hidden_size=128, num_layers=2, num_heads=2,
+                   intermediate_size=256, max_position_embeddings=512, dtype="float32",
+                   vocab_size=vocab_size)
+    model_cfg = dict(cfg["model"], header_dim=64, encoder=encoder)
+    params = _random_flax_params(model_cfg, vocab_size, seed=2)
+    enc = params["params"]["bert"]["encoder"]
+    for layer in ([enc["layers"]["layer"]] if "layers" in enc else enc.values()):
+        for name, scale in (("query", 9.0), ("key", 9.0), ("value", 4.0), ("output", 4.0)):
+            layer["attention"][name]["kernel"] *= scale
+    reader = dict(cfg["dataset_reader"], cve_path=str(workdir / "CVE_dict.json"),
+                  anchor_path=str(workdir / "CWE_anchor_golden_project.json"))
+    archived = dict(cfg, model=model_cfg, dataset_reader=reader)
+    return save_archive(workdir / "small_model.tar.gz", archived, params, tokenizer_file=vocab_path)
+
+
+def phase_serve_identity(workdir: Path, device: str = "cuda", requests: int = 128,
+                         threads: int = 16, burst_texts: int = 4, copies: int = 4) -> None:
+    """Which answer goes back to which request, on the continuous path with
+    prefix sharing on: the small f32 model's archive served on ``device``
+    (``score_impl`` "continuous", ``prefix_share`` on, the serving section's
+    defaults otherwise: max_length 512, packs of 2048 tokens and 16 rows).
+    ``requests`` distinct texts of the main path's corpus come from
+    ``threads`` client threads through ``InprocessClient``, then a burst of
+    ``copies`` adjacent copies of each of the ``burst_texts`` shortest texts
+    through ``ScoringService.submit``, which alias inside their packs
+    (``row_starts`` pointing back, segment ids with gaps).  Every response
+    must match the same archive's bucketed path on the CPU to
+    ``SERVE_IDENTITY_ABS``, any two distinct requests' answers must differ
+    by more than twice that, and the kernels' launch counts must match the
+    packs."""
+    import threading
+
+    import numpy as np
+
+    from memvul_tpu_torch.build import serve_from_archive
+    from memvul_tpu_torch.data.synthetic import corpus_texts
+    from memvul_tpu_torch.ops import anchor_match as am
+    from memvul_tpu_torch.ops import ragged_attention as ra
+    from memvul_tpu_torch.serving import InprocessClient
+
+    archive = _small_archive(workdir)
+    corpus = corpus_texts(json.loads((workdir / "test_project.json").read_text()))
+    texts = list(dict.fromkeys(corpus))[:requests]
+    burst = [t for t in sorted(texts, key=len)[:burst_texts] for _ in range(copies)]
+    service = serve_from_archive(archive, device=device, overrides={"serving": {
+        "score_impl": "continuous", "prefix_share": True, "default_deadline_ms": 30000}})
+    ra.launches = am.launches = 0
+    client = InprocessClient(service)
+    results = [None] * len(texts)
+
+    def worker(indices):
+        for i in indices:
+            results[i] = client.score(texts[i])
+
+    pool = [threading.Thread(target=worker, args=(range(k, len(texts), threads),))
+            for k in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    futures = [service.submit(t) for t in burst]
+    results += [f.result(60) for f in futures]
+    service.drain()
+    launches = {"ragged": ra.launches, "anchor_match": am.launches}
+    counters = service.registry.snapshot()["counters"]
+    labels = service.predictor.anchor_labels
+    layers = service.predictor.model.config.num_layers
+    del service
+
+    reference = serve_from_archive(archive, device="cpu",
+                                   overrides={"serving": {"default_deadline_ms": 30000}})
+    sent = texts + burst
+    want = reference.predictor.score_texts(sent, impl="bucketed")
+    seqs = reference.predictor.encoder.encode_many(sent)
+    reference.drain()
+    bad = [r for r in results if r is None or r.get("status") != "ok"]
+    if bad:
+        raise SystemExit(f"serve_identity: {len(bad)} responses not ok, first {bad[0]}")
+    got = np.array([[r["predict"][a] for a in labels] for r in results], np.float64)
+    err = float(np.abs(got - want).max())
+    # the closest two requests whose token rows differ
+    apart = np.abs(want[:, None, :] - want[None, :, :]).max(axis=-1)
+    same = np.array([[a == b for b in seqs] for a in seqs])
+    margin = float(apart[~same].min())
+    packs = counters["serve.batches"]
+    checks = {
+        "served_eq_requests": counters["serve.served"] == counters["serve.requests"] == len(sent),
+        "per_request_within_tol": err <= SERVE_IDENTITY_ABS,
+        "distinct_requests_apart": margin > 2 * SERVE_IDENTITY_ABS,
+        "rows_aliased": counters.get("serve.prefix_rows_aliased", 0) > 0,
+        "ragged_launches_eq_layers_x_packs": launches["ragged"] == layers * packs,
+        "anchor_match_launches_eq_packs": launches["anchor_match"] == packs,
+    }
+    ok = all(checks.values())
+    emit("serve_identity", ok=ok, checks=checks, requests=len(texts), client_threads=threads,
+         burst=len(burst), max_abs_err=err, tol=SERVE_IDENTITY_ABS,
+         closest_distinct_requests=margin, packs=packs,
+         rows_aliased=counters.get("serve.prefix_rows_aliased", 0),
+         tokens_saved=counters.get("serve.prefix_tokens_saved", 0), launches=launches)
+    if not ok:
+        raise SystemExit(f"serve_identity failed: {checks}")
+
+
+def _kernel_breakdown(fn):
+    """Device time by kernel group of one call of ``fn``, by torch.profiler:
+    (ms per group, the eight costliest kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from memvul_tpu_torch.archive import load_archive
-    from memvul_tpu_torch.models.memory import anchor_probs
-
-    arch = load_archive(archive, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    ids = torch.randint(5, 300, (rows, length), device="cuda", generator=gen)
-    mask = torch.ones_like(ids)
-    bank = torch.randn(129, 512, device="cuda", generator=gen).to(torch.bfloat16)
-
-    def batch():
-        with torch.no_grad():
-            return anchor_probs(arch.model(ids, mask, anchors=bank))
-
-    batch_ms = time_ms(batch, 3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        batch()
+        fn()
         torch.cuda.synchronize()
     by_name: dict = {}
     for evt in prof.key_averages():
@@ -487,17 +918,69 @@ def phase_profile(archive: Path, rows: int = 128, length: int = 2048) -> None:
     for name, ms in by_name.items():
         low = name.lower()
         group = ("flash_fwd" if "flash_fwd" in low else
+                 "ragged_fwd" if "ragged_fwd" in low or "tile_ranges" in low else
                  "anchor_match" if "anchor_match" in low else
                  "gemm" if any(s in low for s in ("gemm", "cutlass", "xmma", "nvjet", "sm90")) else
                  "layer_norm" if "layer_norm" in low else
                  "gelu" if "gelu" in low else "other")
         groups[group] = groups.get(group, 0.0) + ms
-    total = sum(groups.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return groups, [[name[:80], ms] for name, ms in top]
+
+
+def phase_profile(archive: Path, rows: int = 128, length: int = 2048) -> None:
+    """Where the time goes, through the archived full-width model: device
+    time by kernel (torch.profiler) for one scoring batch of the main
+    path's 2048 bucket (128 rows; CUDA events give its device span), and
+    for one round trip of a serve pack (the fullest realistic pack of 2048
+    tokens, 16 rows: its host copy in, the encoder, the anchor match and
+    the copy out, as ``score_ragged_sample`` runs it), beside that round
+    trip's host wall time, which gives the card's busy share."""
+    import numpy as np
+    import torch
+
+    from memvul_tpu_torch.archive import load_archive
+    from memvul_tpu_torch.data.batching import collate_ragged
+    from memvul_tpu_torch.models.memory import anchor_probs
+
+    arch = load_archive(archive, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ids = torch.randint(5, 300, (rows, length), device="cuda", generator=gen)
+    mask = torch.ones_like(ids)
+    bank = torch.randn(129, 512, device="cuda", generator=gen).to(torch.bfloat16)
+
+    def batch():
+        with torch.no_grad():
+            return anchor_probs(arch.model(ids, mask, anchors=bank))
+
+    batch_ms = time_ms(batch, 3)
+    groups, top = _kernel_breakdown(batch)
+    total = sum(groups.values())
     emit("main_path_profile", shape=[rows, length], batch_ms=batch_ms,
          kernel_ms=groups, kernel_share={k: v / total for k, v in groups.items()} if total else {},
-         device_busy_share=total / batch_ms if batch_ms else None,
-         top_kernels=[[name[:80], ms] for name, ms in top])
+         device_busy_share=total / batch_ms if batch_ms else None, top_kernels=top)
+
+    _, lens = _realistic_pack(2048, 512)
+    rng = np.random.default_rng(3)
+    sample = collate_ragged([list(rng.integers(5, 300, size=n)) for n in lens], 2048, 16, pad_id=0)
+
+    def pack():
+        dev = {k: torch.from_numpy(v).to("cuda").long() for k, v in sample.items()}
+        with torch.no_grad():
+            return anchor_probs(arch.model.score_ragged(dev, bank)).cpu()
+
+    pack()
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        pack()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = float(np.median(walls))
+    groups, top = _kernel_breakdown(pack)
+    total = sum(groups.values())
+    emit("serve_pack_profile", rows=len(lens), tokens=sum(lens), token_budget=2048,
+         wall_ms=wall_ms, kernel_ms=groups, kernel_total_ms=total,
+         device_busy_share=total / wall_ms, top_kernels=top)
     del arch
 
 
@@ -507,6 +990,35 @@ def phase_profile(archive: Path, rows: int = 128, length: int = 2048) -> None:
 # limit would catch a lost key tile.
 BF16_HIDDEN_REL = 0.25
 BF16_PROBS_ABS = 1e-3
+
+
+def _small_model(impl: str, dtype):
+    """The reference phases' small memory model (2 layers, 2 heads of 64)
+    from a seed.  In bf16 the attention weights are scaled up, so each
+    softmax is peaked and the attention branch weighs in the residual
+    stream."""
+    import torch
+
+    from memvul_tpu_torch.models.bert import BertConfig
+    from memvul_tpu_torch.models.memory import MemoryModel
+
+    cfg = BertConfig(
+        vocab_size=500, hidden_size=128, num_layers=2, num_heads=2,
+        intermediate_size=256, max_position_embeddings=320, attention_impl=impl,
+        dtype=dtype,
+    )
+    torch.manual_seed(0)
+    model = MemoryModel(cfg, header_dim=64).eval()
+    if dtype == torch.bfloat16:
+        with torch.no_grad():
+            for layer in model.bert.encoder.layer:
+                # scores of spread about 4 instead of about 0.05
+                attention = layer.attention
+                attention.self.query.weight.mul_(9.0)
+                attention.self.key.weight.mul_(9.0)
+                attention.self.value.weight.mul_(4.0)
+                attention.output.dense.weight.mul_(4.0)
+    return model
 
 
 def phase_main_path_reference() -> None:
@@ -520,8 +1032,7 @@ def phase_main_path_reference() -> None:
     import numpy as np
     import torch
 
-    from memvul_tpu_torch.models.bert import BertConfig
-    from memvul_tpu_torch.models.memory import MemoryModel, anchor_probs
+    from memvul_tpu_torch.models.memory import anchor_probs
 
     rng = np.random.default_rng(0)
     ids = torch.as_tensor(rng.integers(5, 500, size=(9, 300)))
@@ -535,23 +1046,7 @@ def phase_main_path_reference() -> None:
     results = {}
     for impl, dtype in (("flash", torch.float32), ("xla", torch.float32),
                         ("flash", torch.bfloat16)):
-        cfg = BertConfig(
-            vocab_size=500, hidden_size=128, num_layers=2, num_heads=2,
-            intermediate_size=256, max_position_embeddings=320, attention_impl=impl,
-            dtype=dtype,
-        )
-        torch.manual_seed(0)
-        model = MemoryModel(cfg, header_dim=64).eval()
-        if dtype == torch.bfloat16:
-            with torch.no_grad():
-                for layer in model.bert.encoder.layer:
-                    # scores of spread about 4 instead of about 0.05, and an
-                    # attention branch that weighs in the residual stream
-                    attention = layer.attention
-                    attention.self.query.weight.mul_(9.0)
-                    attention.self.key.weight.mul_(9.0)
-                    attention.self.value.weight.mul_(4.0)
-                    attention.output.dense.weight.mul_(4.0)
+        model = _small_model(impl, dtype)
         out, hidden = {}, {}
         for device in ("cpu", "cuda"):
             m = model.to(device)
@@ -588,6 +1083,78 @@ def phase_main_path_reference() -> None:
          results=results)
 
 
+def phase_ragged_reference() -> None:
+    """The small model served ragged: one pack of 7 requests (a budget of
+    2400, not a tile multiple, with a dead tail) scored on the card and on
+    the CPU, which must agree.  In f32 the pack goes through the ragged
+    kernel's CUDA-core path (per-anchor probabilities to 1e-5); in bf16 at
+    head dim 64 through its tensor-core path, to the bf16 limits above,
+    with the check shown to catch a kernel that lost the first key tile of
+    every request and one that leaked across requests."""
+    import numpy as np
+    import torch
+
+    from memvul_tpu_torch.data.batching import collate_ragged
+    from memvul_tpu_torch.models.memory import anchor_probs
+
+    rng = np.random.default_rng(5)
+    rows = 7
+    seqs = [list(rng.integers(5, 500, size=int(n))) for n in rng.integers(1, 301, size=rows)]
+    sample = {k: torch.as_tensor(v).long() for k, v in collate_ragged(seqs, 2400, 8, pad_id=0).items()}
+    bank_ids = torch.as_tensor(rng.integers(5, 500, size=(7, 300)))
+    bank_mask = torch.ones_like(bank_ids)
+    seg = sample["segment_ids"]
+    live = seg[0] > 0
+    # a kernel that lost a key tile (the first 64 tokens of every request
+    # cut off from the rest of it), and one that leaked across requests
+    # (every live token in one segment)
+    lost_seg = seg.clone()
+    for s_id in torch.unique(seg[seg > 0]).tolist():
+        lost_seg[0, torch.nonzero(seg[0] == s_id)[:64, 0]] = s_id + 1000
+    leak_seg = (seg > 0).long()
+
+    def hidden_of(m, s, segment_ids, device):
+        return m.bert(s["input_ids"], s["attention_mask"], position_ids=s["position_ids"],
+                      segment_ids=segment_ids.to(device))[0].float().cpu()[live]
+
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = _small_model("flash", dtype)
+        out, hidden = {}, {}
+        for device in ("cpu", "cuda"):
+            m = model.to(device)
+            s = {k: v.to(device) for k, v in sample.items()}
+            with torch.no_grad():
+                bank = m.encode(bank_ids.to(device), bank_mask.to(device))
+                out[device] = anchor_probs(m.score_ragged(s, bank)).cpu()[:rows]
+                hidden[device] = hidden_of(m, s, seg, device)
+        name = f"ragged_{str(dtype).split('.')[-1]}"
+        if dtype == torch.float32:
+            err, ok = max_err(out["cuda"], out["cpu"], 1e-5, 0.0)
+            results[name] = {"max_abs_err": err, "ok": ok}
+        else:
+            err, _ = max_err(out["cuda"], out["cpu"], 0.0, 0.0)
+            h_err, _ = max_err(hidden["cuda"], hidden["cpu"], 0.0, 0.0)
+            h_rel = h_err / rms(hidden["cpu"])
+            with torch.no_grad():
+                lost, leak = (hidden_of(model.to("cpu"), sample, s, "cpu") for s in (lost_seg, leak_seg))
+            lost_rel, leak_rel = (max_err(x, hidden["cpu"], 0.0, 0.0)[0] / rms(hidden["cpu"])
+                                  for x in (lost, leak))
+            ok = (err <= BF16_PROBS_ABS and h_rel <= BF16_HIDDEN_REL
+                  and BF16_HIDDEN_REL < min(lost_rel, leak_rel))
+            results[name] = {"max_abs_err": err, "hidden_max_abs_err": h_err,
+                             "hidden_err_over_rms": h_rel, "lost_tile_hidden_err_over_rms": lost_rel,
+                             "leak_hidden_err_over_rms": leak_rel, "ok": ok}
+        if not ok:
+            emit("ragged_reference", ok=False, results=results)
+            raise SystemExit(f"card and CPU disagree on the small ragged model ({name}): {results[name]}")
+    emit("ragged_reference", ok=True, rows=rows, token_budget=2400,
+         row_tokens=[len(s) for s in seqs],
+         tol={"f32": {"atol": 1e-5},
+              "bf16": {"hidden_err_over_rms": BF16_HIDDEN_REL, "probs_abs": BF16_PROBS_ABS}},
+         results=results)
+
+
 def main() -> int:
     import torch
 
@@ -616,10 +1183,14 @@ def main() -> int:
     records: dict = {}
     phase_anchor_match(records)
     phase_flash(records)
+    phase_ragged(records)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         phase_main_path(Path(tmp), records)
+        phase_serve_path(Path(tmp), records)
+        phase_serve_identity(Path(tmp))
         phase_profile(Path(tmp) / "model.tar.gz")
     phase_main_path_reference()
+    phase_ragged_reference()
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]

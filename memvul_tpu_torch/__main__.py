@@ -2,9 +2,15 @@
 
     python -m memvul_tpu_torch evaluate out/model.tar.gz data/test_project.json -o eval/
     python -m memvul_tpu_torch evaluate ... --overrides '{"evaluation": {"batch_size": 64}}' --device cpu
+    python -m memvul_tpu_torch serve out/model.tar.gz --port 8341 \\
+        --overrides '{"serving": {"score_impl": "continuous"}}'
 
-``evaluate`` runs on the card (``--device cuda``, the default) unless
-``--device cpu`` is given, and prints the metric dict as one JSON line.
+``evaluate`` prints the metric dict as one JSON line.  ``serve`` puts the
+HTTP front end (``POST /score``, ``GET /healthz``) over
+``build.serve_from_archive``, prints one JSON line with the bound
+``"serving"`` URL once it listens, and drains on SIGTERM/SIGINT.  Both run
+on the card (``--device cuda``, the default) unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -12,7 +18,10 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
+import signal
 import sys
+import threading
 
 
 def cmd_evaluate(args) -> int:
@@ -24,6 +33,39 @@ def cmd_evaluate(args) -> int:
         thres=args.thres, device=args.device,
     )
     print(json.dumps(metrics, default=float))
+    return 0
+
+
+def cmd_serve(args) -> int:
+    from .build import serve_from_archive
+    from .serving.frontend import run_http_server
+
+    try:
+        service = serve_from_archive(
+            args.archive, out_dir=args.out_dir, overrides=args.overrides,
+            golden_file=args.golden_file, device=args.device,
+        )
+    except ValueError as e:
+        print(f"serve: {e}", file=sys.stderr)
+        return 2
+    server = run_http_server(service, host=args.host, port=args.port)
+    stop = threading.Event()
+
+    def _stop_handler(signum, frame):
+        service.request_drain()
+        stop.set()
+
+    previous = [(sig, signal.signal(sig, _stop_handler)) for sig in (signal.SIGTERM, signal.SIGINT)]
+    host, port = server.server_address[:2]
+    print(json.dumps({"serving": f"http://{host}:{port}", "pid": os.getpid(), "replicas": 1}), flush=True)
+    try:
+        while not stop.is_set():
+            stop.wait(0.5)
+    finally:
+        server.shutdown()
+        service.drain()
+        for sig, handler in previous:
+            signal.signal(sig, handler)
     return 0
 
 
@@ -40,6 +82,15 @@ def main(argv=None) -> int:
     ev.add_argument("--thres", type=float, default=0.5)
     ev.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ev.set_defaults(fn=cmd_evaluate)
+    sv = sub.add_parser("serve", help="online scoring service over HTTP")
+    sv.add_argument("archive", help="model.tar.gz or a serialization dir holding one")
+    sv.add_argument("-o", "--out-dir", default=None, help="telemetry.json lands here at drain")
+    sv.add_argument("--overrides", default=None, help="JSON (Jsonnet subset) config overrides")
+    sv.add_argument("--golden-file", default=None, help="anchor file (default: the config's anchor_path)")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8341, help="0 binds an ephemeral port")
+    sv.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    sv.set_defaults(fn=cmd_serve)
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     return args.fn(args)

@@ -5,7 +5,10 @@ package's ``build.py``, memory model only).
   "bfloat16", ...}`` → :class:`BertConfig`;
 * :func:`build_model` / :func:`build_tokenizer` / :func:`build_reader`;
 * :func:`evaluate_from_archive` — load an archive with overrides, score a
-  corpus, write ``{name}_result.json`` and ``{name}_metric_all.json``.
+  corpus, write ``{name}_result.json`` and ``{name}_metric_all.json``;
+* :func:`serve_from_archive` — load an archive, encode its anchor bank,
+  warm the serving shapes and return a running ``ScoringService``
+  (single replica).
 
 Everything runs on ``device``, ``"cuda"`` unless the caller asks for the
 CPU; on a host without CUDA the default raises instead of falling back.
@@ -147,4 +150,87 @@ def evaluate_from_archive(
         inflight=int(eval_cfg["inflight"]),
         anchor_match_impl=eval_cfg["anchor_match_impl"],
         device=device,
+    )
+
+
+def serve_from_archive(
+    archive_path: Union[str, Path],
+    out_dir: Optional[Union[str, Path]] = None,
+    overrides: Optional[Union[str, Dict[str, Any]]] = None,
+    golden_file: Optional[Union[str, Path]] = None,
+    device: Union[str, torch.device] = "cuda",
+):
+    """The archive's online scoring service on ``device``: the ``serving``
+    section (``config.SERVING_DEFAULTS``) sizes the predictor and the
+    admission envelope, the anchor bank is encoded, and every serving
+    shape runs once (building the kernel library) before the service is
+    returned, so the first request pays no build.  With ``out_dir`` the
+    service writes ``telemetry.json`` there when it drains."""
+    from .archive import load_archive
+    from .config import serving_config
+    from .data.batching import validate_buckets
+    from .evaluate.predict_memory import SiamesePredictor
+    from .resilience.retry import RetryPolicy
+    from .serving.service import ScoringService, ServiceConfig
+
+    device = resolve_device(device)
+    arch = load_archive(archive_path, overrides=overrides, device=device)
+    model_type = (arch.config.get("model") or {}).get("type", "model_memory")
+    if model_type != "model_memory":
+        raise ValueError(
+            f"serving wraps the Siamese memory model; archive has model type {model_type!r}"
+        )
+    serve_cfg = serving_config(arch.config)
+    max_length = int(serve_cfg["max_length"])
+    model_positions = arch.model.config.max_position_embeddings
+    if max_length > model_positions:
+        logger.warning(
+            "serving max_length %d exceeds the archived model's "
+            "max_position_embeddings %d — clamping", max_length, model_positions,
+        )
+        max_length = model_positions
+    buckets = serve_cfg["buckets"]
+    if buckets == "auto":
+        raise ValueError(
+            'serving.buckets "auto" is an offline policy (it samples a '
+            "corpus); pass an explicit bucket list for serving"
+        )
+    if buckets is not None:
+        buckets = validate_buckets([int(b) for b in buckets], max_length)
+    score_impl = str(serve_cfg["score_impl"])
+    if score_impl not in ("bucketed", "ragged", "continuous", "cascade"):
+        raise ValueError(
+            "serving.score_impl must be 'bucketed', 'ragged', 'continuous' "
+            f"or 'cascade', got {score_impl!r}"
+        )
+    token_budget = serve_cfg["token_budget"]
+    max_rows = serve_cfg["max_rows_per_pack"]
+    golden = golden_file or (arch.config.get("dataset_reader") or {}).get("anchor_path")
+    if golden is None:
+        raise ValueError("serving needs a golden anchor file")
+    reader = build_reader(arch.config.get("dataset_reader"))
+    retries = int(serve_cfg["retries"])
+    predictor = SiamesePredictor(
+        arch.model, arch.tokenizer,
+        batch_size=int(serve_cfg["max_batch"]),
+        max_length=max_length,
+        buckets=buckets,
+        score_impl=score_impl,
+        token_budget=None if token_budget is None else int(token_budget),
+        max_rows_per_pack=int(serve_cfg["max_batch"] if max_rows is None else max_rows),
+    )
+    predictor.encode_anchors(reader.read_anchors(str(golden)))
+    shapes = predictor.warmup_compile()
+    logger.info("serving warmed %d shape(s) on %s (score_impl=%s)", shapes, device, score_impl)
+    return ScoringService(
+        predictor,
+        config=ServiceConfig(
+            max_batch=int(serve_cfg["max_batch"]),
+            max_wait_ms=float(serve_cfg["max_wait_ms"]),
+            max_queue=int(serve_cfg["max_queue"]),
+            default_deadline_ms=float(serve_cfg["default_deadline_ms"]),
+            prefix_share=bool(serve_cfg["prefix_share"]),
+        ),
+        retry_policy=RetryPolicy(attempts=retries) if retries > 0 else None,
+        out_dir=out_dir,
     )

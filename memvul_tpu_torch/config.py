@@ -275,3 +275,89 @@ def _section_over_defaults(
 def evaluation_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     """``cfg["evaluation"]`` merged over :data:`EVALUATION_DEFAULTS`."""
     return _section_over_defaults(cfg, "evaluation", EVALUATION_DEFAULTS)
+
+
+# The ``serving`` section's keys that the port honours, with the JAX
+# package's defaults.  ``build.serve_from_archive`` sizes the predictor
+# and the service's admission-control envelope from them.
+SERVING_DEFAULTS: Dict[str, Any] = {
+    "max_batch": 16,         # requests coalesced per micro-batch flush
+    "max_wait_ms": 5.0,      # oldest-request coalescing window
+    "max_queue": 256,        # bounded queue depth; overflow sheds the oldest
+    "default_deadline_ms": 2000.0,  # per-request budget (<= 0 disables)
+    "retries": 2,            # transient batch retry attempts (0 = off)
+    "max_length": 512,       # token cap (clamped to the model's positions)
+    "buckets": None,         # explicit length buckets (bucketed impl)
+    "score_impl": "bucketed",    # "bucketed" | "ragged" | "continuous"
+    "token_budget": None,        # pack size (None → 4 × max_length)
+    "max_rows_per_pack": None,   # rows per pack (None → max_batch)
+    "prefix_share": False,   # continuous packs share exact-duplicate segments
+    "host": "127.0.0.1",     # HTTP front-end bind address
+    "port": 8341,            # HTTP front-end port
+}
+
+# The JAX package's serving keys for features this port does not have yet,
+# with their defaults.  Leaving one at its default is fine; setting it to
+# anything else raises, so a setting is never silently ignored.
+SERVING_UNPORTED: Dict[str, Any] = {
+    "cascade_low": 0.3,
+    "cascade_high": 0.7,
+    "replicas": 1,
+    "heartbeat_timeout_s": 10.0,
+    "max_batch_errors": 3,
+    "monitor_interval_s": 0.25,
+    "max_reroutes": 2,
+    "trace_sample_rate": 0.0,
+    "trace_ring": 256,
+    "slo_enabled": True,
+    "slo_availability_objective": 0.999,
+    "slo_latency_p95_ms": 1000.0,
+    "slo_fast_window_s": 60.0,
+    "slo_window_s": 300.0,
+    "slo_interval_s": 5.0,
+    "hosts": None,
+    "fleet_heartbeat_timeout_s": 10.0,
+    "fleet_monitor_interval_s": 0.25,
+    "fleet_max_reroutes": 2,
+    "fleet_max_restarts": 2,
+    "autoscale_enabled": False,
+    "autoscale_min_replicas": 1,
+    "autoscale_max_replicas": 4,
+    "autoscale_interval_s": 1.0,
+    "autoscale_up_cooldown_s": 5.0,
+    "autoscale_down_cooldown_s": 30.0,
+    "autoscale_up_consecutive": 2,
+    "autoscale_down_consecutive": 4,
+    "autoscale_drain_timeout_s": 10.0,
+    "alert_interval_s": 5.0,
+    "incident_min_interval_s": 30.0,
+    "incident_max_bundles": 8,
+    "incident_window_s": 120.0,
+    "tenants": None,
+    "cache_capacity": 0,
+}
+
+
+def serving_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """``cfg["serving"]`` merged over :data:`SERVING_DEFAULTS`.  Raises
+    ValueError when a key of :data:`SERVING_UNPORTED` is set to anything
+    but its default.  ``slo_enabled`` is on by default in the JAX package:
+    left on, it only logs that the SLO monitor is not ported; set off, it
+    asks for what the port does."""
+    section = dict((cfg or {}).get("serving") or {})
+    changed = sorted(
+        key for key, default in SERVING_UNPORTED.items()
+        if key in section and section[key] is not None and section[key] != default
+        and key != "slo_enabled"
+    )
+    if changed:
+        raise ValueError(
+            f"serving keys {changed} name features the port does not have yet "
+            "(ROADMAP.md); leave them at their defaults"
+        )
+    if section.get("slo_enabled", True):
+        logging.getLogger(__name__).info("serving.slo_enabled: the SLO monitor is not ported; no SLO gauges")
+    return _section_over_defaults(
+        {"serving": {k: v for k, v in section.items() if k not in SERVING_UNPORTED}},
+        "serving", SERVING_DEFAULTS,
+    )

@@ -8,13 +8,19 @@ smallest bucket covering its token length and emits a batch when a
 bucket fills; :func:`bucket_batch_sizes` sizes the buckets at a constant
 token budget.  Batches stay numpy; the predictor moves them to the
 device.
+
+The packed serve path lays many requests end to end in one fixed
+``[1, token_budget]`` row instead: :func:`pack_token_budget` groups
+requests into packs, :class:`PackSlotAllocator` writes them into a
+reusable page table one at a time, and :func:`collate_ragged` is its
+one-shot form.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Union
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -29,6 +35,7 @@ class CachedEncoder:
         self._max_length = max_length
         self._cache: Dict[str, List[int]] = {}
         self._cache_size = cache_size
+        self._beyond: Dict[Tuple[int, str], bool] = {}  # encodes_beyond memo
 
     @property
     def pad_id(self) -> int:
@@ -37,6 +44,20 @@ class CachedEncoder:
     @property
     def max_length(self) -> int:
         return self._max_length
+
+    def encodes_beyond(self, text: str, cap: int) -> bool:
+        """Whether ``text`` tokenizes to more than ``cap`` tokens (the
+        serving truncation probe, ``serve.truncated``).  A capped encode
+        cannot tell "exactly cap" from "clamped", so this re-encodes at
+        ``cap + 1``; callers probe only sequences at the cap, and the
+        verdict is memoized."""
+        key = (cap, text)
+        hit = self._beyond.get(key)
+        if hit is None:
+            hit = len(self._tokenizer.encode(text, max_length=cap + 1)) > cap
+            if len(self._beyond) < self._cache_size:
+                self._beyond[key] = hit
+        return hit
 
     def encode_many(self, texts: Sequence[str]) -> List[List[int]]:
         out = []
@@ -196,6 +217,197 @@ def validate_buckets(buckets: Sequence[int], max_length: int):
             f"{max_length} as the final bucket (or lower max_length)"
         )
     return out
+
+
+def pack_token_budget(
+    lengths: Sequence[int],
+    token_budget: int,
+    max_rows: int,
+) -> List[List[int]]:
+    """Group row lengths into fixed-budget packs, greedily and strictly in
+    input order: row ``i`` joins the open pack unless its tokens would
+    overflow ``token_budget`` or the pack already holds ``max_rows`` rows,
+    and then the open pack is sealed.  The packs covering a prefix of the
+    input never depend on what follows it.  Returns index lists; every
+    index appears in exactly one.  Lengths clamp to ``token_budget``."""
+    if token_budget < 1:
+        raise ValueError(f"token_budget must be >= 1, got {token_budget}")
+    if max_rows < 1:
+        raise ValueError(f"max_rows must be >= 1, got {max_rows}")
+    packs: List[List[int]] = []
+    open_pack: List[int] = []
+    used = 0
+    for i, length in enumerate(lengths):
+        n = max(1, min(int(length), token_budget))
+        if open_pack and (used + n > token_budget or len(open_pack) == max_rows):
+            packs.append(open_pack)
+            open_pack, used = [], 0
+        open_pack.append(i)
+        used += n
+    if open_pack:
+        packs.append(open_pack)
+    return packs
+
+
+class PackSlotAllocator:
+    """A reusable ``[1, token_budget]`` page table of live segments, filled
+    one request at a time (the continuous dispatcher keeps a pack open
+    while the previous one is on the card).
+
+    :meth:`admit` writes one segment in place (tokens, mask, 1-based
+    segment id, positions restarting at 0, row start) and returns its row
+    index, or ``None`` when it does not fit the remaining budget or rows:
+    the caller then seals the pack (:meth:`sample`, fresh copies) and
+    :meth:`reset`\\ s the pages.  ``slots_reused`` counts admissions into a
+    row slot an earlier pack used (``serve.pack_slots_reused``).
+
+    ``share_prefixes`` aliases exact duplicates: when a sequence's
+    cap-truncated tokens equal a segment already in the open pack, the new
+    row writes no tokens and its ``row_starts`` entry points at that
+    segment's first token, so segment ids in a pack can skip values.  Only
+    whole-segment identity is shared: a shared prefix would change the
+    prefix tokens' bidirectional attention.  Aliased rows need a row slot
+    but no budget (``rows_aliased`` / ``tokens_aliased``).
+    """
+
+    def __init__(
+        self,
+        token_budget: int,
+        max_rows: int,
+        pad_id: int,
+        share_prefixes: bool = False,
+    ) -> None:
+        if token_budget < 1:
+            raise ValueError(f"token_budget must be >= 1, got {token_budget}")
+        if max_rows < 1:
+            raise ValueError(f"max_rows must be >= 1, got {max_rows}")
+        self.token_budget = int(token_budget)
+        self.max_rows = int(max_rows)
+        self.pad_id = pad_id
+        self.share_prefixes = bool(share_prefixes)
+        # open-pack segment table: cap-truncated tokens → row index
+        self._segment_index: Dict[Tuple[int, ...], int] = {}
+        self.rows_aliased = 0
+        self.tokens_aliased = 0
+        self._ids = np.full((1, self.token_budget), pad_id, dtype=np.int32)
+        self._mask = np.zeros((1, self.token_budget), dtype=np.int32)
+        self._segments = np.zeros((1, self.token_budget), dtype=np.int32)
+        self._positions = np.zeros((1, self.token_budget), dtype=np.int32)
+        self._row_starts = np.zeros(self.max_rows, dtype=np.int32)
+        self._rows = 0
+        self._offset = 0
+        self._real_tokens = 0
+        self._high_water = 0  # deepest row slot any sealed pack used
+        self._generation = 0  # completed reset() count
+        self.slots_reused = 0
+
+    @property
+    def rows(self) -> int:
+        """Live segments in the open pack."""
+        return self._rows
+
+    @property
+    def used_tokens(self) -> int:
+        """Token positions the open pack has written."""
+        return self._offset
+
+    @property
+    def real_tokens(self) -> int:
+        """Real tokens the open pack carries (the padding ledger's
+        numerator)."""
+        return self._real_tokens
+
+    def fits(self, seq: Sequence[int]) -> bool:
+        """Whether :meth:`admit` would take ``seq`` now."""
+        if self._rows >= self.max_rows:
+            return False
+        if self.share_prefixes and tuple(seq[: self.token_budget]) in self._segment_index:
+            return True
+        return self._offset + min(len(seq), self.token_budget) <= self.token_budget
+
+    def admit(self, seq: Sequence[int]) -> Optional[int]:
+        """Write one segment into the open pack; its row index, or
+        ``None`` when it does not fit."""
+        if not self.fits(seq):
+            return None
+        seq = seq[: self.token_budget]
+        n = len(seq)
+        row = self._rows
+        if self._generation and row < self._high_water:
+            self.slots_reused += 1
+        if self.share_prefixes:
+            key = tuple(seq)
+            orig = self._segment_index.get(key)
+            if orig is not None:
+                self._row_starts[row] = self._row_starts[orig]
+                self._rows = row + 1
+                self.rows_aliased += 1
+                self.tokens_aliased += n
+                return row
+            self._segment_index[key] = row
+        offset = self._offset
+        self._ids[0, offset : offset + n] = seq
+        self._mask[0, offset : offset + n] = 1
+        self._segments[0, offset : offset + n] = row + 1
+        self._positions[0, offset : offset + n] = np.arange(n, dtype=np.int32)
+        self._row_starts[row] = offset
+        self._rows = row + 1
+        self._offset = offset + n
+        self._real_tokens += n
+        return row
+
+    def sample(self) -> Dict[str, np.ndarray]:
+        """The open pack as the flat sample the ragged score path takes,
+        in fresh copies (the pages may refill while the card reads it)."""
+        return {
+            "input_ids": self._ids.copy(),
+            "attention_mask": self._mask.copy(),
+            "segment_ids": self._segments.copy(),
+            "position_ids": self._positions.copy(),
+            "row_starts": self._row_starts.copy(),
+        }
+
+    def reset(self) -> None:
+        """Recycle the pages: clear only the written prefix."""
+        offset, rows = self._offset, self._rows
+        if offset:
+            self._ids[0, :offset] = self.pad_id
+            self._mask[0, :offset] = 0
+            self._segments[0, :offset] = 0
+            self._positions[0, :offset] = 0
+        if rows:
+            self._row_starts[:rows] = 0
+        self._high_water = max(self._high_water, rows)
+        self._rows = 0
+        self._offset = 0
+        self._real_tokens = 0
+        self._segment_index.clear()
+        self._generation += 1
+
+
+def collate_ragged(
+    seqs: Sequence[List[int]],
+    token_budget: int,
+    max_rows: int,
+    pad_id: int,
+) -> Dict[str, np.ndarray]:
+    """One pack of sequences → the fixed-shape flat sample, all int32:
+    ``input_ids``/``attention_mask``/``segment_ids``/``position_ids``
+    ``[1, token_budget]`` (row ``i`` carries segment ``i + 1``, positions
+    restart at each row, pad/0 past the packed tail) and ``row_starts``
+    ``[max_rows]`` (each row's first token; dead rows point at 0)."""
+    if len(seqs) > max_rows:
+        raise ValueError(f"{len(seqs)} rows exceed max_rows={max_rows}")
+    alloc = PackSlotAllocator(token_budget, max_rows, pad_id)
+    for i, seq in enumerate(seqs):
+        if alloc.admit(seq) is None:
+            n = len(seq[:token_budget])
+            raise ValueError(
+                f"pack overflows token_budget={token_budget} at row {i} "
+                f"(offset {alloc.used_tokens} + {n} tokens); pack with "
+                "pack_token_budget first"
+            )
+    return alloc.sample()
 
 
 def prefetch(iterator: Iterator, depth: int = 4) -> Iterator:

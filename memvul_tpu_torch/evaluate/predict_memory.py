@@ -1,5 +1,6 @@
-"""Siamese memory-model inference — the corpus-scoring path (the JAX
-package's ``evaluate/predict_memory.py``, bucketed scoring only).
+"""Siamese memory-model inference (the JAX package's
+``evaluate/predict_memory.py``): corpus scoring and the serving
+predictor.
 
 Encode the anchor bank in fixed chunks and keep it on the device in the
 working dtype; stream the corpus in length buckets, each batch one
@@ -7,9 +8,18 @@ encoder pass plus the anchor match and per-anchor softmax, with two
 batches in flight before the oldest is pulled to the host; write the
 reference-format result lines on a writer thread; then ``cal_metrics``.
 
-PyTorch runs eagerly, so the JAX package's AOT warmup has no
-counterpart here.  Resume/journal/quarantine, meshes, the int8 cascade
-and the ragged path belong to later slices.
+For serving, ``score_impl`` picks how requests reach the model:
+``"bucketed"`` pads them to length buckets (:meth:`SiamesePredictor.
+score_block`), ``"ragged"`` and ``"continuous"`` pack them into one
+``[1, token_budget]`` row scored through the segment-masked attention
+kernel (:meth:`SiamesePredictor.score_ragged_sample`).
+
+PyTorch runs eagerly, so the JAX package's AOT compile, its trace
+counter and its program registry have no counterpart here;
+:meth:`SiamesePredictor.warmup_bank_shapes` instead runs each shape once,
+which builds the kernel library and launches the kernels before the
+first request.  Resume/journal/quarantine, meshes and the int8 cascade
+belong to later slices.
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ from ..data.batching import (
     batches_from_instances,
     bucket_batch_sizes,
     bucketed_batches_from_instances,
+    collate_ragged,
+    pack_token_budget,
     prefetch,
     validate_buckets,
 )
@@ -60,7 +72,32 @@ class SiamesePredictor:
         tokens_per_batch: Optional[int] = None,
         anchor_chunk: int = 128,
         anchor_match_impl: Optional[str] = None,
+        score_impl: str = "bucketed",
+        token_budget: Optional[int] = None,
+        max_rows_per_pack: Optional[int] = None,
     ) -> None:
+        if score_impl not in ("bucketed", "ragged", "continuous", "cascade"):
+            raise ValueError(
+                f"score_impl must be 'bucketed', 'ragged', 'continuous' or "
+                f"'cascade', got {score_impl!r}"
+            )
+        if score_impl == "cascade":
+            raise NotImplementedError(
+                "score_impl='cascade' needs the int8 tier, which is not ported "
+                "yet (the int8 slice in ROADMAP.md)"
+            )
+        if token_budget is None:
+            token_budget = 4 * max_length
+        if token_budget < max_length:
+            raise ValueError(
+                f"token_budget {token_budget} < max_length {max_length}: one "
+                "cap-length request must fit a pack"
+            )
+        self.score_impl = score_impl
+        self.token_budget = int(token_budget)
+        self.max_rows_per_pack = int(max_rows_per_pack if max_rows_per_pack is not None else batch_size)
+        if self.max_rows_per_pack < 1:
+            raise ValueError("max_rows_per_pack must be >= 1")
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.batch_size = batch_size
@@ -118,10 +155,118 @@ class SiamesePredictor:
     # -- phase 2: streaming scoring ------------------------------------------
 
     @torch.no_grad()
-    def _score(self, block: Dict[str, np.ndarray]) -> torch.Tensor:
+    def _score(self, block: Dict[str, np.ndarray], bank: Optional[torch.Tensor] = None) -> torch.Tensor:
         ids, mask = self._to_device(block)
-        logits = self.model(ids, mask, anchors=self.anchor_bank, anchor_impl=self.anchor_match_impl)
+        bank = self.anchor_bank if bank is None else bank
+        logits = self.model(ids, mask, anchors=bank, anchor_impl=self.anchor_match_impl)
         return anchor_probs(logits)
+
+    # -- serving: one block or one pack per call -----------------------------
+    #
+    # Both run on whichever thread calls them (the continuous dispatcher's
+    # device worker among them), so each carries its own no_grad, and the
+    # .cpu() sync releases the GIL while the card works.
+
+    def score_block(self, block: Dict[str, np.ndarray], bank: torch.Tensor) -> np.ndarray:
+        """One padded (rows, length) block × bank → probabilities [rows, A]."""
+        return self._score(block, bank).cpu().numpy()
+
+    @torch.no_grad()
+    def score_ragged_sample(self, sample: Dict[str, np.ndarray], bank: torch.Tensor) -> np.ndarray:
+        """One :func:`~memvul_tpu_torch.data.batching.collate_ragged` pack
+        × bank → probabilities [max_rows, A] (dead rows included)."""
+        dev = {k: torch.from_numpy(v).to(self.device) for k, v in sample.items()}
+        for key in ("input_ids", "position_ids", "row_starts"):
+            dev[key] = dev[key].long()
+        logits = self.model.score_ragged(dev, bank, impl=self.anchor_match_impl)
+        return anchor_probs(logits).cpu().numpy()
+
+    def stream_shapes(self) -> List[Tuple[int, int]]:
+        """The closed (rows, length) set bucketed scoring produces: one per
+        bucket at its row count, or (batch_size, max_length)."""
+        if self.buckets is None:
+            return [(self.batch_size, self.encoder.max_length)]
+        sizes = self.bucket_sizes or {b: self.batch_size for b in self.buckets}
+        return [(sizes[b], b) for b in self.buckets]
+
+    def ragged_shape(self) -> Tuple[int, int]:
+        """(token_budget, max_rows): the one shape every pack has."""
+        return (self.token_budget, self.max_rows_per_pack)
+
+    @property
+    def uses_ragged_program(self) -> bool:
+        """Whether serving packs requests (``"ragged"`` and
+        ``"continuous"`` share the packed path and differ only in how the
+        service fills packs)."""
+        return self.score_impl in ("ragged", "continuous")
+
+    def warmup_bank_shapes(self, bank: torch.Tensor) -> int:
+        """Run every serving shape once against ``bank``: one pack on the
+        packed path, one block per stream shape otherwise.  The first call
+        builds the kernel library and launches each kernel, so the first
+        request pays neither.  Returns the number of shapes run."""
+        pad = self.encoder.pad_id
+        if self.uses_ragged_program:
+            self.score_ragged_sample(
+                collate_ragged([[pad]], self.token_budget, self.max_rows_per_pack, pad), bank
+            )
+            return 1
+        shapes = self.stream_shapes()
+        for rows, length in shapes:
+            self.score_block(
+                {"input_ids": np.zeros((rows, length), np.int32),
+                 "attention_mask": np.ones((rows, length), np.int32)},
+                bank,
+            )
+        return len(shapes)
+
+    def warmup_compile(self) -> int:
+        """:meth:`warmup_bank_shapes` against the encoded bank."""
+        if self.anchor_bank is None:
+            raise RuntimeError("call encode_anchors() first")
+        return self.warmup_bank_shapes(self.anchor_bank)
+
+    def score_texts(self, texts: Sequence[str], impl: Optional[str] = None) -> np.ndarray:
+        """Score raw texts against the anchor bank the way the service
+        would: packed into ``[1, token_budget]`` rows on the packed path,
+        else grouped into bucket blocks (``impl="bucketed"`` forces those).
+        Returns ``[len(texts), n_anchors]`` probabilities."""
+        if impl not in (None, "bucketed"):
+            raise ValueError(f"impl must be None or 'bucketed' (int8 is not ported), got {impl!r}")
+        bank, n = self.anchor_bank, self.n_anchors
+        if bank is None:
+            raise RuntimeError("call encode_anchors() first")
+        if not texts:
+            return np.zeros((0, n), np.float32)
+        seqs = self.encoder.encode_many(list(texts))
+        if impl is not None or not self.uses_ragged_program:
+            return self._score_seqs_bucketed(seqs, bank, n)
+        out = np.zeros((len(texts), n), np.float32)
+        pad = self.encoder.pad_id
+        for pack in pack_token_budget([len(s) for s in seqs], self.token_budget, self.max_rows_per_pack):
+            sample = collate_ragged([seqs[i] for i in pack], self.token_budget, self.max_rows_per_pack, pad)
+            out[pack] = self.score_ragged_sample(sample, bank)[: len(pack), :n]
+        return out
+
+    def _score_seqs_bucketed(self, seqs, bank: torch.Tensor, n: int) -> np.ndarray:
+        """Encoded sequences through the bucket blocks: grouped by the
+        smallest covering length, chunked at its row count, in the
+        service's ``_pad_block`` layout."""
+        out = np.zeros((len(seqs), n), np.float32)
+        rows_by_length = {length: rows for rows, length in self.stream_shapes()}
+        lengths = sorted(rows_by_length)
+        groups: Dict[int, List[int]] = {}
+        for i, seq in enumerate(seqs):
+            length = next((b for b in lengths if b >= len(seq)), lengths[-1])
+            groups.setdefault(length, []).append(i)
+        for length in sorted(groups):
+            rows = rows_by_length[length]
+            indices = groups[length]
+            for start in range(0, len(indices), rows):
+                chunk = indices[start : start + rows]
+                block = _pad_block([seqs[i] for i in chunk], rows, self.encoder.pad_id, length)
+                out[chunk] = self.score_block(block, bank)[: len(chunk), :n]
+        return out
 
     def score_instances(
         self, instances: Iterable[Dict], inflight: int = 2, prefetch_depth: int = 4

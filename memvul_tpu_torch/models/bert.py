@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention, mask_to_bias
+from ..ops.ragged_attention import pack_segments
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,8 +214,10 @@ class BertEncoder(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         hidden = self.embeddings(input_ids, token_type_ids, position_ids)
-        bias = None if segment_ids is not None else mask_to_bias(attention_mask, c.dtype)
-        return self.encoder(hidden, bias, segment_ids)
+        if segment_ids is None:
+            return self.encoder(hidden, mask_to_bias(attention_mask, c.dtype))
+        # the packed path: one tile table for all the layers of the pack
+        return self.encoder(hidden, None, pack_segments(segment_ids))
 
 
 class BertPooler(nn.Module):

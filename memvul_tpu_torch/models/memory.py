@@ -13,7 +13,7 @@ on the card, its plain version on the CPU).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -60,8 +60,33 @@ class MemoryModel(nn.Module):
     def encode(self, input_ids, attention_mask, token_type_ids=None) -> torch.Tensor:
         """Token batch → [B, D] embeddings in ``config.dtype``."""
         hidden = self.bert(input_ids, attention_mask, token_type_ids)
+        return self._pool(hidden)
+
+    def _pool(self, hidden: torch.Tensor) -> torch.Tensor:
         pooled = self.pooler(hidden)
         return self.header(pooled) if self.use_header else pooled
+
+    def encode_ragged(self, sample: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One packed flat batch (:func:`~memvul_tpu_torch.data.batching.
+        collate_ragged`, as tensors) → per-row embeddings [max_rows, D].
+
+        The encoder runs once over the ``[1, token_budget]`` row, its
+        attention masked on ``segment_ids`` and its positions restarting
+        per request; each row's first (CLS) token is then gathered by
+        ``row_starts`` and goes through the same pooler and header as the
+        padded path.  Dead rows gather position 0; callers slice them off."""
+        hidden = self.bert(
+            sample["input_ids"], sample["attention_mask"], sample.get("token_type_ids"),
+            position_ids=sample["position_ids"], segment_ids=sample["segment_ids"],
+        )
+        cls = hidden[0].index_select(0, sample["row_starts"])[:, None, :]
+        return self._pool(cls)
+
+    def score_ragged(
+        self, sample: Dict[str, torch.Tensor], anchors: torch.Tensor, impl: Optional[str] = None
+    ) -> torch.Tensor:
+        """Packed flat batch × bank [A, D] → anchor logits [max_rows, A, C]."""
+        return self.match_anchors(self.encode_ragged(sample), anchors, impl=impl)
 
     def match_anchors(
         self, u: torch.Tensor, anchors: torch.Tensor, impl: Optional[str] = None

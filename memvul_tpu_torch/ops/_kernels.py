@@ -44,6 +44,11 @@ PROTOTYPES = {
     # q, k, v, bias, out, B, H, Tq, Tk, D, 12 strides, bias_sb, scale,
     # dtype, stream
     "memvul_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 13 + [_F, _I, _P],
+    # segment_ids, ranges, B, T, seg_sb, stream
+    "memvul_ragged_tile_ranges": [_P, _P, _I, _I, _L, _P],
+    # q, k, v, segment_ids, ranges, out, B, H, T, D, 12 strides, seg_sb,
+    # scale, dtype, stream
+    "memvul_ragged_fwd": [_P] * 6 + [_I] * 4 + [_L] * 13 + [_F, _I, _P],
 }
 
 _lock = threading.Lock()

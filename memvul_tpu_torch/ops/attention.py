@@ -11,7 +11,10 @@
               hand-written CUDA kernel on the card, its plain version on
               the CPU.
 
-The ragged path (``segment_ids``) belongs to a later slice of the port.
+``segment_ids`` ([B, T] int32, 0 = dead padding) switches to the packed
+serve path: attention is masked on segment equality instead of ``bias``,
+through :mod:`.ragged_attention` (its CUDA kernel on the card, its plain
+version on the CPU).  It overrides ``impl``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Optional
 import torch
 
 from .flash_attention import flash_attention
+from .ragged_attention import ragged_flash_attention
 
 
 def dot_product_attention(
@@ -34,10 +38,7 @@ def dot_product_attention(
     """Scaled dot-product attention, [B, T, H, Dh] in, [B, Tq, H, Dh] out
     in the query dtype; ``bias`` broadcastable to [B, H, Tq, Tk]."""
     if segment_ids is not None:
-        raise NotImplementedError(
-            "segment-masked (ragged) attention is not ported yet: it belongs "
-            "to the ragged/continuous serving slice in ROADMAP.md"
-        )
+        return ragged_flash_attention(query, key, value, segment_ids)
     if impl == "flash":
         return flash_attention(query, key, value, bias)
     if impl != "xla":

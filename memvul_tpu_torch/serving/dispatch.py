@@ -1,0 +1,454 @@
+"""Dispatch strategies for the scoring service (the JAX package's
+``serving/dispatch.py``).
+
+:class:`Dispatcher` owns the semantics every strategy shares, once:
+deadline expiry at the pull, ONE bank snapshot per micro-batch, the retry
+window around each device call, dead-lettering when retries run out,
+hard-kill abandonment (resolve nothing, stay visible to the sweep) and the
+padding ledger (``serve.tokens_real`` / ``serve.tokens_padded``).  A
+strategy decides only how accepted requests become device calls:
+
+* :class:`BucketedDispatcher` coalesces up to ``max_batch`` requests and
+  pads each chunk to the smallest length bucket that covers it;
+* :class:`RaggedDispatcher` packs the same pull into fixed
+  ``[1, token_budget]`` rows by token budget, scored through the
+  segment-masked attention kernel;
+* :class:`ContinuousDispatcher` pulls nothing: an admission loop writes
+  each request straight into the open pack of a
+  :class:`~memvul_tpu_torch.data.batching.PackSlotAllocator` while a
+  device worker thread scores the sealed one, so pack N+1 fills during
+  pack N's round trip (``serve.pack_topups`` counts those admissions).
+
+The int8 ``CascadeDispatcher`` waits for the int8 slice.
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..data.batching import PackSlotAllocator, _pad_block, collate_ragged, pack_token_budget
+from ..resilience.retry import exception_text
+from .service import STATUS_DEADLINE, STATUS_DRAIN, STATUS_ERROR, STATUS_OK, _BankVersion, _Request
+
+logger = logging.getLogger(__name__)
+
+Chunk = Sequence[Tuple[_Request, List[int]]]
+
+
+class Dispatcher:
+    """The batcher-thread body of one
+    :class:`~memvul_tpu_torch.serving.service.ScoringService`.  Subclasses
+    override :meth:`_dispatch_live`; the continuous strategy replaces
+    :meth:`run` but scores through the shared :meth:`_score_chunk`."""
+
+    def __init__(self, service) -> None:
+        self.service = service
+
+    # -- the batcher loop (service thread) -------------------------------------
+
+    def run(self) -> None:
+        svc = self.service
+        while not svc._draining.is_set():
+            pulled = self._pull_batch()
+            if not pulled:
+                continue
+            # the pull is the in-flight work: a hard kill's sweep finds it
+            with svc._cond:
+                svc._inflight = list(pulled)
+            if svc._killed.is_set():
+                return
+            # a pull completed before the drain flag was seen finishes;
+            # everything still queued resolves "drain"
+            self._dispatch(pulled)
+            if svc._killed.is_set():
+                return  # keep _inflight visible for take_unresolved
+            with svc._cond:
+                svc._inflight = []
+        if svc._killed.is_set():
+            return
+        svc._shed_queue(STATUS_DRAIN)
+
+    def _pull_batch(self) -> List[_Request]:
+        """Wait for the first request, then pull until ``max_batch`` are
+        in hand or ``max_wait_ms`` has passed since the first.  Waits are
+        short so the drain flag is noticed promptly."""
+        svc = self.service
+        cfg = svc.config
+        pulled: List[_Request] = []
+        while True:
+            with svc._cond:
+                if svc._queue:
+                    pulled.append(svc._queue.popleft())
+                    break
+                if svc._draining.is_set():
+                    return pulled
+                svc._cond.wait(0.05)
+        flush_at = time.monotonic() + cfg.max_wait_ms / 1000.0
+        while len(pulled) < cfg.max_batch and not svc._draining.is_set():
+            remaining = flush_at - time.monotonic()
+            if remaining <= 0:
+                break
+            with svc._cond:
+                if not svc._queue:
+                    svc._cond.wait(min(remaining, 0.05))
+                if svc._queue:
+                    pulled.append(svc._queue.popleft())
+        with svc._cond:
+            svc._tel.gauge("serve.queue_depth").set(len(svc._queue))
+        return pulled
+
+    def _dispatch(self, pulled: List[_Request]) -> None:
+        """Expire stale requests, encode the rest, snapshot the bank once,
+        and hand the live set to the strategy."""
+        svc = self.service
+        now = time.monotonic()
+        live: List[_Request] = []
+        for request in pulled:
+            if request.deadline_monotonic is not None and now > request.deadline_monotonic:
+                svc._finish_unserved(request, STATUS_DEADLINE)
+            else:
+                live.append(request)
+        if not live:
+            return
+        seqs = svc.predictor.encoder.encode_many([r.text for r in live])
+        svc._count_truncated(live, seqs)
+        self._dispatch_live(live, seqs, svc.bank_snapshot())
+
+    def _dispatch_live(self, live: List[_Request], seqs: List[List[int]], bank: _BankVersion) -> None:
+        raise NotImplementedError
+
+    # -- the shared device-dispatch core ---------------------------------------
+
+    def _score_chunk(
+        self,
+        chunk: Chunk,
+        bank: _BankVersion,
+        *,
+        sample: Dict[str, np.ndarray],
+        occupancy_rows: int,
+        padded_tokens: int,
+        real_tokens: int,
+        score_fn: Callable[[Dict[str, np.ndarray], Any], np.ndarray],
+    ) -> None:
+        """One retried device round trip, booked and resolved to clients.
+        Retry exhaustion (or a non-transient failure) dead-letters the
+        chunk: every request resolves ``"error"`` with the reason."""
+        svc = self.service
+        tel = svc._tel
+
+        def once():
+            return score_fn(sample, bank.array)
+
+        def count_retry(exc, attempt):
+            tel.counter("resilience.retries").inc()
+
+        start = time.perf_counter()
+        try:
+            if svc.retry_policy is None:
+                probs = once()
+            else:
+                probs = svc.retry_policy.call(once, description="serve batch", on_retry=count_retry)
+            probs = np.asarray(probs)[: len(chunk), : bank.n_anchors]
+        except Exception as e:
+            if svc._killed.is_set():
+                return  # a killed worker neither counts nor resolves
+            reason = exception_text(e)
+            logger.error("serve batch dead-lettered (%d request(s)): %s", len(chunk), reason[:300])
+            tel.counter("serve.dead_letters").inc()
+            tel.counter("serve.errors").inc(len(chunk))
+            for request, _ in chunk:
+                request.future.resolve({"status": STATUS_ERROR, "reason": reason})
+            return
+        if svc._killed.is_set():
+            return  # killed mid-dispatch: the sweep accounts this chunk
+        tel.histogram("serve.batch_latency_s").observe(time.perf_counter() - start)
+        tel.histogram("serve.batch_occupancy").observe(len(chunk) / occupancy_rows)
+        tel.counter("serve.tokens_real").inc(real_tokens)
+        tel.counter("serve.tokens_padded").inc(padded_tokens)
+        tel.counter("serve.batches").inc()
+        self._resolve_scored(chunk, probs, bank)
+
+    def _resolve_scored(self, chunk: Chunk, probs: np.ndarray, bank: _BankVersion) -> None:
+        """Resolve scored rows to their clients (each request passes here
+        exactly once on the success path)."""
+        tel = self.service._tel
+        tel.counter("serve.served").inc(len(chunk))
+        now = time.monotonic()
+        for (request, _), row in zip(chunk, probs):
+            best = int(np.argmax(row))
+            latency = now - request.enqueued_monotonic
+            tel.histogram("serve.latency_s").observe(latency)
+            request.future.resolve({
+                "status": STATUS_OK,
+                "predict": {label: float(p) for label, p in zip(bank.labels, row)},
+                "score": float(row[best]),
+                "anchor": bank.labels[best],
+                "bank_version": bank.version,
+                "latency_ms": round(latency * 1e3, 3),
+            })
+
+
+class BucketedDispatcher(Dispatcher):
+    """Route each live request to the smallest bucket covering its token
+    count and pad every chunk to that bucket's (rows, length) block."""
+
+    def _dispatch_live(self, live, seqs, bank) -> None:
+        svc = self.service
+        groups: Dict[int, List[Tuple[_Request, List[int]]]] = {}
+        for request, seq in zip(live, seqs):
+            groups.setdefault(self._bucket_for(len(seq)), []).append((request, seq))
+        for length in sorted(groups):
+            rows = svc._rows_by_length[length]
+            group = groups[length]
+            for start in range(0, len(group), rows):
+                if svc._killed.is_set():
+                    return  # abandoned: the kill sweep takes over
+                chunk = group[start : start + rows]
+                self._score_chunk(
+                    chunk, bank,
+                    sample=_pad_block([seq for _, seq in chunk], rows, svc.predictor.encoder.pad_id, length),
+                    occupancy_rows=rows,
+                    padded_tokens=rows * length,
+                    real_tokens=sum(min(len(seq), length) for _, seq in chunk),
+                    score_fn=svc.predictor.score_block,
+                )
+
+    def _bucket_for(self, n_tokens: int) -> int:
+        """Smallest bucket covering the token count; longer texts
+        truncate into the largest."""
+        for length in self.service._lengths:
+            if length >= n_tokens:
+                return length
+        return self.service._lengths[-1]
+
+
+class RaggedDispatcher(Dispatcher):
+    """Pack the pull by token budget into as few ``[1, token_budget]``
+    rows as the greedy in-order packer allows."""
+
+    def _dispatch_live(self, live, seqs, bank) -> None:
+        svc = self.service
+        budget, max_rows = svc._token_budget, svc._max_rows
+        for pack in pack_token_budget([len(seq) for seq in seqs], budget, max_rows):
+            if svc._killed.is_set():
+                return
+            chunk = [(live[i], seqs[i]) for i in pack]
+            self._score_chunk(
+                chunk, bank,
+                sample=collate_ragged([seq for _, seq in chunk], budget, max_rows,
+                                      svc.predictor.encoder.pad_id),
+                occupancy_rows=max_rows,
+                padded_tokens=budget,
+                real_tokens=sum(min(len(seq), budget) for _, seq in chunk),
+                score_fn=svc.predictor.score_ragged_sample,
+            )
+
+
+class _SealedPack:
+    """One sealed pack in the admission → device handoff: its rows, the
+    sample copied off the page table, its real tokens and the ONE bank
+    snapshot it is scored against."""
+
+    __slots__ = ("chunk", "sample", "real_tokens", "bank")
+
+    def __init__(self, chunk, sample, real_tokens, bank) -> None:
+        self.chunk = chunk
+        self.sample = sample
+        self.real_tokens = real_tokens
+        self.bank = bank
+
+
+class ContinuousDispatcher(Dispatcher):
+    """Continuous admission into the in-flight pack.
+
+    The service's batcher thread runs the admission loop: it pops each
+    request as it arrives (its deadline checked at the pop), encodes it
+    and writes it into the open pack.  The pack seals when it is full
+    (budget or rows) or when its oldest row has waited ``max_wait_ms``,
+    and goes to a device worker thread through a handoff queue of one.
+    One pack on the card, one sealed and one filling bound the memory;
+    when all three are full, requests wait in the service queue and expire
+    at the pop, never inside a pack.
+
+    A hard kill abandons the open pack, the handoff and the pack on the
+    card unresolved (all in the service's in-flight list, kept
+    incrementally); a drain seals and finishes the open pack, then sheds
+    the queue with ``"drain"``.
+    """
+
+    def __init__(self, service) -> None:
+        super().__init__(service)
+        self._token_budget = service._token_budget
+        self._max_rows = service._max_rows
+        self._alloc = PackSlotAllocator(
+            self._token_budget, self._max_rows, service.predictor.encoder.pad_id,
+            share_prefixes=bool(service.config.prefix_share),
+        )
+        # admission-thread-only state
+        self._open: List[Tuple[_Request, List[int]]] = []
+        self._flush_at: Optional[float] = None
+        self._reported = {"slots_reused": 0, "rows_aliased": 0, "tokens_aliased": 0}
+        # cross-thread state, each with its own synchronization
+        self._handoff: "queue.Queue[Optional[_SealedPack]]" = queue.Queue(maxsize=1)
+        self._device_busy = threading.Event()
+
+    def run(self) -> None:
+        svc = self.service
+        worker = threading.Thread(target=self._device_loop, name="memvul-serve-device", daemon=True)
+        worker.start()
+        while not svc._draining.is_set():
+            request = None
+            with svc._cond:
+                if svc._queue:
+                    request = svc._queue.popleft()
+                    svc._tel.gauge("serve.queue_depth").set(len(svc._queue))
+                else:
+                    timeout = 0.05
+                    if self._flush_at is not None:
+                        timeout = min(timeout, max(self._flush_at - time.monotonic(), 0.0))
+                    if timeout > 0:
+                        svc._cond.wait(timeout)
+            if request is not None:
+                self._admit(request)
+                if svc._killed.is_set():
+                    return
+            if self._open and self._flush_at is not None and time.monotonic() >= self._flush_at:
+                self._seal_and_submit()
+                if svc._killed.is_set():
+                    return
+        # drain: the admitted but unsealed pack is pulled work; it finishes
+        if not svc._killed.is_set() and self._open:
+            self._seal_and_submit()
+        self._stop_worker(worker)
+        if svc._killed.is_set():
+            return
+        svc._shed_queue(STATUS_DRAIN)
+
+    # -- admission loop (service batcher thread) -------------------------------
+
+    def _admit(self, request: _Request) -> None:
+        """One pop → one page-table write (or a deadline resolution)."""
+        svc = self.service
+        if request.deadline_monotonic is not None and time.monotonic() > request.deadline_monotonic:
+            svc._finish_unserved(request, STATUS_DEADLINE)
+            return
+        seq = svc.predictor.encoder.encode_many([request.text])[0]
+        svc._count_truncated([request], [seq])
+        # in flight from the moment it leaves the queue
+        with svc._cond:
+            svc._inflight.append(request)
+        row = self._alloc.admit(seq)
+        if row is None:
+            self._seal_and_submit()
+            if svc._killed.is_set():
+                return
+            row = self._alloc.admit(seq)
+            assert row is not None, "a cap-length request must fit an empty pack"
+        if self._device_busy.is_set():
+            # this request joined pack N+1 while pack N was on the card
+            svc._tel.counter("serve.pack_topups").inc()
+        if not self._open:
+            self._flush_at = time.monotonic() + svc.config.max_wait_ms / 1000.0
+        self._open.append((request, seq))
+        if self._alloc.rows >= self._max_rows:
+            self._seal_and_submit()
+
+    def _seal_and_submit(self) -> None:
+        """Seal the open pack (ONE bank snapshot, the sample copied off the
+        page table, the slots recycled) and hand it to the device worker.
+        Blocks, in short kill-aware steps, only while a sealed pack already
+        waits behind the one on the card."""
+        if not self._open:
+            return
+        svc = self.service
+        bank = svc.bank_snapshot()
+        chunk, self._open = self._open, []
+        self._flush_at = None
+        item = _SealedPack(chunk, self._alloc.sample(), self._alloc.real_tokens, bank)
+        self._alloc.reset()
+        for attr, name in (("slots_reused", "serve.pack_slots_reused"),
+                           ("rows_aliased", "serve.prefix_rows_aliased"),
+                           ("tokens_aliased", "serve.prefix_tokens_saved")):
+            total = getattr(self._alloc, attr)
+            if total > self._reported[attr]:
+                svc._tel.counter(name).inc(total - self._reported[attr])
+                self._reported[attr] = total
+        while True:
+            if svc._killed.is_set():
+                return  # abandon unresolved; the sweep accounts them
+            try:
+                self._handoff.put(item, timeout=0.05)
+                return
+            except queue.Full:
+                continue  # backpressure: the card and the handoff are both full
+
+    def _stop_worker(self, worker: threading.Thread) -> None:
+        """Deliver the shutdown sentinel behind any queued pack, then wait
+        for the worker to finish it."""
+        svc = self.service
+        while worker.is_alive():
+            if svc._killed.is_set():
+                try:
+                    self._handoff.put_nowait(None)
+                except queue.Full:
+                    pass
+                break
+            try:
+                self._handoff.put(None, timeout=0.05)
+                break
+            except queue.Full:
+                continue
+        worker.join(timeout=30.0)
+
+    # -- device worker thread --------------------------------------------------
+
+    def _device_loop(self) -> None:
+        svc = self.service
+        while True:
+            try:
+                item = self._handoff.get(timeout=0.5)
+            except queue.Empty:
+                if svc._killed.is_set():
+                    return
+                continue
+            if item is None:
+                return  # drain sentinel
+            if svc._killed.is_set():
+                return  # abandon unresolved (still in the in-flight list)
+            self._device_busy.set()
+            try:
+                self._score_chunk(
+                    item.chunk, item.bank,
+                    sample=item.sample,
+                    occupancy_rows=self._max_rows,
+                    padded_tokens=self._token_budget,
+                    real_tokens=item.real_tokens,
+                    score_fn=svc.predictor.score_ragged_sample,
+                )
+            finally:
+                self._device_busy.clear()
+            if svc._killed.is_set():
+                return
+            with svc._cond:
+                svc._inflight = [r for r in svc._inflight if not r.future.done()]
+
+
+_DISPATCHERS = {
+    "bucketed": BucketedDispatcher,
+    "ragged": RaggedDispatcher,
+    "continuous": ContinuousDispatcher,
+}
+
+
+def make_dispatcher(service) -> Dispatcher:
+    """The strategy for the predictor's ``score_impl``."""
+    impl = service._score_impl
+    if impl not in _DISPATCHERS:
+        raise ValueError(f"unknown score_impl {impl!r} (known: {sorted(_DISPATCHERS)})")
+    return _DISPATCHERS[impl](service)

@@ -99,8 +99,10 @@ def test_structured_bias_and_ragged_path_raise():
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(fa.UnsupportedBiasError):
         fa.flash_attention(q, q, q, torch.zeros(1, 2, 8, 8))
-    with pytest.raises(NotImplementedError, match="ragged"):
-        dot_product_attention(q, q, q, segment_ids=torch.ones(1, 8, dtype=torch.int32))
+    # segment_ids route to the ragged kernel, which refuses ids that are
+    # not [B, T] of the queries
+    with pytest.raises(ValueError, match="segment_ids"):
+        dot_product_attention(q, q, q, segment_ids=torch.ones(1, 7, dtype=torch.int32))
     with pytest.raises(ValueError, match="unknown attention impl"):
         dot_product_attention(q, q, q, impl="ring")
 

@@ -56,14 +56,23 @@ print(len(names))
 def test_default_device_refuses_a_host_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device; the check is for CUDA-less hosts")
-    from memvul_tpu_torch.build import evaluate_from_archive, resolve_device
+    from memvul_tpu_torch.build import evaluate_from_archive, resolve_device, serve_from_archive
     from memvul_tpu_torch.evaluate.predict_memory import test_siamese as port_test_siamese
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         evaluate_from_archive(tmp_path / "missing.tar.gz", tmp_path / "test_x.json", tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_from_archive(tmp_path / "missing.tar.gz")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_test_siamese(None, None, "t", "g", tmp_path / "r.json")
     assert resolve_device("cpu") == torch.device("cpu")
+    proc = subprocess.run(
+        [sys.executable, "-m", "memvul_tpu_torch", "serve", str(tmp_path / "missing.tar.gz"),
+         "--port", "0"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "serving" not in proc.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "script_alone"])
