@@ -16,14 +16,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  the port never calls.  The attention inputs give peaked
                  softmaxes and outputs of order 1, and the phases show that a
                  lost key tile (and, ragged, a leak across requests) would
-                 fail the check;
+                 fail the check.  ``kernel_flash`` times K2 at every shape
+                 the main path launches it with (derived from the
+                 configuration), checks that the bf16 launch ran the wgmma
+                 kernel, and prints that kernel's registers and spills as
+                 ptxas reported them (a spill fails the phase);
 4. ``main_path`` the port's corpus-scoring path end to end at the full width of
                  ``configs/config_memory_longctx.json`` (BERT-base, 4096
                  positions, bf16, flash attention): deterministic vocabulary,
                  a synthetic corpus, a 129-anchor bank, random weights from a
                  seed, a ``model.tar.gz``, then ``evaluate_from_archive`` on the
                  card.  The kernels' launch counts are set to 0 just before it
-                 and read just after;
+                 and read just after; ``kernel_flash_shapes`` then puts K2's
+                 time at each shape beside its launches in this run;
 5. ``serve_path`` the packed serving path on the same archive:
                  ``serve_from_archive`` with ``score_impl`` "ragged" and then
                  "continuous", 256 requests from 16 client threads and 8 over
@@ -213,6 +218,67 @@ def _flash_inputs(b, t, h, d, dtype, gen, lengths=None, pad=0):
     return q, k, v, mask_to_bias(mask, dtype)
 
 
+def main_path_flash_shapes() -> list:
+    """[rows, length] of every K2 launch on ``main_path``, derived from the
+    configuration through the port's own sizing: one batch shape per length
+    bucket (``bucket_batch_sizes`` at ``tokens_per_batch``, as
+    ``SiamesePredictor`` sizes them; the 4096 bucket is ``[64, 4096]``,
+    which no synthetic report reaches) and the anchor bank's chunk
+    (``anchor_chunk`` rows padded to ``evaluation.max_length``)."""
+    import inspect
+
+    from memvul_tpu_torch.config import evaluation_config, load_config
+    from memvul_tpu_torch.data.batching import bucket_batch_sizes
+    from memvul_tpu_torch.evaluate.predict_memory import SiamesePredictor
+
+    ev = evaluation_config(load_config(CONFIG))
+    sizes = bucket_batch_sizes(ev["buckets"], int(ev["tokens_per_batch"]), multiple_of=8)
+    chunk = inspect.signature(SiamesePredictor).parameters["anchor_chunk"].default
+    shapes = [[rows, length] for length, rows in sorted(sizes.items())]
+    bank = [chunk, int(ev["max_length"])]
+    return shapes + ([bank] if bank not in shapes else [])
+
+
+def _wgmma_ptxas() -> dict:
+    """What ptxas said about each instantiation of the wgmma flash kernel
+    (2 and 3 consumer warpgroups) in this run's build: registers, spill
+    bytes, whether it serialized the wgmmas (C7513/C7514), and the block's
+    dynamic shared memory."""
+    import re
+
+    from memvul_tpu_torch.ops import _kernels
+
+    lines = _kernels.build_log.splitlines()
+    out = {}
+    for start, line in enumerate(lines):
+        found = re.search(r"flash_fwd_wgmma_kernelILi(\d)E", line)
+        if not (found and "Compiling entry function" in line):
+            continue
+        block = []
+        for later in lines[start + 1:]:
+            if "Compiling entry function" in later:
+                break
+            block.append(later)
+        text = " ".join(block)
+        number = lambda pattern: int(re.search(pattern, text).group(1))  # noqa: E731
+        consumers = int(found.group(1))
+        out[f"consumers_{consumers}"] = {
+            "registers": number(r"Used (\d+) registers"),
+            "spill_store_bytes": number(r"(\d+) bytes spill stores"),
+            "spill_load_bytes": number(r"(\d+) bytes spill loads"),
+            "dynamic_smem_bytes": _kernels.library().memvul_flash_fwd_wgmma_smem_bytes(consumers),
+        }
+    # ptxas names the function in its C7513/C7514 notes ("wgmma ... serialized")
+    serialized = {name for name in out
+                  if any("serialized" in l and f"flash_fwd_wgmma_kernelILi{name[-1]}E" in l
+                         for l in lines)}
+    for name in out:
+        out[name]["wgmma_serialized"] = name in serialized
+    if sorted(out) != ["consumers_2", "consumers_3"]:
+        raise SystemExit(f"ptxas output lacks a wgmma flash instantiation: {sorted(out)}")
+    return out
+
+
 def phase_flash(records: dict) -> None:
     import torch
     import torch.nn.functional as F
@@ -225,20 +291,27 @@ def phase_flash(records: dict) -> None:
     def lengths(b, t):
         return torch.randint(1, t + 1, (b,), generator=lengths_cpu).tolist()
 
-    # bf16 with head dim 64 on 16-byte-aligned tensors takes the tensor-core
-    # kernel; f32, other head dims and unaligned views (pad 4) the CUDA-core one
-    cases = [
+    ptxas = _wgmma_ptxas()
+    if any(p["spill_store_bytes"] or p["spill_load_bytes"] for p in ptxas.values()):
+        emit("kernel_flash", ok=False, wgmma_ptxas=ptxas)
+        raise SystemExit(f"the wgmma flash kernel spills: {ptxas}")
+    shapes = main_path_flash_shapes()
+    bf16, f32 = torch.bfloat16, torch.float32
+    # bf16 with head dim 64 on 16-byte-aligned tensors takes the wgmma
+    # kernel; f32, other head dims and unaligned views (pad 4) the
+    # CUDA-core one.  The main path's shapes are timed.
+    cases = [(b, t, 12, 64, bf16, 3e-2, lengths(b, t), 0) for b, t in shapes] + [
         # (B, T, H, D, dtype, tol, key lengths, view padding)
-        (1024, 256, 12, 64, torch.bfloat16, 3e-2, lengths(1024, 256), 0),
-        (64, 4096, 12, 64, torch.bfloat16, 3e-2, lengths(64, 4096), 0),
-        (3, 300, 12, 64, torch.bfloat16, 3e-2, [300, 173, 0], 0),  # row 2 fully masked
-        (3, 300, 12, 64, torch.bfloat16, 3e-2, [300, 173, 0], 4),
-        (2, 37, 4, 32, torch.bfloat16, 3e-2, [37, 5], 0),
-        (3, 300, 12, 64, torch.float32, 2e-5, [300, 173, 0], 0),
-        (2, 37, 4, 16, torch.float32, 2e-5, [37, 5], 0),
+        (3, 300, 12, 64, bf16, 3e-2, [300, 173, 0], 0),  # row 2 fully masked
+        (3, 300, 12, 64, bf16, 3e-2, [300, 173, 0], 4),
+        (2, 37, 12, 64, bf16, 3e-2, [37, 5], 0),  # one partial key tile
+        (2, 1, 12, 64, bf16, 3e-2, [1, 0], 0),    # T = 1; row 1 fully masked
+        (2, 37, 4, 32, bf16, 3e-2, [37, 5], 0),
+        (3, 300, 12, 64, f32, 2e-5, [300, 173, 0], 0),
+        (2, 37, 4, 16, f32, 2e-5, [37, 5], 0),
     ]
     results = []
-    for b, t, h, d, dtype, tol, lens, pad in cases:
+    for n, (b, t, h, d, dtype, tol, lens, pad) in enumerate(cases):
         q, k, v, bias = _flash_inputs(b, t, h, d, dtype, gen, lens, pad)
         got = fa.flash_attention(q, k, v, bias)
         want = fa.flash_attention_reference(q, k, v, bias)
@@ -246,21 +319,32 @@ def phase_flash(records: dict) -> None:
         err, ok = max_err(got, want, tol, tol)
         row = {"shape": [b, t, h, d], "dtype": str(dtype), "view_pad": pad, "tol": tol,
                "max_abs_err": err, "ok": ok, "want_rms": rms(want), "err_over_rms": err / rms(want)}
-        if t in (256, 4096):
-            # power of the check: the plain version with the first 64 keys of
-            # every row masked must fail it (a kernel that lost a key tile)
+        if n < len(shapes):
+            # power of the check: the plain version with the first 128 keys
+            # of every row masked must fail it (a kernel that lost a key tile)
             lost = bias.clone()
-            lost[..., :64] = torch.finfo(bias.dtype).min
+            lost[..., :128] = torch.finfo(bias.dtype).min
             row["lost_tile_err"], lost_ok = max_err(
                 fa.flash_attention_reference(q, k, v, lost), want, tol, tol)
             if lost_ok:
                 emit("kernel_flash", ok=False, cases=results + [row])
                 raise SystemExit(f"the flash check cannot see a lost key tile: {row}")
+            # the bf16 main-path launch runs the wgmma kernel (the name
+            # also says how many consumer warpgroups this shape gets)
+            top = []
+            for _ in range(3):  # a profile that caught no device activity is taken again
+                _, top = _kernel_breakdown(lambda: fa.flash_attention(q, k, v, bias))
+                if top:
+                    break
+            row["kernel_name"] = top[0][0] if top else "no device activity profiled"
+            if "flash_fwd_wgmma_kernel" not in row["kernel_name"]:
+                emit("kernel_flash", ok=False, cases=results + [row])
+                raise SystemExit(f"the main path's flash launch ran {row['kernel_name']}")
             item = q.element_size()
             nbytes = 4 * b * t * h * d * item + b * t * 4
             flops = 4 * b * h * t * t * d
             row["kernel_ms"] = time_ms(lambda: fa.flash_attention(q, k, v, bias), 5)
-            row["plain_ms"] = time_ms(lambda: fa.flash_attention_reference(q, k, v, bias), 2)
+            row["plain_ms"] = time_ms(lambda: fa.flash_attention_reference(q, k, v, bias), 1)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             row["library_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias), 5
@@ -268,14 +352,18 @@ def phase_flash(records: dict) -> None:
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops, BF16_TENSOR_FLOPS)
             row["bound_rate"] = "989 TFLOP/s bf16 tensor cores, 3.35 TB/s"
             row["kernel_tflops"] = flops / (row["kernel_ms"] * 1e-3) / 1e12
-            # the CUDA-core kernel on the same values, through an unaligned view
-            qs, ks, vs = (F.pad(x, (0, 4))[..., :d] for x in (q, k, v))
-            row["cuda_core_kernel_ms"] = time_ms(lambda: fa.flash_attention(qs, ks, vs, bias), 2)
+            row["library_tflops"] = flops / (row["library_ms"] * 1e-3) / 1e12
+            if [b, t] == [64, 4096]:
+                # the CUDA-core kernel on the same values, through an unaligned view
+                qs, ks, vs = (F.pad(x, (0, 4))[..., :d] for x in (q, k, v))
+                row["cuda_core_kernel_ms"] = time_ms(lambda: fa.flash_attention(qs, ks, vs, bias), 2)
+        del q, k, v, bias, got, want
         results.append(row)
         if not ok:
             emit("kernel_flash", ok=False, cases=results)
             raise SystemExit(f"flash kernel disagrees with its plain version: {row}")
-    emit("kernel_flash", ok=True, cases=results)
+    emit("kernel_flash", ok=True, wgmma_ptxas=ptxas, main_path_shapes=shapes, cases=results,
+         card=nvidia_smi_line())
     main = next(r for r in results if r["shape"] == [64, 4096, 12, 64])
     records["flash_attention"] = {
         "name": "flash_attention",
@@ -288,7 +376,32 @@ def phase_flash(records: dict) -> None:
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
+        # per main-path shape, for the launches line after main_path
+        "shapes": {tuple(r["shape"][:2]): r for r in results[: len(shapes)]},
     }
+
+
+def emit_flash_shapes(records: dict, bucket_batches: dict, anchor_chunks: int,
+                      layers: int = 12) -> None:
+    """K2 at each main-path shape beside its launches in ``main_path``'s
+    run: ``layers`` per batch of a bucket and per anchor-bank chunk."""
+    rec = records["flash_attention"]
+    bank = main_path_flash_shapes()[-1]
+    launches = {}
+    for length, count in bucket_batches.items():
+        shape = next(s for s in rec["shapes"] if s[1] == int(length) and list(s) != bank)
+        launches[shape] = launches.get(shape, 0) + layers * int(count)
+    launches[tuple(bank)] = launches.get(tuple(bank), 0) + layers * anchor_chunks
+    rows = [{"shape": list(shape), "launches": launches.get(shape, 0),
+             **{k: r[k] for k in ("kernel_name", "kernel_ms", "library_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "kernel_tflops", "library_tflops")}}
+            for shape, r in rec["shapes"].items()]
+    total = sum(r["launches"] for r in rows)
+    ok = total == rec["launches"]
+    emit("kernel_flash_shapes", ok=ok, rows=rows, launches=total,
+         main_path_launches=rec["launches"], card=nvidia_smi_line())
+    if not ok:
+        raise SystemExit(f"flash launches by shape ({total}) != main_path's ({rec['launches']})")
 
 
 def _realistic_pack(budget: int, cap: int, max_rows: int = 16, seed: int = 0):
@@ -636,6 +749,7 @@ def phase_main_path(workdir: Path, records: dict, reports_wanted: int = 512) -> 
         peak_memory_gib=peak_bytes / 2**30, f1=saved["f1"], auc=saved["auc"],
         card=nvidia_smi_line(),
     )
+    emit_flash_shapes(records, metrics["s_bucket_batches"], chunks, layers)
 
 
 # bf16 parity of the packed serve path against the bucketed path on the

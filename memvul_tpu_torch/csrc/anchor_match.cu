@@ -25,7 +25,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
+
+using namespace memvul;
 
 constexpr int kTileB = 32;
 constexpr int kTileA = 32;
@@ -34,18 +38,6 @@ constexpr int kThreads = 256;
 constexpr int kRowStep = kThreads / kTileA;       // 8
 constexpr int kRowsPerThread = kTileB / kRowStep;  // 4
 constexpr int kMaxClasses = 4;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)

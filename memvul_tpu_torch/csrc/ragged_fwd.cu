@@ -40,11 +40,12 @@
 //   key of any live query's segment, so all its scores would have been
 //   masked.  A query tile with no live id visits nothing and writes 0.
 //
-// Two kernels share that contract, as in flash_fwd.cu:
+// Two kernels share that contract:
 //
-// * ragged_fwd_mma_kernel (bf16, head dim 64, 16-byte aligned: the serve
-//   path) runs QKᵀ and PV on the tensor cores with mma.sync, K/V tiles
-//   double buffered by cp.async, in log2 units with exp2.  Masked scores
+// * ragged_fwd_mma_kernel (bf16, head dim 64, 16-byte aligned, strides a
+//   nonzero multiple of 8 elements: the serve path) runs QKᵀ and PV on the
+//   tensor cores with mma.sync, K/V tiles double buffered by cp.async, in
+//   log2 units with exp2.  Masked scores
 //   are set to the finite minimum AFTER the log2(e) scaling, so the scale
 //   can never overflow them to −inf (−inf − (−inf) would be NaN); keys
 //   past T get −inf and add exactly 0.
@@ -52,8 +53,9 @@
 //   products on the CUDA cores in f32, one thread per query row, and skips
 //   a key tile when none of its ids falls in the query tile's live range.
 //
-// wgmma, TMA and a varlen grid that launches only the visited tiles are
-// later work.
+// The shared device helpers are in common.cuh.  wgmma and TMA (hopper.cuh,
+// as flash_fwd.cu's kernel uses them) and a varlen grid that launches only
+// the visited tiles are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,31 +64,15 @@
 #include <climits>
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr float kF32Min = -3.402823466e38f;
+using namespace memvul;
+
 constexpr int kTile = 64;         // positions per entry of the range table
 constexpr int kMaxTiles = 2048;   // visit-mask capacity: T ≤ 131072
 constexpr int kRangeWarps = 8;    // tiles per block of tile_ranges_kernel
-
-struct Strides {
-  long long b, t, h;
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
 
 // ranges[b · n_tiles + t] = (min, max) of the ids > 0 in positions
 // [64t, 64t + 64) of row b, or (INT_MAX, 0) when there is none.  One warp
@@ -117,7 +103,7 @@ tile_ranges_kernel(const int* __restrict__ seg, long long seg_sb, int T,
 
 // -- CUDA-core path: f32, head dims 16/32, unaligned views ------------------
 //
-// flash_fwd.cu's CUDA-core design: one block per (batch·head, 128 queries),
+// flash_fwd.cu's CUDA-core kernel's design: one block per (batch·head, 128 queries),
 // one thread per query row with q and its accumulator in registers, K/V
 // tiles staged in shared memory as f32 and read as broadcast float4s.  The
 // key tile's segment ids are staged with it; before its K/V is loaded the
@@ -257,7 +243,7 @@ ragged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // -- tensor-core path: bf16 q/k/v with head dim 64 ---------------------------
 //
-// flash_fwd.cu's FlashAttention-2 layout on mma.sync.m16n8k16: 4 warps own
+// A FlashAttention-2 layout on mma.sync.m16n8k16: 4 warps own
 // 64 query rows (one range-table tile), 16 per warp, Q in registers as A
 // fragments; 64-key tiles of K and V land in shared memory by cp.async,
 // double buffered, rows padded by 8 elements for conflict-free ldmatrix.
@@ -273,58 +259,8 @@ constexpr int kMmaKeys = 64;     // keys per staged tile
 constexpr int kMmaThreads = 128;
 constexpr int kMmaDim = 64;
 constexpr int kMmaPad = 8;
-constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kMmaRows == kTile && kMmaKeys == kTile,
               "query and key tiles are entries of the range table");
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats as a bf16 pair, the lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared, asynchronously; zero-filled when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// four 8×8 bf16 matrices; lane l addresses row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
-}
 
 __global__ void __launch_bounds__(kMmaThreads)
 ragged_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -522,16 +458,6 @@ ragged_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// the tensor-core path reads 16-byte chunks: every base 16-byte aligned,
-// every stride a multiple of 8 elements
-bool mma_eligible(const void* const* ptrs, const Strides* strides) {
-  for (int i = 0; i < 4; ++i) {
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
-    if (strides[i].b % 8 || strides[i].t % 8 || strides[i].h % 8) return false;
-  }
-  return true;
-}
-
 template <typename T, int HD>
 void launch(const void* q, const void* k, const void* v, const int* seg,
             void* out, int B, int H, int Tn, Strides qs, Strides ks,
@@ -598,7 +524,7 @@ extern "C" int memvul_ragged_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* ptrs[4] = {q, k, v, out};
   const Strides all[4] = {qs, ks, vs, os};
-  if (dtype == 1 && D == kMmaDim && mma_eligible(ptrs, all)) {
+  if (dtype == 1 && D == kMmaDim && tensor_core_eligible(ptrs, all, 4)) {
     const int n_tiles = (T + kTile - 1) / kTile;
     ragged_fwd_mma_kernel<<<dim3(B * H, n_tiles), kMmaThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

@@ -3,13 +3,17 @@
 Every ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into an
 object, one ``nvcc`` per source and all started together, and the objects
 link into one shared library with a plain C interface that ``ctypes``
-loads.  No PyTorch header is included, which keeps the build to seconds.
+loads.  The sources include the shared headers ``csrc/*.cuh`` (device
+helpers, and the Hopper pieces: mbarriers, TMA, wgmma).  No PyTorch header
+is included, which keeps the build to seconds, and the library needs no
+link against the driver: the TMA tensor-map encode is found at run time
+through ``cudaGetDriverEntryPoint``.
 
 The build runs at first use into ``build/kernels/`` at the repository
-root.  The library's name carries a hash of the sources and flags, so an
-edited kernel never loads a stale build, and a finished build is reused by
-later processes.  There is no fallback: a host without ``nvcc`` or a
-source that does not compile raises.
+root.  The library's name carries a hash of the sources, the headers and
+the flags, so an edited kernel or header never loads a stale build, and a
+finished build is reused by later processes.  There is no fallback: a
+host without ``nvcc`` or a source that does not compile raises.
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ PROTOTYPES = {
     # q, k, v, segment_ids, ranges, out, B, H, T, D, 12 strides, seg_sb,
     # scale, dtype, stream
     "memvul_ragged_fwd": [_P] * 6 + [_I] * 4 + [_L] * 13 + [_F, _I, _P],
+    # the wgmma flash kernel's dynamic shared memory per block, in bytes,
+    # for 2 or 3 consumer warpgroups
+    "memvul_flash_fwd_wgmma_smem_bytes": [_I],
 }
 
 _lock = threading.Lock()
@@ -78,14 +85,20 @@ def find_nvcc() -> str:
 
 
 def sources() -> list:
+    """The translation units: each compiles to one object."""
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(srcs) -> str:
+def headers() -> list:
+    """The headers the sources include; hashed, never compiled alone."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def _digest(files) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for path in files:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -94,7 +107,7 @@ def build(force: bool = False) -> Path:
     returns its path.  Reuses a finished build of the same sources."""
     global build_log
     srcs = sources()
-    digest = _digest(srcs)
+    digest = _digest(srcs + headers())
     lib_path = BUILD_DIR / f"libmemvul_kernels_{digest}.so"
     if lib_path.exists() and not force:
         return lib_path

@@ -9,8 +9,14 @@ key-only bias (the encoder's padding mask, broadcastable to
   the Hopper port of the TPU kernel ``memvul_tpu/ops/pallas/
   flash_kernel.py:flash_attention``: online softmax, the score matrix never
   in device memory.  It reads q/k/v through their strides, so views of a
-  fused projection need no copy.  :data:`launches` counts its launches.
-  A CPU tensor goes to the plain version.
+  fused projection need no copy.  The entry point routes to one of two
+  kernels: ``flash_fwd_wgmma_kernel`` for bf16 at head dim 64 on
+  16-byte-aligned tensors whose strides are nonzero multiples of 8
+  elements (the main path: TMA-fed tiles, wgmma, a producer warpgroup
+  and two or three consumer warpgroups), and ``flash_fwd_kernel`` on the
+  CUDA cores for f32, head dims 16 and 32, and unaligned views.
+  :data:`launches` counts its launches.  A CPU tensor goes to the plain
+  version.
 * :func:`flash_attention_reference` is the plain PyTorch version of the
   same arithmetic: scores in f32, the finite f32 minimum for masked keys
   (a fully masked row averages its values uniformly), p rounded to the
