@@ -16,11 +16,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  the port never calls.  The attention inputs give peaked
                  softmaxes and outputs of order 1, and the phases show that a
                  lost key tile (and, ragged, a leak across requests) would
-                 fail the check.  ``kernel_flash`` times K2 at every shape
+                 fail the check.  ``kernel_anchor_match`` times K1 at every
+                 row count the paths launch it with (16: a serve pack; 128 to
+                 1024: the main path's buckets) and requires the same bits
+                 from two runs.  ``kernel_flash`` times K2 at every shape
                  the main path launches it with (derived from the
-                 configuration), checks that the bf16 launch ran the wgmma
-                 kernel, and prints that kernel's registers and spills as
-                 ptxas reported them (a spill fails the phase);
+                 configuration) and checks that the bf16 launch ran the wgmma
+                 kernel; ``kernel_ragged`` checks K3's wgmma kernel ran on
+                 the serve pack, adds a stress pack (a 512-token request
+                 among short ones, boundaries inside tiles, a dead tail),
+                 poisons each output's memory with NaN before the call (an
+                 unwritten element fails) and holds the device's tile-range
+                 table against its plain version.  Both
+                 attention phases print their wgmma kernel's registers and
+                 spills as ptxas reported them (a spill or a serialized
+                 wgmma fails);
 4. ``main_path`` the port's corpus-scoring path end to end at the full width of
                  ``configs/config_memory_longctx.json`` (BERT-base, 4096
                  positions, bf16, flash attention): deterministic vocabulary,
@@ -34,7 +44,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  "continuous", 256 requests from 16 client threads and 8 over
                  HTTP, the launch counts set to 0 after each service is built
                  and read after its traffic, and the responses held against
-                 the bucketed path on the card;
+                 the bucketed path on the card; ``kernel_anchor_match_shapes``
+                 then puts K1's time at each row count beside its launches
+                 in both paths' runs;
    ``serve_identity`` the small f32 model's archive served "continuous" with
                  ``prefix_share`` on (duplicates aliased inside packs), each
                  response held against its own request's answer on the CPU,
@@ -73,7 +85,8 @@ CONFIG = ROOT / "configs" / "config_memory_longctx.json"
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
-F32_FLOPS = 67e12  # non-tensor f32
+F32_FLOPS = 67e12  # non-tensor f32: an FFMA is two operations
+F32_INSTRUCTIONS_PER_S = F32_FLOPS / 2  # FP32 instructions: 132 SMs × 128 lanes × the clock
 
 
 def emit(phase: str, **fields) -> None:
@@ -137,20 +150,31 @@ def bound(nbytes: float, flops: float, flop_rate: float):
 # -- kernel phases -----------------------------------------------------------
 
 
+# K1's rows: the main path's bucket batches and the serve pack's 16 rows
+ANCHOR_ROWS = (16, 128, 256, 512, 1024)
+
+
 def phase_anchor_match(records: dict) -> None:
+    """K1 against its plain version, twice per case with the same bits, and
+    timed in bf16 at every row count the paths launch it with (A = 129,
+    D = 512, C = 2).  Its device time comes from the profiler: at B = 16 a
+    launch takes less than the host needs to make it."""
     import torch
 
     from memvul_tpu_torch.ops import anchor_match as am
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [
-        (1024, 129, 512, 2, torch.bfloat16, 3e-2),
-        (64, 129, 512, 2, torch.bfloat16, 3e-2),
-        (1024, 129, 512, 2, torch.float32, 1e-5),
-        (64, 129, 512, 2, torch.float32, 1e-5),
-        (17, 129, 200, 2, torch.float32, 1e-5),
-        (130, 5, 96, 2, torch.float32, 1e-5),
-        (5, 7, 64, 3, torch.float32, 1e-5),
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(b, 129, 512, 2, bf16, 3e-2) for b in ANCHOR_ROWS] + [
+        (16, 129, 512, 2, f32, 1e-5),
+        (1024, 129, 512, 2, f32, 1e-5),
+        (64, 129, 512, 2, f32, 1e-5),
+        (17, 129, 200, 2, f32, 1e-5),
+        (130, 5, 96, 2, f32, 1e-5),
+        (5, 7, 64, 3, f32, 1e-5),
+        (33, 40, 72, 4, bf16, 3e-2),
+        (3, 1, 24, 1, f32, 1e-5),
+        (9, 11, 66, 2, f32, 1e-5),  # D % 4 != 0: the element-wise staging
     ]
     results = []
     for b, a, d, c, dtype, tol in cases:
@@ -158,28 +182,36 @@ def phase_anchor_match(records: dict) -> None:
         v = torch.randn(a, d, device="cuda", generator=gen).to(dtype)
         w = (torch.randn(3 * d, c, device="cuda", generator=gen) * 0.1).to(dtype)
         got = am.fused_anchor_match(u, v, w)
-        # the plain version on the same values in f32: in bf16 it rounds
-        # every intermediate, while the kernel accumulates in f32 and rounds
-        # once (the JAX package's bf16 kernel test holds it the same way)
-        want = am.anchor_match_reference(u.float(), v.float(), w.float())
+        again = am.fused_anchor_match(u, v, w)
+        # the plain version on the same values in f64: in bf16 it would
+        # round every intermediate, while the kernel accumulates in f32 and
+        # rounds once (the JAX package's bf16 kernel test holds it the same
+        # way); and an f32 plain version's own rounding over the 3·512
+        # terms of an output is as large as the kernel's
+        want = am.anchor_match_reference(u.double(), v.double(), w.double())
         torch.cuda.synchronize()
         err, ok = max_err(got, want, tol, tol)
+        same_bits = bool(torch.equal(got, again))
         row = {"shape": [b, a, d, c], "dtype": str(dtype), "tol": tol,
-               "max_abs_err": err, "ok": ok}
-        if d == 512 and a == 129:
+               "max_abs_err": err, "same_bits_twice": same_bits, "ok": ok and same_bits}
+        if dtype == bf16 and [a, d, c] == [129, 512, 2]:
             item = u.element_size()
             nbytes = (b * d + a * d + 3 * d * c + b * a * c) * item
-            flops = 2 * c * b * a * d + 2 * c * (b + a) * d
-            row["kernel_ms"] = time_ms(lambda: am.fused_anchor_match(u, v, w), 50)
+            # one FADD and C FFMAs per (b, a, d) on the FP32 pipes
+            slots = (c + 1) * b * a * d
+            kernel = lambda: am.fused_anchor_match(u, v, w)  # noqa: E731
+            row["kernel_ms"] = device_ms(kernel, 50)
+            row["kernel_event_ms"] = time_ms(kernel, 50)
             row["plain_ms"] = time_ms(lambda: am.anchor_match_reference(u, v, w), 10)
-            row["bound_ms"], row["bound_by"] = bound(nbytes, flops, F32_FLOPS)
-            row["bound_rate"] = "67 TFLOP/s f32 (non-tensor), 3.35 TB/s"
+            row["bound_ms"], row["bound_by"] = bound(nbytes, slots, F32_INSTRUCTIONS_PER_S)
+            row["bound_rate"] = "FP32 instructions 33.5e12/s (67 TFLOP/s / 2), 3.35 TB/s"
         results.append(row)
-        if not ok:
+        if not row["ok"]:
             emit("kernel_anchor_match", ok=False, cases=results)
             raise SystemExit(f"anchor-match kernel disagrees with its plain version: {row}")
-    emit("kernel_anchor_match", ok=True, cases=results)
-    main = next(r for r in results if r["shape"] == [1024, 129, 512, 2] and "bfloat16" in r["dtype"])
+    emit("kernel_anchor_match", ok=True, cases=results, card=nvidia_smi_line())
+    shapes = {r["shape"][0]: r for r in results if "kernel_ms" in r}
+    main = shapes[16]  # the shape almost every launch has (one per serve pack)
     records["anchor_match"] = {
         "name": "anchor_match",
         "route": "cuda",
@@ -191,7 +223,29 @@ def phase_anchor_match(records: dict) -> None:
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": None,
+        "launches": 0,
+        "shapes": shapes,
+        "launches_by_rows": {},
     }
+
+
+def emit_anchor_shapes(records: dict) -> None:
+    """K1 at each row count beside its launches in the main path's and the
+    serve path's runs, with the launch-weighted total."""
+    rec = records["anchor_match"]
+    rows = [{"rows": b, "launches": rec["launches_by_rows"].get(b, 0),
+             **{k: r[k] for k in ("kernel_ms", "kernel_event_ms", "plain_ms", "bound_ms", "bound_by")}}
+            for b, r in sorted(rec["shapes"].items())]
+    counted = sum(r["launches"] for r in rows)
+    ok = counted == rec["launches"] and set(rec["launches_by_rows"]) <= set(rec["shapes"])
+    emit("kernel_anchor_match_shapes", ok=ok, rows=rows, launches=counted,
+         path_launches=rec["launches"], launches_by_rows=rec["launches_by_rows"],
+         weighted_kernel_ms=sum(r["launches"] * r["kernel_ms"] for r in rows),
+         weighted_bound_ms=sum(r["launches"] * r["bound_ms"] for r in rows),
+         card=nvidia_smi_line())
+    if not ok:
+        raise SystemExit(f"anchor-match launches by rows {rec['launches_by_rows']} "
+                         f"!= the paths' {rec['launches']}")
 
 
 def _flash_inputs(b, t, h, d, dtype, gen, lengths=None, pad=0):
@@ -218,6 +272,16 @@ def _flash_inputs(b, t, h, d, dtype, gen, lengths=None, pad=0):
     return q, k, v, mask_to_bias(mask, dtype)
 
 
+def main_path_bucket_rows() -> dict:
+    """{length: rows} of the main path's batches: ``bucket_batch_sizes`` at
+    ``tokens_per_batch``, as ``SiamesePredictor`` sizes them."""
+    from memvul_tpu_torch.config import evaluation_config, load_config
+    from memvul_tpu_torch.data.batching import bucket_batch_sizes
+
+    ev = evaluation_config(load_config(CONFIG))
+    return bucket_batch_sizes(ev["buckets"], int(ev["tokens_per_batch"]), multiple_of=8)
+
+
 def main_path_flash_shapes() -> list:
     """[rows, length] of every K2 launch on ``main_path``, derived from the
     configuration through the port's own sizing: one batch shape per length
@@ -228,30 +292,29 @@ def main_path_flash_shapes() -> list:
     import inspect
 
     from memvul_tpu_torch.config import evaluation_config, load_config
-    from memvul_tpu_torch.data.batching import bucket_batch_sizes
     from memvul_tpu_torch.evaluate.predict_memory import SiamesePredictor
 
     ev = evaluation_config(load_config(CONFIG))
-    sizes = bucket_batch_sizes(ev["buckets"], int(ev["tokens_per_batch"]), multiple_of=8)
     chunk = inspect.signature(SiamesePredictor).parameters["anchor_chunk"].default
-    shapes = [[rows, length] for length, rows in sorted(sizes.items())]
+    shapes = [[rows, length] for length, rows in sorted(main_path_bucket_rows().items())]
     bank = [chunk, int(ev["max_length"])]
     return shapes + ([bank] if bank not in shapes else [])
 
 
-def _wgmma_ptxas() -> dict:
-    """What ptxas said about each instantiation of the wgmma flash kernel
-    (2 and 3 consumer warpgroups) in this run's build: registers, spill
-    bytes, whether it serialized the wgmmas (C7513/C7514), and the block's
-    dynamic shared memory."""
+def _ptxas_report(kernel: str) -> dict:
+    """What ptxas said about each instantiation of ``kernel`` (a template
+    over one int) in this run's build, keyed by its template argument:
+    registers, spill bytes, and whether it serialized the wgmmas
+    (C7513/C7514, "wgmma ... serialized", which name the function)."""
     import re
 
     from memvul_tpu_torch.ops import _kernels
 
     lines = _kernels.build_log.splitlines()
+    name = re.compile(rf"{kernel}ILi(\d+)E")
     out = {}
     for start, line in enumerate(lines):
-        found = re.search(r"flash_fwd_wgmma_kernelILi(\d)E", line)
+        found = name.search(line)
         if not (found and "Compiling entry function" in line):
             continue
         block = []
@@ -261,22 +324,35 @@ def _wgmma_ptxas() -> dict:
             block.append(later)
         text = " ".join(block)
         number = lambda pattern: int(re.search(pattern, text).group(1))  # noqa: E731
-        consumers = int(found.group(1))
-        out[f"consumers_{consumers}"] = {
+        arg = int(found.group(1))
+        out[arg] = {
             "registers": number(r"Used (\d+) registers"),
             "spill_store_bytes": number(r"(\d+) bytes spill stores"),
             "spill_load_bytes": number(r"(\d+) bytes spill loads"),
-            "dynamic_smem_bytes": _kernels.library().memvul_flash_fwd_wgmma_smem_bytes(consumers),
+            "wgmma_serialized": any("serialized" in l and f"{kernel}ILi{arg}E" in l for l in lines),
         }
-    # ptxas names the function in its C7513/C7514 notes ("wgmma ... serialized")
-    serialized = {name for name in out
-                  if any("serialized" in l and f"flash_fwd_wgmma_kernelILi{name[-1]}E" in l
-                         for l in lines)}
-    for name in out:
-        out[name]["wgmma_serialized"] = name in serialized
-    if sorted(out) != ["consumers_2", "consumers_3"]:
-        raise SystemExit(f"ptxas output lacks a wgmma flash instantiation: {sorted(out)}")
     return out
+
+
+def _check_ptxas(phase: str, report: dict) -> None:
+    """A spill or a serialized wgmma fails the phase."""
+    if any(p["spill_store_bytes"] or p["spill_load_bytes"] or p["wgmma_serialized"]
+           for p in report.values()):
+        emit(phase, ok=False, wgmma_ptxas=report)
+        raise SystemExit(f"{phase}: a wgmma kernel spills or is serialized: {report}")
+
+
+def _wgmma_ptxas() -> dict:
+    """ptxas on the wgmma flash kernel's instantiations (2 and 3 consumer
+    warpgroups), with each block's dynamic shared memory."""
+    from memvul_tpu_torch.ops import _kernels
+
+    report = _ptxas_report("flash_fwd_wgmma_kernel")
+    if sorted(report) != [2, 3]:
+        raise SystemExit(f"ptxas output lacks a wgmma flash instantiation: {sorted(report)}")
+    return {f"consumers_{n}": dict(p, dynamic_smem_bytes=_kernels.library()
+                                   .memvul_flash_fwd_wgmma_smem_bytes(n))
+            for n, p in report.items()}
 
 
 def phase_flash(records: dict) -> None:
@@ -292,9 +368,7 @@ def phase_flash(records: dict) -> None:
         return torch.randint(1, t + 1, (b,), generator=lengths_cpu).tolist()
 
     ptxas = _wgmma_ptxas()
-    if any(p["spill_store_bytes"] or p["spill_load_bytes"] for p in ptxas.values()):
-        emit("kernel_flash", ok=False, wgmma_ptxas=ptxas)
-        raise SystemExit(f"the wgmma flash kernel spills: {ptxas}")
+    _check_ptxas("kernel_flash", ptxas)
     shapes = main_path_flash_shapes()
     bf16, f32 = torch.bfloat16, torch.float32
     # bf16 with head dim 64 on 16-byte-aligned tensors takes the wgmma
@@ -456,15 +530,37 @@ def _masked_attention(q, k, v, allowed):
     return (pv / p.sum(-1).clamp_min(1e-30).permute(0, 2, 1)[..., None]).to(q.dtype)
 
 
+def _stress_layout(t: int = 2048):
+    """One 512-token request among short ones, request boundaries in the
+    middle of 64-position tiles, and the last ten tiles dead: ids 1, 2, ...
+    end to end as the packer lays them out."""
+    import numpy as np
+
+    lengths = [37, 100, 45, 512, 23, 150, 77, 300, 5, 61, 90]
+    seg = np.zeros((1, t), np.int32)
+    offset = 0
+    for i, n in enumerate(lengths):
+        seg[0, offset : offset + n] = i + 1
+        offset += n
+    return seg
+
+
 def phase_ragged(records: dict) -> None:
-    """K3 against its plain version on live rows; dead rows finite; the
-    check shown to catch a leak across requests and a lost key tile."""
+    """K3 against its plain version on live rows; every output element
+    written (the output's block is poisoned with NaN just before the call);
+    the device's tile-range table equal to its plain version; the check
+    shown to catch a leak across requests and a lost key tile; and ptxas's
+    report on the wgmma kernel (a spill or a serialized wgmma fails)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from memvul_tpu_torch.ops import ragged_attention as ra
 
+    ptxas = _ptxas_report("ragged_fwd_wgmma_kernel")
+    if len(ptxas) != 1:
+        raise SystemExit(f"ptxas output lacks the one wgmma ragged instantiation: {sorted(ptxas)}")
+    _check_ptxas("kernel_ragged", ptxas)
     gen = torch.Generator(device="cuda").manual_seed(4)
     serve_seg, serve_lens = _realistic_pack(2048, 512)
     long_seg, long_lens = _realistic_pack(16384, 4096)
@@ -472,6 +568,7 @@ def phase_ragged(records: dict) -> None:
         # (name, segment ids [B, T], H, D, dtype, tol)
         ("serve_pack", serve_seg, 12, 64, torch.bfloat16, 3e-2),
         ("long_pack", long_seg, 12, 64, torch.bfloat16, 3e-2),
+        ("stress", _stress_layout(), 12, 64, torch.bfloat16, 3e-2),
         ("random_layout_bf16", _random_layout(2, 300, seed=5), 12, 64, torch.bfloat16, 3e-2),
         ("random_layout_f32", _random_layout(2, 160, seed=6), 4, 32, torch.float32, 2e-5),
     ]
@@ -481,18 +578,28 @@ def phase_ragged(records: dict) -> None:
         seg = torch.as_tensor(seg_np, device="cuda")
         q, k, v = ((torch.randn(b, t, h, d, device="cuda", generator=gen) * scale).to(dtype)
                    for scale in (2.0, 2.0, 1.0))
-        got = ra.ragged_flash_attention(q, k, v, seg)
+        packed = ra.pack_segments(seg)
+        ranges_ok = bool(torch.equal(packed.tile_ranges, ra.tile_ranges_reference(seg)))
+        # the caching allocator hands the NaN block back as the output's, so
+        # an element the kernel never writes stays NaN
+        poison = torch.full((b, t, h, d), float("nan"), dtype=dtype, device="cuda")
+        poisoned_ptr = poison.data_ptr()
+        del poison
+        got = ra.ragged_flash_attention(q, k, v, packed)
         want = ra.ragged_flash_attention_reference(q, k, v, seg)
         torch.cuda.synchronize()
         live = seg > 0
         err, ok = max_err(got[live], want[live], tol, tol)
-        dead_finite = bool(torch.isfinite(got[~live].float()).all())
+        all_finite = bool(torch.isfinite(got.float()).all())
+        poisoned = got.data_ptr() == poisoned_ptr
         seg_tokens = [int(n) for n in np.unique(seg_np[seg_np > 0], return_counts=True)[1]] \
             if b == 1 else None
         row = {"case": name, "shape": [b, t, h, d], "dtype": str(dtype), "tol": tol,
-               "max_abs_err": err, "ok": ok and dead_finite, "dead_rows_finite": dead_finite,
+               "max_abs_err": err, "ok": ok and all_finite and poisoned and ranges_ok,
+               "all_outputs_finite": all_finite, "output_block_poisoned": poisoned,
+               "tile_ranges_equal_plain": ranges_ok,
                "live_tokens": int(live.sum()), "want_rms": rms(want[live])}
-        if b == 1:
+        if name in ("serve_pack", "long_pack"):
             item = q.element_size()
             # dense work reads q, k, v at every position; segment work needs
             # them only at the live tokens (dead ones are never seen), and
@@ -511,8 +618,16 @@ def phase_ragged(records: dict) -> None:
             # launches; its own time, and SDPA's, come from the profiler.
             # The tile table is built once per pack (not per layer), and is
             # timed on its own
-            packed = ra.pack_segments(seg)
             kernel = lambda: ra.ragged_flash_attention(q, k, v, packed)  # noqa: E731
+            top = []
+            for _ in range(3):  # a profile that caught no device activity is taken again
+                _, top = _kernel_breakdown(kernel)
+                if top:
+                    break
+            row["kernel_name"] = top[0][0] if top else "no device activity profiled"
+            if "ragged_fwd_wgmma_kernel" not in row["kernel_name"]:
+                emit("kernel_ragged", ok=False, cases=results + [row])
+                raise SystemExit(f"the serve path's ragged launch ran {row['kernel_name']}")
             row["kernel_event_ms"] = time_ms(kernel, 20)
             row["kernel_ms"] = device_ms(kernel, 20)
             row["tile_ranges_ms_per_pack"] = device_ms(lambda: ra.pack_segments(seg), 20)
@@ -523,7 +638,7 @@ def phase_ragged(records: dict) -> None:
             row["library_event_ms"] = time_ms(sdpa, 5)
             row["library_ms"] = device_ms(sdpa, 5)
             del mask
-        if name == "serve_pack":
+        if name in ("serve_pack", "stress"):
             # power of the check: a kernel that leaked across requests (the
             # pack's padding mask instead of its segments) or lost the first
             # key tile of every segment must fail it
@@ -539,11 +654,12 @@ def phase_ragged(records: dict) -> None:
                 if caught_ok:
                     emit("kernel_ragged", ok=False, cases=results + [row])
                     raise SystemExit(f"the ragged check cannot see a {key[:-4]}: {row}")
+        del q, k, v, got, want
         results.append(row)
         if not row["ok"]:
             emit("kernel_ragged", ok=False, cases=results)
             raise SystemExit(f"ragged kernel disagrees with its plain version: {row}")
-    emit("kernel_ragged", ok=True, cases=results)
+    emit("kernel_ragged", ok=True, wgmma_ptxas=ptxas, cases=results, card=nvidia_smi_line())
     main = results[0]
     records["ragged_flash_attention"] = {
         "name": "ragged_flash_attention",
@@ -733,7 +849,14 @@ def phase_main_path(workdir: Path, records: dict, reports_wanted: int = 512) -> 
             f"launch counts off: flash {flash_launches} (want {layers * (batches + chunks)}), "
             f"anchor_match {match_launches} (want {batches})"
         )
-    records["anchor_match"]["launches"] = match_launches
+    anchor = records["anchor_match"]
+    anchor["launches"] += match_launches
+    rows = main_path_bucket_rows()
+    for length, count in metrics["s_bucket_batches"].items():
+        if not int(count):
+            continue
+        b = rows[int(length)]
+        anchor["launches_by_rows"][b] = anchor["launches_by_rows"].get(b, 0) + int(count)
     records["flash_attention"]["launches"] = flash_launches
     emit(
         "main_path", ok=True, config=str(CONFIG.relative_to(ROOT)),
@@ -886,6 +1009,12 @@ def phase_serve_path(workdir: Path, records: dict, requests: int = 256, threads:
             raise SystemExit(f"serve_path ({impl}) failed: {runs[impl]['checks']}")
     emit("serve_path", ok=True, archive="main_path's model.tar.gz", runs=runs, card=nvidia_smi_line())
     records["ragged_flash_attention"]["launches"] = ragged_launches
+    # every pack's anchor match has the pack's row count of reports
+    anchor = records["anchor_match"]
+    rows = int(runs["ragged"]["max_rows_per_pack"])
+    served = sum(r["launches"]["anchor_match"] for r in runs.values())
+    anchor["launches"] += served
+    anchor["launches_by_rows"][rows] = anchor["launches_by_rows"].get(rows, 0) + served
 
 
 # the small f32 model served on the card against its plain bucketed path on
@@ -1301,6 +1430,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         phase_main_path(Path(tmp), records)
         phase_serve_path(Path(tmp), records)
+        emit_anchor_shapes(records)
         phase_serve_identity(Path(tmp))
         phase_profile(Path(tmp) / "model.tar.gz")
     phase_main_path_reference()

@@ -221,12 +221,6 @@ struct WgConfig {
   static_assert(128 * kProducerRegs + 128 * NC * kConsumerRegs <= 65536, "register file");
 };
 
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // A work item is 64·NC query rows of one (batch, head): item = bh · n_qtiles
 // + qtile, so the items running at one time share (batch, head) and its K
 // and V stay in L2.  The grid is persistent: block i takes items i, i +

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks for warp-specialized kernels: mbarriers,
-// TMA tile loads and the host-side tensor-map encode, wgmma shared-memory
+// TMA tile loads and the host-side tensor-map encodes, wgmma shared-memory
 // descriptors with fence, commit and wait, the bf16 wgmma products the
 // attention kernels use, and setmaxnreg.
 //
@@ -85,6 +85,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
          "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// one box of a rank-2 tensor map at coordinates (c0, c1), innermost first,
+// into shared memory (16-byte aligned without a swizzle); completion is
+// counted on `bar` in bytes
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -187,6 +200,27 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// D[64×64] (+)= A[64×16] · B[16×64], A and B K-major in shared memory; the
+// fragment layout of D is that of wgmma_m64n128k16_ss, with 8 chunks.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D[64×64] (+)= A[64×16] · B[16×64], A (bf16 pairs) in registers in the
 // m16n8k16 A-fragment layout of each warp's 16 rows, B MN-major in shared
 // memory (the transpose bit set).
@@ -254,6 +288,22 @@ inline bool encode_bf16_rows(CUtensorMap* map, const void* base, int B, int T, i
                 strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An int32 tensor map over `n` consecutive elements, read in boxes of `box`
+// elements (box·4 a multiple of 16 bytes) at coordinates (element, 0);
+// elements past n read as 0.  It has a second dimension of extent 1, whose
+// stride (a multiple of 16 bytes) is never used.
+inline bool encode_i32_run(CUtensorMap* map, const void* base, long long n, int box) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (!encode || n < 1) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), 1};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>((n * 4 + 15) / 16 * 16)};
+  const cuuint32_t boxes[2] = {static_cast<cuuint32_t>(box), 1};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(base), dims, strides,
+                boxes, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace memvul

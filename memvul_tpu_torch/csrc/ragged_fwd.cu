@@ -42,21 +42,23 @@
 //
 // Two kernels share that contract:
 //
-// * ragged_fwd_mma_kernel (bf16, head dim 64, 16-byte aligned, strides a
-//   nonzero multiple of 8 elements: the serve path) runs QKᵀ and PV on the
-//   tensor cores with mma.sync, K/V tiles double buffered by cp.async, in
-//   log2 units with exp2.  Masked scores
-//   are set to the finite minimum AFTER the log2(e) scaling, so the scale
-//   can never overflow them to −inf (−inf − (−inf) would be NaN); keys
-//   past T get −inf and add exactly 0.
+// * ragged_fwd_wgmma_kernel (bf16, head dim 64, 16-byte aligned, strides a
+//   nonzero multiple of 8 elements: the serve path) loads by TMA, runs QKᵀ
+//   and PV with wgmma, a producer thread streaming the visited K/V tiles
+//   through an mbarrier ring to a consumer warpgroup, with exp2.  Masked
+//   scores take −2^126, a finite score the scale (log2(e)/8 at head dim 64)
+//   can never overflow to −inf (−inf − (−inf) would be NaN) and whose
+//   scaled value is exact, so a row that sees nothing averages uniformly;
+//   keys past T get −inf and add exactly 0.  A refused tensor map is an
+//   error, never a fallback.
 // * ragged_fwd_kernel (f32, head dims 16/32, or unaligned views) does its
 //   products on the CUDA cores in f32, one thread per query row, and skips
 //   a key tile when none of its ids falls in the query tile's live range.
 //
-// The shared device helpers are in common.cuh.  wgmma and TMA (hopper.cuh,
-// as flash_fwd.cu's kernel uses them) and a varlen grid that launches only
-// the visited tiles are later work.
+// The shared device helpers are in common.cuh, the Hopper pieces (TMA,
+// mbarriers, wgmma) in hopper.cuh.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -65,6 +67,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -241,221 +244,384 @@ ragged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < HD; ++d) op[d] = from_f32<T>(acc[d] / denom);
 }
 
-// -- tensor-core path: bf16 q/k/v with head dim 64 ---------------------------
+// -- wgmma path: bf16 q/k/v with head dim 64 ---------------------------------
 //
-// A FlashAttention-2 layout on mma.sync.m16n8k16: 4 warps own
-// 64 query rows (one range-table tile), 16 per warp, Q in registers as A
-// fragments; 64-key tiles of K and V land in shared memory by cp.async,
-// double buffered, rows padded by 8 elements for conflict-free ldmatrix.
-// The key tile's segment ids are staged beside them.  The tiles to visit
-// are a bit mask in shared memory, built once from the range table with
-// one ballot per 32 tiles; the pipeline walks its set bits in ascending
-// order, so the next visited tile is always in flight while this one is
-// multiplied.  Each thread owns two query rows and keeps their segment ids
-// in registers.
+// A block owns one 64-row query tile of one (batch, head): a consumer
+// warpgroup (warps 0-3) and a producer warp (warp 4).  All five warps
+// build the block's visit mask from the range table (one ballot per 32 key
+// tiles; the table's loads and the rows' ids in one round trip).  A query
+// tile with no live id then writes 0 and stops; otherwise one thread loads
+// Q and streams the visited K/V tiles, in ascending order, by TMA through
+// a ring of kRgStages stages with full and empty mbarriers, each tile's
+// segment ids beside K by TMA too, so no copy waits on a register.  The
+// consumer runs S = Q·Kᵀ as wgmma from shared memory (both K-major), the
+// segment test and the online softmax in registers, and O += P·V as wgmma
+// with P from registers and V MN-major; it issues the next tile's QKᵀ
+// before this tile's PV, as flash_fwd_wgmma_kernel does, and walks the
+// visit mask as the producer does to know which keys of the last tile lie
+// past T.  A block is small (160 threads, about 60 KB of shared memory),
+// so three run on an SM and a pack's blocks are resident at once: the time
+// is the longest visit list's chain, not a queue of blocks, and the blocks
+// are numbered query tile first so that one long request's tiles land on
+// different SMs.  The grid is B·H·ceil(T / 64) whatever the ids, so the
+// launch can be captured in a CUDA graph.
 
-constexpr int kMmaRows = 64;     // query rows per block (4 warps × 16)
-constexpr int kMmaKeys = 64;     // keys per staged tile
-constexpr int kMmaThreads = 128;
-constexpr int kMmaDim = 64;
-constexpr int kMmaPad = 8;
-static_assert(kMmaRows == kTile && kMmaKeys == kTile,
-              "query and key tiles are entries of the range table");
+constexpr int kRgKeys = 64;      // keys per K/V tile (64 or 128)
+constexpr int kRgDim = 64;       // head dim: one 128-byte swizzled row
+constexpr int kRgRows = 64;      // query rows per block: one range-table tile
+constexpr int kRgStages = 3;     // K/V ring depth
+constexpr int kRgThreads = 160;  // a consumer warpgroup and a producer warp
+// a masked raw score: a power of two, so its product with the scale is
+// exact, and a row that sees no key gets p = 2^0 = 1 for every key it
+// visited (a uniform average), never an exponent's rounding residue
+constexpr float kMaskedRaw = -0x1p126f;
+static_assert(kRgRows == kTile, "a query tile is an entry of the range table");
 
-__global__ void __launch_bounds__(kMmaThreads)
-ragged_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const int* __restrict__ seg,
-                      const int2* __restrict__ ranges,
-                      __nv_bfloat16* __restrict__ out, int H, int Tn,
-                      Strides qs, Strides ks_, Strides vs_, Strides os,
-                      long long seg_sb, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 k_tile[2][kMmaKeys][kMmaDim + kMmaPad];
-  __shared__ __align__(16) __nv_bfloat16 v_tile[2][kMmaKeys][kMmaDim + kMmaPad];
-  __shared__ int k_seg[2][kMmaKeys];
-  __shared__ uint32_t visit[kMaxTiles / 32];
+template <int KT>
+struct RgConfig {
+  static_assert(KT == 64 || KT == 128, "key tiles of 64 or 128 keys");
+  static constexpr uint32_t kQBytes = kRgRows * kRgDim * 2;
+  static constexpr uint32_t kTileBytes = KT * kRgDim * 2;
+  // shared memory, from a 1024-byte-aligned base
+  static constexpr int kSmemQ = 0;
+  static constexpr int kSmemK = kSmemQ + kQBytes;
+  static constexpr int kSmemV = kSmemK + kRgStages * kTileBytes;
+  static constexpr int kSmemSeg = kSmemV + kRgStages * kTileBytes;
+  static constexpr int kSmemVisit = kSmemSeg + kRgStages * KT * 4;
+  static constexpr int kSmemBars = kSmemVisit + kMaxTiles / 32 * 4;
+  // q_full, k_full[], v_full[], empty[]
+  static constexpr int kSmemBytes = kSmemBars + (1 + 3 * kRgStages) * 8 + 1024;
+  static constexpr int kMinBlocks = KT == 64 ? 3 : 2;
+};
 
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int quad_row = lane / 4;        // fragment row (and B-operand column)
-  const int quad_col = (lane % 4) * 2;  // first of the fragment's column pair
-  const int mat = lane / 8, mat_row = lane % 8;  // ldmatrix: matrix and row
-  const int row0 = blockIdx.y * kMmaRows + warp * 16 + quad_row;  // and row0 + 8
-  const float neg_inf = -CUDART_INF_F;
-  const float scale_log2 = scale * kLog2e;
+// S[64×KT] (+)= Q[64×16] · K[16×KT], both K-major in shared memory
+template <int KT>
+__device__ __forceinline__ void wgmma_qk(float (&d)[KT / 2], uint64_t desc_q, uint64_t desc_k,
+                                         int accumulate) {
+  if constexpr (KT == 64)
+    wgmma_m64n64k16_ss(d, desc_q, desc_k, accumulate);
+  else
+    wgmma_m64n128k16_ss(d, desc_q, desc_k, accumulate);
+}
+
+template <int KT>
+__global__ void __launch_bounds__(kRgThreads, RgConfig<KT>::kMinBlocks)
+ragged_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap seg_map,
+                        const int* __restrict__ seg, const int2* __restrict__ ranges,
+                        __nv_bfloat16* __restrict__ out, int B, int H, int Tn, int n_qtiles,
+                        Strides os, long long seg_sb, float scale_log2) {
+  using C = RgConfig<KT>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + C::kSmemQ);
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + C::kSmemK);
+  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + C::kSmemV);
+  int* seg_s = reinterpret_cast<int*>(smem + C::kSmemSeg);
+  uint32_t* visit = reinterpret_cast<uint32_t*>(smem + C::kSmemVisit);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kSmemBars);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kRgStages;
+  uint64_t* empty = v_full + kRgStages;
+
+  // block i takes query tile i / (B·H) of row b, head h: the blocks of one
+  // query tile (whose visit lists are alike) are spread over the SMs, not
+  // the tiles of one long request gathered on a few
+  const int qtile = blockIdx.x / (B * H), b = blockIdx.x % (B * H) / H, h = blockIdx.x % H;
+  // the warp index through a shuffle, so the compiler knows it is uniform
+  // and keeps the wgmma descriptors in uniform registers
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
   const int* sb = seg + b * seg_sb;
-  const int n_tiles = (Tn + kTile - 1) / kTile;
-  const int n_words = (n_tiles + 31) / 32;
-  const int2* rb = ranges + (long long)b * n_tiles;
-
-  // the key tiles whose live range meets this query tile's
-  {
-    const int2 qr = rb[blockIdx.y];
-    for (int w = warp; w < n_words; w += kMmaThreads / 32) {
-      const int t = w * 32 + lane;
-      bool hit = false;
-      if (t < n_tiles) {
-        const int2 kr = rb[t];
-        hit = kr.x <= qr.y && qr.x <= kr.y;
-      }
-      const uint32_t mask = __ballot_sync(0xffffffffu, hit);
-      if (lane == 0) visit[w] = mask;
+  const int n_rtiles = (Tn + kTile - 1) / kTile;  // entries of the range table
+  const int n_ktiles = (Tn + KT - 1) / KT;
+  const int n_words = (n_ktiles + 31) / 32;
+  const int2* rb = ranges + (long long)b * n_rtiles;
+  // One round trip of loads before the rest: this tile's live range, every
+  // range the visit mask tests against it, and a consumer thread's rows'
+  // ids.
+  const int2 qr = rb[qtile];  // (INT_MAX, 0) when the tile has no live id
+  const int quad_row = lane / 4;        // accumulator row (and row + 8)
+  const int quad_col = (lane % 4) * 2;  // first of each 8-column chunk's pair
+  const int row0 = qtile * kRgRows + (warp % 4) * 16 + quad_row;
+  int qv0 = row0 < Tn ? sb[row0] : 0, qv1 = row0 + 8 < Tn ? sb[row0 + 8] : 0;  // used late
+  // key tile u is visited iff the live range of one of its range-table
+  // tiles meets this query tile's; an empty range meets nothing
+  for (int w = warp; w < n_words; w += kRgThreads / 32) {
+    const int u = w * 32 + lane;
+    bool hit = false;
+    for (int r = u * (KT / kTile); u < n_ktiles && r < min((u + 1) * (KT / kTile), n_rtiles); ++r) {
+      const int2 kr = rb[r];
+      hit |= kr.x <= qr.y && qr.x <= kr.y;
     }
+    const uint32_t mask = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) visit[w] = mask;
   }
-  // the first visited tile at or after `from`, or n_tiles
-  auto next_tile = [&](int from) {
-    for (int w = from >> 5; w < n_words; ++w) {
-      uint32_t mask = visit[w];
-      if (w == (from >> 5)) mask &= 0xffffffffu << (from & 31);
-      if (mask) return w * 32 + __ffs(mask) - 1;
+  if (qr.x > qr.y) {  // no live id in this query tile: it writes 0, 16 bytes a thread
+    __nv_bfloat16* ob = out + b * os.b + h * os.h;
+    for (int i = threadIdx.x; i < kRgRows * kRgDim / 8; i += kRgThreads) {
+      const int r = qtile * kRgRows + i / (kRgDim / 8);
+      if (r < Tn) *reinterpret_cast<uint4*>(ob + (long long)r * os.t + i % (kRgDim / 8) * 8) = uint4{};
     }
-    return n_tiles;
+    return;
+  }
+  if (threadIdx.x == 128) {
+    tma_prefetch_map(&q_map);
+    tma_prefetch_map(&k_map);
+    tma_prefetch_map(&v_map);
+    tma_prefetch_map(&seg_map);
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kRgStages; ++s) {
+      mbar_init(&k_full[s], 1);   // K's and the ids' bytes
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 4);    // one arrival per consumer warp
+    }
+    mbar_fence_init();
+    mbar_arrive_expect_tx(q_full, C::kQBytes);
+    tma_load_4d(q_s, &q_map, q_full, 0, qtile * kRgRows, h, b);
+  }
+  __syncthreads();  // the barriers are initialised and the visit mask complete
+
+  if (warp == 4) {
+    // -- producer: one thread issues every copy ---------------------------------
+    if (lane != 0) return;
+    int it = 0;
+    for (int w = 0; w < n_words; ++w) {
+      for (uint32_t mask = visit[w]; mask; mask &= mask - 1, ++it) {
+        const int k0 = (w * 32 + __ffs(mask) - 1) * KT;
+        const int s = it % kRgStages;
+        mbar_wait(&empty[s], ((it / kRgStages) & 1) ^ 1);  // a first use passes at once
+        mbar_arrive_expect_tx(&k_full[s], C::kTileBytes + KT * 4);
+        tma_load_4d(k_s + s * KT * kRgDim, &k_map, &k_full[s], 0, k0, h, b);
+        tma_load_2d(seg_s + s * KT, &seg_map, &k_full[s], b * seg_sb + k0, 0);
+        mbar_arrive_expect_tx(&v_full[s], C::kTileBytes);
+        tma_load_4d(v_s + s * KT * kRgDim, &v_map, &v_full[s], 0, k0, h, b);
+      }
+    }
+    return;
+  }
+
+  // -- consumer ----------------------------------------------------------------
+  __nv_bfloat16* ob = out + b * os.b + h * os.h;
+  int n_tiles = 0;  // at least the query tile's own
+  for (int w = 0; w < n_words; ++w) n_tiles += __popc(visit[w]);
+  // the first key of each visited tile, in the producer's order
+  int visit_word = 0;
+  uint32_t visit_left = visit[0];
+  auto next_k0 = [&] {
+    while (!visit_left) visit_left = visit[++visit_word];
+    const int k0 = (visit_word * 32 + __ffs(visit_left) - 1) * KT;
+    visit_left &= visit_left - 1;
+    return k0;
   };
+  // a row's id, or INT_MIN for a dead row (or one past T): no staged id
+  // (≥ 0) equals it, so a dead row sees nothing
+  qv0 = qv0 > 0 ? qv0 : INT_MIN;
+  qv1 = qv1 > 0 ? qv1 : INT_MIN;
 
-  const int qs0 = row0 < Tn ? sb[row0] : 0;
-  const int qs1 = row0 + 8 < Tn ? sb[row0 + 8] : 0;
-  uint32_t qf[4][4];  // A fragments of Q, one per 16-dim step
+  float o[32];              // O: 8 chunks of 8 dims, m16n8 fragments
+  float m0 = kMaskedRaw, m1 = kMaskedRaw, l0 = 0.f, l1 = 0.f;  // m over raw scores
+  float sc[KT / 2];         // S: this warp's 16 rows × KT keys, chunks of 8 keys
+  uint32_t pf[KT / 16][4];  // P of the tile in PV: bf16 A fragments, one per 16 keys
+  float corr0, corr1;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+
+  const WgmmaFlags flags;
+  // K-major Q and K: 8-row groups 1024 bytes apart, 32 bytes per 16 dims
+  uint64_t qd[kRgDim / 16], kd[kRgDim / 16];
   {
-    const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-    const __nv_bfloat16* q0 = qb + (long long)min(row0, Tn - 1) * qs.t;
-    const __nv_bfloat16* q1 = qb + (long long)min(row0 + 8, Tn - 1) * qs.t;
+    const uint64_t q_desc = wgmma_desc_sw128(q_s, 16, 1024);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int c = kk * 16 + quad_col;
-      qf[kk][0] = load_pair(q0 + c);
-      qf[kk][1] = load_pair(q1 + c);
-      qf[kk][2] = load_pair(q0 + c + 8);
-      qf[kk][3] = load_pair(q1 + c + 8);
-    }
+    for (int kk = 0; kk < kRgDim / 16; ++kk) qd[kk] = wgmma_desc_advance(q_desc, kk * 32);
   }
-  float o[8][4];  // output accumulators: 8 tiles of 8 dims
+  auto k_descs = [&](int it) {
+    const uint64_t k_desc = wgmma_desc_sw128(k_s + (it % kRgStages) * KT * kRgDim, 16, 1024);
 #pragma unroll
-  for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {kF32Min, kF32Min}, l[2] = {0.f, 0.f};  // m in log2 units
-
-  const __nv_bfloat16* kb = k + b * ks_.b + h * ks_.h;
-  const __nv_bfloat16* vb = v + b * vs_.b + h * vs_.h;
-
-  auto load_tile = [&](int tile, int buf) {
-    const int k0 = tile * kMmaKeys;
-    const int nk = min(kMmaKeys, Tn - k0);
-    for (int c = threadIdx.x; c < kMmaKeys * kMmaDim / 8; c += kMmaThreads) {
-      const int j = c / (kMmaDim / 8), d8 = (c % (kMmaDim / 8)) * 8;
-      const bool in = j < nk;
-      const long long key = in ? k0 + j : 0;
-      cp_async16(&k_tile[buf][j][d8], kb + key * ks_.t + d8, in);
-      cp_async16(&v_tile[buf][j][d8], vb + key * vs_.t + d8, in);
-    }
-    // −1 marks a key past T: its score is −inf, so it adds exactly 0
-    for (int j = threadIdx.x; j < kMmaKeys; j += kMmaThreads)
-      k_seg[buf][j] = j < nk ? sb[k0 + j] : -1;
+    for (int kk = 0; kk < kRgDim / 16; ++kk) kd[kk] = wgmma_desc_advance(k_desc, kk * 32);
   };
-
-  __syncthreads();  // the visit mask is complete
-  int cur = next_tile(0);
-  if (cur < n_tiles) {
-    load_tile(cur, 0);
-    cp_async_commit();
-  }
-  for (int buf = 0; cur < n_tiles; buf ^= 1) {
-    const int nxt = next_tile(cur + 1);
-    if (nxt < n_tiles) {
-      load_tile(nxt, buf ^ 1);  // that buffer was released at the end of the last step
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile `cur` is visible to every warp
-
-    float s[8][4];  // this warp's 16 rows × 64 keys of S, in 8 tiles of 8 keys
+  auto issue_qk = [&] {
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+    for (int kk = 0; kk < kRgDim / 16; ++kk)
+      wgmma_qk<KT>(sc, qd[kk], kd[kk], kk ? flags.on : flags.off);
+    wgmma_commit();
+  };
+  // The online-softmax step of tile `it` on S, in place.  The segment test
+  // and the running max work on raw scores q·k: a visible key keeps its
+  // score; a masked key takes kMaskedRaw, finite after the scaling by
+  // log2(e)/8 (head dim 64), so no −inf − (−inf) can arise, and 0 beside
+  // any visible key; a key past T (only in the last tile; its staged id is
+  // another row's, or 0) takes −inf and adds exactly 0.  p = 2^(s·c − m·c)
+  // with c = scale·log2(e) is one FFMA and one exp2 a score.  Updates m and
+  // l, sets the rescale of O and leaves p in S.
+  auto softmax = [&](int it) {
+    const int* ss = seg_s + (it % kRgStages) * KT;
+    const int k0 = next_k0();
+    const bool partial = k0 + KT > Tn;
+    float mx0 = m0, mx1 = m1;
 #pragma unroll
-      for (int kp = 0; kp < 2; ++kp) {  // two 16-dim steps per ldmatrix.x4
-        uint32_t kf[4];
-        ldmatrix_x4(kf, &k_tile[buf][t * 8 + mat_row][(kp * 2 + mat / 2) * 16 + (mat % 2) * 8]);
-        mma_16816(s[t], qf[kp * 2], kf[0], kf[1]);
-        mma_16816(s[t], qf[kp * 2 + 1], kf[2], kf[3]);
+    for (int i = 0; i < KT / 8; ++i) {
+      const int2 ks = *reinterpret_cast<const int2*>(ss + i * 8 + quad_col);
+      float s0 = ks.x == qv0 ? sc[4 * i + 0] : kMaskedRaw;
+      float s1 = ks.y == qv0 ? sc[4 * i + 1] : kMaskedRaw;
+      float s2 = ks.x == qv1 ? sc[4 * i + 2] : kMaskedRaw;
+      float s3 = ks.y == qv1 ? sc[4 * i + 3] : kMaskedRaw;
+      if (partial) {
+        const int key = k0 + i * 8 + quad_col;
+        if (key >= Tn) s0 = s2 = -CUDART_INF_F;
+        if (key + 1 >= Tn) s1 = s3 = -CUDART_INF_F;
       }
-    }
-    float mx0 = m[0], mx1 = m[1];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kseg = k_seg[buf][t * 8 + quad_col + e];
-        // masked keys take the finite minimum (or −inf past T) after the
-        // log2(e) scaling, never through it
-        const float masked = kseg < 0 ? neg_inf : kF32Min;
-        s[t][e] = kseg == qs0 && kseg > 0 ? s[t][e] * scale_log2 : masked;
-        s[t][2 + e] = kseg == qs1 && kseg > 0 ? s[t][2 + e] * scale_log2 : masked;
-        mx0 = fmaxf(mx0, s[t][e]);
-        mx1 = fmaxf(mx1, s[t][2 + e]);
-      }
+      sc[4 * i + 0] = s0;
+      sc[4 * i + 1] = s1;
+      sc[4 * i + 2] = s2;
+      sc[4 * i + 3] = s3;
+      mx0 = fmaxf(mx0, fmaxf(s0, s1));
+      mx1 = fmaxf(mx1, fmaxf(s2, s3));
     }
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float corr0 = exp2f(m[0] - mx0), corr1 = exp2f(m[1] - mx1);
-    m[0] = mx0;
-    m[1] = mx1;
-    l[0] *= corr0;
-    l[1] *= corr1;
+    corr0 = exp2_approx((m0 - mx0) * scale_log2);
+    corr1 = exp2_approx((m1 - mx1) * scale_log2);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= corr0;
+    l1 *= corr1;
+    const float top0 = mx0 * scale_log2, top1 = mx1 * scale_log2;
+#pragma unroll
+    for (int i = 0; i < KT / 8; ++i) {
+      sc[4 * i + 0] = exp2_approx(fmaf(sc[4 * i + 0], scale_log2, -top0));
+      sc[4 * i + 1] = exp2_approx(fmaf(sc[4 * i + 1], scale_log2, -top0));
+      sc[4 * i + 2] = exp2_approx(fmaf(sc[4 * i + 2], scale_log2, -top1));
+      sc[4 * i + 3] = exp2_approx(fmaf(sc[4 * i + 3], scale_log2, -top1));
+      l0 += sc[4 * i + 0] + sc[4 * i + 1];
+      l1 += sc[4 * i + 2] + sc[4 * i + 3];
+    }
+  };
+  // P rounded to bf16 as A fragments of m64n64k16, one per 16 keys
+  auto pack_p = [&] {
+#pragma unroll
+    for (int i = 0; i < KT / 8; ++i) {
+      pf[i / 2][(i % 2) * 2 + 0] = pack_bf16(sc[4 * i + 0], sc[4 * i + 1]);
+      pf[i / 2][(i % 2) * 2 + 1] = pack_bf16(sc[4 * i + 2], sc[4 * i + 3]);
+    }
+  };
+  auto rescale_o = [&] {
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      o[n][0] *= corr0;
-      o[n][1] *= corr0;
-      o[n][2] *= corr1;
-      o[n][3] *= corr1;
+      o[4 * n + 0] *= corr0;
+      o[4 * n + 1] *= corr0;
+      o[4 * n + 2] *= corr1;
+      o[4 * n + 3] *= corr1;
     }
-    uint32_t pf[4][4];  // A fragments of P (bf16), one per 16-key step
+  };
+  // MN-major V: 8-key groups 1024 bytes apart, 2048 bytes per 16 keys
+  uint64_t vd[KT / 16];
+  auto v_descs = [&](int it) {
+    const uint64_t v_desc = wgmma_desc_sw128(v_s + (it % kRgStages) * KT * kRgDim, 16, 1024);
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const float p0 = exp2f(s[t][0] - mx0), p1 = exp2f(s[t][1] - mx0);
-      const float p2 = exp2f(s[t][2] - mx1), p3 = exp2f(s[t][3] - mx1);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      pf[t / 2][(t % 2) * 2 + 0] = pack_bf16(p0, p1);
-      pf[t / 2][(t % 2) * 2 + 1] = pack_bf16(p2, p3);
-    }
+    for (int j = 0; j < KT / 16; ++j) vd[j] = wgmma_desc_advance(v_desc, j * 16 * 128);
+  };
+  auto issue_pv = [&] {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {      // 16-key steps
+    for (int j = 0; j < KT / 16; ++j) wgmma_m64n64k16_rs(o, pf[j], vd[j], flags.on);
+    wgmma_commit();
+  };
+  // S, P and O as ordinary instructions left them, before a batch's fence
+  auto pin_inputs = [&] {
+    fence_regs(sc);
+    fence_regs(o);
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {  // two 8-dim tiles per ldmatrix.x4.trans
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, &v_tile[buf][j * 16 + (mat % 2) * 8 + mat_row][(np * 2 + mat / 2) * 8]);
-        mma_16816(o[np * 2], pf[j], vf[0], vf[1]);
-        mma_16816(o[np * 2 + 1], pf[j], vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with buffer `buf`
-    cur = nxt;
+    for (int j = 0; j < KT / 16; ++j) fence_regs(pf[j]);
+  };
+  auto wait_k = [&](int it) { mbar_wait(&k_full[it % kRgStages], (it / kRgStages) & 1); };
+  auto wait_v = [&](int it) { mbar_wait(&v_full[it % kRgStages], (it / kRgStages) & 1); };
+  auto release = [&](int it) {
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(&empty[it % kRgStages]);  // this warp is done with the stage
+  };
+
+  // The pipeline of flash_fwd_wgmma_kernel: QKᵀ of tile it + 1 is issued
+  // just before PV of tile it, and the next softmax runs while PV is on the
+  // tensor cores; P is packed only once PV has landed.
+  mbar_wait(q_full, 0);
+  wait_k(0);
+  k_descs(0);
+  pin_inputs();
+  wgmma_fence();
+  issue_qk();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax(0);
+  pack_p();
+  for (int it = 0; it + 1 < n_tiles; ++it) {
+    wait_k(it + 1);
+    wait_v(it);
+    k_descs(it + 1);
+    v_descs(it);
+    rescale_o();
+    pin_inputs();
+    wgmma_fence();
+    issue_qk();
+    issue_pv();
+    wgmma_wait<1>();  // QKᵀ of it + 1 has landed; PV of it may still run
+    fence_regs(sc);
+    softmax(it + 1);
+    release(it);
+    pack_p();  // PV of it no longer reads pf
   }
+  wait_v(n_tiles - 1);
+  v_descs(n_tiles - 1);
+  rescale_o();
+  pin_inputs();
+  wgmma_fence();
+  issue_pv();
+  release(n_tiles - 1);
 
   // each thread summed its own columns; the quad holds the whole row.  A
-  // row that visited nothing has l = 0 and writes 0 / 1e-30 = 0.
+  // dead row averaged what it saw, so it is finite too.
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const float d0 = fmaxf(l[0], 1e-30f), d1 = fmaxf(l[1], 1e-30f);
-  __nv_bfloat16* ob = out + b * os.b + h * os.h;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int col = n * 8 + quad_col;
+  for (int n8 = 0; n8 < 8; ++n8) {
+    const int col = n8 * 8 + quad_col;
     if (row0 < Tn)
       *reinterpret_cast<uint32_t*>(ob + (long long)row0 * os.t + col) =
-          pack_bf16(o[n][0] / d0, o[n][1] / d0);
+          pack_bf16(o[4 * n8 + 0] * inv0, o[4 * n8 + 1] * inv0);
     if (row0 + 8 < Tn)
       *reinterpret_cast<uint32_t*>(ob + (long long)(row0 + 8) * os.t + col) =
-          pack_bf16(o[n][2] / d1, o[n][3] / d1);
+          pack_bf16(o[4 * n8 + 2] * inv1, o[4 * n8 + 3] * inv1);
   }
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, const int* seg, const int2* ranges,
+                 void* out, int B, int H, int Tn, Strides qs, Strides ks, Strides vs, Strides os,
+                 long long seg_sb, float scale, cudaStream_t stream) {
+  using C = RgConfig<kRgKeys>;
+  CUtensorMap q_map, k_map, v_map, seg_map;
+  if (!encode_bf16_rows(&q_map, q, B, Tn, H, qs, kRgRows) ||
+      !encode_bf16_rows(&k_map, k, B, Tn, H, ks, kRgKeys) ||
+      !encode_bf16_rows(&v_map, v, B, Tn, H, vs, kRgKeys) ||
+      !encode_i32_run(&seg_map, seg, (B - 1) * seg_sb + Tn, kRgKeys))
+    return (int)cudaErrorInvalidValue;
+  const int n_qtiles = (Tn + kRgRows - 1) / kRgRows;
+  const long long blocks = (long long)n_qtiles * B * H;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      ragged_fwd_wgmma_kernel<kRgKeys>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  ragged_fwd_wgmma_kernel<kRgKeys><<<(int)blocks, kRgThreads, C::kSmemBytes, stream>>>(
+      q_map, k_map, v_map, seg_map, seg, ranges, static_cast<__nv_bfloat16*>(out), B, H, Tn,
+      n_qtiles, os,
+      seg_sb, scale * kLog2e);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
@@ -492,7 +658,7 @@ int dispatch_head_dim(int D, const void* q, const void* k, const void* v,
 // cudaGetLastError() after the launch.
 extern "C" int memvul_ragged_tile_ranges(const void* seg, void* ranges, int B, int T,
                                          long long seg_sb, void* stream) {
-  if (B < 0 || T < 0 || T > kMaxTiles * kTile) return (int)cudaErrorInvalidValue;
+  if (B < 0 || T < 0 || T > kMaxTiles * kTile || B > 65535) return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return (int)cudaGetLastError();
   const int n_tiles = (T + kTile - 1) / kTile;
   tile_ranges_kernel<<<dim3((n_tiles + kRangeWarps - 1) / kRangeWarps, B), kRangeWarps * 32, 0,
@@ -504,8 +670,8 @@ extern "C" int memvul_ragged_tile_ranges(const void* seg, void* ranges, int B, i
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
 // [B, T, H, Dh] layout (the last dim contiguous); segment ids are int32
 // [B, T] with row stride seg_sb.  `ranges` is the table that
-// memvul_ragged_tile_ranges filled for these ids; the tensor-core path
-// reads it.  Returns cudaGetLastError() after the launch.
+// memvul_ragged_tile_ranges filled for these ids; the wgmma path reads it.
+// Returns cudaGetLastError() after the launch.
 extern "C" int memvul_ragged_fwd(const void* q, const void* k, const void* v,
                                  const void* seg, const void* ranges, void* out,
                                  int B, int H, int T, int D, long long q_sb,
@@ -524,15 +690,9 @@ extern "C" int memvul_ragged_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* ptrs[4] = {q, k, v, out};
   const Strides all[4] = {qs, ks, vs, os};
-  if (dtype == 1 && D == kMmaDim && tensor_core_eligible(ptrs, all, 4)) {
-    const int n_tiles = (T + kTile - 1) / kTile;
-    ragged_fwd_mma_kernel<<<dim3(B * H, n_tiles), kMmaThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), sp, static_cast<const int2*>(ranges),
-        static_cast<__nv_bfloat16*>(out),
-        H, T, qs, ks, vs, os, seg_sb, scale);
-    return (int)cudaGetLastError();
-  }
+  if (dtype == 1 && D == kRgDim && tensor_core_eligible(ptrs, all, 4))
+    return launch_wgmma(q, k, v, sp, static_cast<const int2*>(ranges), out, B, H, T, qs, ks, vs,
+                        os, seg_sb, scale, s);
   if (dtype == 0)
     return dispatch_head_dim<float>(D, q, k, v, sp, out, B, H, T, qs, ks, vs, os, seg_sb, scale, s);
   return dispatch_head_dim<__nv_bfloat16>(D, q, k, v, sp, out, B, H, T, qs, ks, vs, os, seg_sb, scale, s);

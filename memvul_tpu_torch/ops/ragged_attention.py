@@ -16,6 +16,8 @@ gather drops.
   launches.  A CPU tensor goes to the plain version.
 * :func:`pack_segments` builds, once per pack, the per-tile range table
   the kernel skips by; the encoder passes it to every layer.
+  :func:`tile_ranges_reference` is the table's plain version, and
+  :func:`visited_key_tiles` the kernel's choice of key tiles from it.
 * :func:`ragged_flash_attention_reference` is the plain PyTorch version of
   the Pallas kernel's arithmetic: scores in f32, the finite f32 minimum for
   masked pairs, p rounded to the value dtype before the PV product, the
@@ -101,6 +103,37 @@ def ragged_flash_attention_reference(
     return out
 
 
+def tile_ranges_reference(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel library's tile-range pass: [B, T] ids →
+    int32 [B, ceil(T / 64), 2], the (min, max) of the ids > 0 in each
+    64-position tile, or (INT32_MAX, 0) where there is none."""
+    b, t = segment_ids.shape
+    n_tiles = -(-t // TILE)
+    ids = torch.zeros((b, n_tiles * TILE), dtype=torch.int64, device=segment_ids.device)
+    ids[:, :t] = segment_ids
+    tiles = ids.view(b, n_tiles, TILE)
+    live = tiles > 0
+    big = torch.iinfo(torch.int32).max
+    lo = torch.where(live, tiles, big).amin(dim=-1)
+    hi = torch.where(live, tiles, 0).amax(dim=-1)
+    return torch.stack([lo, hi], dim=-1).to(torch.int32)
+
+
+def visited_key_tiles(ranges: torch.Tensor, key_tile: int = TILE) -> torch.Tensor:
+    """Which key tiles each query tile visits, as the kernel decides it from
+    the range table: bool [B, n_query_tiles, n_key_tiles], key tiles of
+    ``key_tile`` positions (a multiple of 64).  A key tile is visited iff
+    the live range of one of its 64-position tiles meets the query tile's;
+    an empty range meets nothing."""
+    per = key_tile // TILE
+    lo, hi = ranges[..., 0].long(), ranges[..., 1].long()
+    meets = (lo[:, None, :] <= hi[:, :, None]) & (lo[:, :, None] <= hi[:, None, :])
+    b, n, _ = meets.shape
+    pad = -(-n // per) * per - n
+    meets = torch.nn.functional.pad(meets, (0, pad))
+    return meets.view(b, n, -1, per).any(dim=-1)
+
+
 class PackedSegments(NamedTuple):
     """One pack's segment ids made ready for the attention of every layer
     (build it with :func:`pack_segments`): int32 ids with contiguous rows
@@ -144,8 +177,7 @@ def ragged_flash_attention_cuda(
     segment ids (a [B, T] tensor, or :func:`pack_segments` of one).
     Raises on anything it does not take."""
     global launches
-    segments = pack_segments(segment_ids)
-    ids, ranges = segments
+    ids, ranges = pack_segments(segment_ids)
     tensors = (query, key, value, ids)
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError("ragged_flash_attention_cuda takes CUDA tensors only")

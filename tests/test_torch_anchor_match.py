@@ -28,7 +28,8 @@ def _inputs(b, a, d, c=2, seed=0):
 
 @pytest.mark.parametrize(
     "b,a,d,c",
-    [(4, 6, 32, 2), (9, 13, 40, 2), (17, 129, 200, 2), (130, 5, 96, 2), (5, 7, 64, 3)],
+    [(4, 6, 32, 2), (9, 13, 40, 2), (17, 129, 200, 2), (130, 5, 96, 2), (5, 7, 64, 3),
+     (16, 129, 512, 2)],  # the serve pack: 16 rows against the 129-anchor bank
 )
 def test_plain_matches_jax(b, a, d, c):
     u, v, kernel = _inputs(b, a, d, c, seed=b + a + d)

@@ -14,7 +14,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "memvul_tpu_torch"
 FORBIDDEN = ("memvul_tpu", "jax", "jaxlib", "flax", "msgpack", "tokenizers", "sklearn", "transformers")
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "flash_compare.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_compare.py"]
 
 
 def _imported_roots(path: Path):
@@ -42,7 +42,7 @@ names = [m.name for m in pkgutil.walk_packages(memvul_tpu_torch.__path__, "memvu
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-import flash_compare
+import kernel_compare
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!r} and sys.modules[k] is not None)
 assert not loaded, loaded
 print(len(names))

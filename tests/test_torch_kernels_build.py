@@ -96,18 +96,36 @@ def test_flags_are_part_of_the_name(tree, monkeypatch):
     assert _kernels.build() != first
 
 
+def _defined_in(helper):
+    """The csrc files that define ``helper`` (a function of one of the
+    helpers' return types)."""
+    definition = re.compile(
+        rf"\b(?:void|float|uint32_t|uint64_t|bool|T|__nv_bfloat16|EncodeTiledFn)\s+{helper}(?:<[^>]*>)?\s*\(")
+    return sorted(p.name for p in sorted(CSRC.iterdir())
+                  if p.suffix in (".cu", ".cuh") and definition.search(p.read_text()))
+
+
 @pytest.mark.parametrize(
     "helper",
-    ["to_f32", "from_f32", "round_to", "pack_bf16", "load_pair", "smem_u32", "cp_async16",
-     "cp_async_commit", "cp_async_wait", "ldmatrix_x4", "ldmatrix_x4_trans", "mma_16816",
+    ["to_f32", "from_f32", "round_to", "pack_bf16", "smem_u32", "exp2_approx",
      "tensor_core_eligible"],
 )
 def test_each_device_helper_is_defined_once(helper):
     """The shared helpers live in common.cuh alone; the sources include it."""
-    definition = re.compile(rf"\b(?:void|float|uint32_t|bool|T|__nv_bfloat16)\s+{helper}(?:<[^>]*>)?\s*\(")
-    where = sorted(p.name for p in sorted(CSRC.iterdir())
-                   if p.suffix in (".cu", ".cuh") and definition.search(p.read_text()))
-    assert where == ["common.cuh"], where
+    assert _defined_in(helper) == ["common.cuh"]
+
+
+@pytest.mark.parametrize(
+    "helper",
+    ["mbar_init", "mbar_fence_init", "mbar_arrive", "mbar_arrive_expect_tx", "mbar_expect_tx",
+     "mbar_wait", "tma_prefetch_map", "tma_load_4d", "tma_load_2d", "setmaxnreg_dec", "setmaxnreg_inc",
+     "wgmma_desc_sw128", "wgmma_desc_advance", "wgmma_fence", "wgmma_commit", "wgmma_wait",
+     "fence_regs", "wgmma_m64n128k16_ss", "wgmma_m64n64k16_ss", "wgmma_m64n64k16_rs",
+     "encode_tiled_fn", "encode_bf16_rows", "encode_i32_run"],
+)
+def test_each_hopper_helper_is_defined_once(helper):
+    """The Hopper pieces (mbarriers, TMA, wgmma) live in hopper.cuh alone."""
+    assert _defined_in(helper) == ["hopper.cuh"]
 
 
 def test_sources_share_the_headers_and_the_old_kernel_is_gone():
@@ -118,6 +136,12 @@ def test_sources_share_the_headers_and_the_old_kernel_is_gone():
     assert '#include "hopper.cuh"' in flash
     assert "flash_fwd_wgmma_kernel" in flash
     assert "flash_fwd_mma_kernel" not in flash
+    ragged = (CSRC / "ragged_fwd.cu").read_text()
+    assert '#include "hopper.cuh"' in ragged
+    assert "ragged_fwd_wgmma_kernel" in ragged
+    assert "ragged_fwd_mma_kernel" not in ragged
+    # no mma.sync product is left in any source: the bf16 paths run wgmma
+    assert not any("mma.sync" in p.read_text() for p in CSRC.iterdir())
     for name in ("kF32Min =", "kLog2e =", "struct Strides"):
         assert [p.name for p in sorted(CSRC.iterdir()) if name in p.read_text()] == ["common.cuh"]
 

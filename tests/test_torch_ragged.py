@@ -235,6 +235,61 @@ def test_packer_properties_hypothesis():
     check()
 
 
+def _loop_tile_ranges(seg):
+    """The range table by a Python loop over positions."""
+    b, t = seg.shape
+    n = -(-t // ra.TILE)
+    want = np.zeros((b, n, 2), np.int64)
+    want[..., 0] = np.iinfo(np.int32).max
+    for i in range(b):
+        for j in range(t):
+            s = int(seg[i, j])
+            if s > 0:
+                tile = want[i, j // ra.TILE]
+                tile[0], tile[1] = min(tile[0], s), max(tile[1], s)
+    return want
+
+
+@pytest.mark.parametrize("t", [1, 64, 200])
+def test_tile_ranges_reference_matches_a_loop(t):
+    rng = np.random.default_rng(t)
+    seg = rng.choice(np.array([0, 0, 2, 3, 7, 11], np.int32), size=(2, t))
+    seg[1, : t // 2] = 0  # a tile with no live id (when t ≥ 128)
+    got = ra.tile_ranges_reference(torch.from_numpy(seg))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _loop_tile_ranges(seg))
+
+
+@pytest.mark.parametrize("key_tile", [64, 128])
+def test_visit_lists_cover_every_visible_pair_hypothesis(key_tile):
+    """Every (query, key) pair that attention lets through has its key tile
+    in its query tile's visit list, for the packer's layouts and for ids in
+    no order with gaps; a query tile without a live id visits nothing."""
+    from hypothesis import given, settings, strategies as st
+
+    runs = st.lists(st.tuples(st.integers(min_value=1, max_value=150),
+                              st.sampled_from([0, 1, 2, 3, 5, 8, 13])), min_size=1, max_size=12)
+
+    @settings(max_examples=60, deadline=None)
+    @given(runs, st.booleans())
+    def check(spans, packer):
+        if packer:  # rows end to end with ids 1, 2, ..., then a dead tail
+            seg = np.concatenate([np.full(n, i + 1, np.int32) for i, (n, _) in enumerate(spans)]
+                                 + [np.zeros(spans[0][1] * 7, np.int32)])
+        else:
+            seg = np.concatenate([np.full(n, s, np.int32) for n, s in spans])
+        seg = seg[None]
+        visit = ra.visited_key_tiles(ra.tile_ranges_reference(torch.from_numpy(seg)), key_tile).numpy()
+        qi, kj = np.nonzero((seg[0][:, None] == seg[0][None, :]) & (seg[0][None, :] > 0))
+        assert visit[0, qi // ra.TILE, kj // key_tile].all()
+        assert visit.shape[-1] == -(-seg.shape[1] // key_tile)
+        dead = np.array([not (seg[0, i * ra.TILE:(i + 1) * ra.TILE] > 0).any()
+                         for i in range(visit.shape[1])])
+        assert not visit[0, dead].any()
+
+    check()
+
+
 # -- model --------------------------------------------------------------------
 
 
