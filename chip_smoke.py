@@ -30,7 +30,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  table against its plain version.  Both
                  attention phases print their wgmma kernel's registers and
                  spills as ptxas reported them (a spill or a serialized
-                 wgmma fails);
+                 wgmma fails).  ``kernel_flash`` also times K2 at the train
+                 step's shapes, and ``kernel_flash_grad`` holds K2 under
+                 autograd (output and dq/dk/dv) against the plain version in
+                 f32 at those shapes;
 4. ``main_path`` the port's corpus-scoring path end to end at the full width of
                  ``configs/config_memory_longctx.json`` (BERT-base, 4096
                  positions, bf16, flash attention): deterministic vocabulary,
@@ -52,15 +55,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  response held against its own request's answer on the CPU,
                  tightly enough that an answer handed to another request
                  would fail;
+   ``train_path`` ``train_from_config`` at the full width of the same
+                 configuration on a ``build_workspace`` corpus: a few optimizer
+                 steps, validation (K1 and K2 counted around it), the
+                 archive, ``evaluate_from_archive`` of it; then a 2-step run
+                 with attention dropout 0 whose train steps must launch K2
+                 12 layers × 2 towers × microbatches times; and the host
+                 wall against the device time of single train steps
+                 (``train_step_profile``);
 6. ``main_path_profile`` / ``serve_pack_profile``
                  device time by kernel (torch.profiler) for one batch of the
                  main path's 2048 bucket and for one serve pack's round trip
                  through the archived model;
-7. ``main_path_reference`` / ``ragged_reference``
+7. ``main_path_reference`` / ``ragged_reference`` / ``train_reference``
                  a small model scored on the card (kernels) and on the CPU
                  (plain versions), padded and then packed, which must agree:
                  in f32, and in bf16 at head dim 64 through the tensor-core
-                 attention kernels the main paths run;
+                 attention kernels the main paths run; and the same model
+                 trained a few steps on both from the same weights and
+                 stacks;
 8. ``kernels``   one line per ported kernel, then the card's nvidia-smi line,
                  then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -73,6 +86,7 @@ in full f32.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -121,7 +135,10 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
 def device_ms(fn, iters: int) -> float:
     """Device time per call of ``fn``: its kernels' own time, summed by
     torch.profiler over ``iters`` calls, without the gaps between them."""
-    groups, _ = _kernel_breakdown(lambda: [fn() for _ in range(iters)])
+    for _ in range(3):  # a profile that caught no device activity is taken again
+        groups, _ = _kernel_breakdown(lambda: [fn() for _ in range(iters)])
+        if groups:
+            break
     return sum(groups.values()) / iters
 
 
@@ -301,6 +318,19 @@ def main_path_flash_shapes() -> list:
     return shapes + ([bank] if bank not in shapes else [])
 
 
+def train_flash_shapes() -> list:
+    """[rows, length] of every K2 launch the train step can make: at each
+    of the trainer's pow2 buckets up to ``max_length``, sample1's
+    ``batch_size`` rows and a dedup'd sample2's fewer rows (each of
+    ``dedup_capacities``, which ends at ``batch_size``)."""
+    from memvul_tpu_torch.config import load_config
+    from memvul_tpu_torch.data.batching import dedup_capacities, resolve_train_buckets
+
+    tr = load_config(CONFIG)["trainer"]
+    buckets = resolve_train_buckets(tr.get("train_buckets", "pow2"), int(tr["max_length"]))
+    return [[rows, b] for rows in dedup_capacities(int(tr["batch_size"])) for b in buckets]
+
+
 def _ptxas_report(kernel: str) -> dict:
     """What ptxas said about each instantiation of ``kernel`` (a template
     over one int) in this run's build, keyed by its template argument:
@@ -369,7 +399,9 @@ def phase_flash(records: dict) -> None:
 
     ptxas = _wgmma_ptxas()
     _check_ptxas("kernel_flash", ptxas)
-    shapes = main_path_flash_shapes()
+    # the main path's shapes, then the train step's
+    main_shapes = main_path_flash_shapes()
+    shapes = main_shapes + [s for s in train_flash_shapes() if s not in main_shapes]
     bf16, f32 = torch.bfloat16, torch.float32
     # bf16 with head dim 64 on 16-byte-aligned tensors takes the wgmma
     # kernel; f32, other head dims and unaligned views (pad 4) the
@@ -427,6 +459,13 @@ def phase_flash(records: dict) -> None:
             row["bound_rate"] = "989 TFLOP/s bf16 tensor cores, 3.35 TB/s"
             row["kernel_tflops"] = flops / (row["kernel_ms"] * 1e-3) / 1e12
             row["library_tflops"] = flops / (row["library_ms"] * 1e-3) / 1e12
+            if [b, t] not in main_shapes:
+                # the train step's shapes are small enough that CUDA events
+                # around back-to-back calls time the host's launch path: the
+                # kernels' own time is the profiler's
+                row["kernel_device_ms"] = device_ms(lambda: fa.flash_attention(q, k, v, bias), 20)
+                row["library_device_ms"] = device_ms(
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias), 20)
             if [b, t] == [64, 4096]:
                 # the CUDA-core kernel on the same values, through an unaligned view
                 qs, ks, vs = (F.pad(x, (0, 4))[..., :d] for x in (q, k, v))
@@ -436,8 +475,8 @@ def phase_flash(records: dict) -> None:
         if not ok:
             emit("kernel_flash", ok=False, cases=results)
             raise SystemExit(f"flash kernel disagrees with its plain version: {row}")
-    emit("kernel_flash", ok=True, wgmma_ptxas=ptxas, main_path_shapes=shapes, cases=results,
-         card=nvidia_smi_line())
+    emit("kernel_flash", ok=True, wgmma_ptxas=ptxas, main_path_shapes=main_shapes,
+         train_shapes=train_flash_shapes(), cases=results, card=nvidia_smi_line())
     main = next(r for r in results if r["shape"] == [64, 4096, 12, 64])
     records["flash_attention"] = {
         "name": "flash_attention",
@@ -450,7 +489,7 @@ def phase_flash(records: dict) -> None:
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
-        # per main-path shape, for the launches line after main_path
+        # per timed shape, for the launches lines after main_path and train_path
         "shapes": {tuple(r["shape"][:2]): r for r in results[: len(shapes)]},
     }
 
@@ -460,22 +499,123 @@ def emit_flash_shapes(records: dict, bucket_batches: dict, anchor_chunks: int,
     """K2 at each main-path shape beside its launches in ``main_path``'s
     run: ``layers`` per batch of a bucket and per anchor-bank chunk."""
     rec = records["flash_attention"]
-    bank = main_path_flash_shapes()[-1]
+    main_shapes = [tuple(s) for s in main_path_flash_shapes()]
+    bank = main_shapes[-1]
     launches = {}
     for length, count in bucket_batches.items():
-        shape = next(s for s in rec["shapes"] if s[1] == int(length) and list(s) != bank)
+        shape = next(s for s in main_shapes if s[1] == int(length) and s != bank)
         launches[shape] = launches.get(shape, 0) + layers * int(count)
-    launches[tuple(bank)] = launches.get(tuple(bank), 0) + layers * anchor_chunks
+    launches[bank] = launches.get(bank, 0) + layers * anchor_chunks
     rows = [{"shape": list(shape), "launches": launches.get(shape, 0),
-             **{k: r[k] for k in ("kernel_name", "kernel_ms", "library_ms", "plain_ms", "bound_ms",
-                                  "bound_by", "kernel_tflops", "library_tflops")}}
-            for shape, r in rec["shapes"].items()]
+             **{k: rec["shapes"][shape][k] for k in ("kernel_name", "kernel_ms", "library_ms",
+                                                     "plain_ms", "bound_ms", "bound_by",
+                                                     "kernel_tflops", "library_tflops")}}
+            for shape in main_shapes]
     total = sum(r["launches"] for r in rows)
     ok = total == rec["launches"]
     emit("kernel_flash_shapes", ok=ok, rows=rows, launches=total,
          main_path_launches=rec["launches"], card=nvidia_smi_line())
     if not ok:
         raise SystemExit(f"flash launches by shape ({total}) != main_path's ({rec['launches']})")
+
+
+# K2's gradients in bf16 against f32: the worst element's error over its
+# (row, head)'s RMS.  The JAX design's backward rounds the scores to bf16;
+# on the CPU, N(0, 1) inputs at the train shapes read 0.06 to 0.17
+GRAD_ELEMENT_REL = 0.25
+
+
+def phase_flash_grad() -> None:
+    """K2 under autograd at the train step's shapes: ``[32, T, 12, 64]``
+    bf16 for T in the trainer's buckets, with padded keys, and one dedup'd
+    ``[8, 256, 12, 64]``.  The output must carry the autograd Function's
+    ``grad_fn``, its forward must launch K2 once (the wgmma kernel among the
+    profiled kernels), and the output and dq/dk/dv must match autograd
+    through the plain version in f32: the output element by element at the
+    bf16 tolerance ``kernel_flash`` uses (3e-2 absolute and relative); each
+    gradient with a relative error ``||got − want|| / ||want||`` within the
+    same 3e-2, and no element off by more than ``GRAD_ELEMENT_REL`` of its
+    (row, head)'s RMS.  The backward recomputes through the plain
+    ``xla_attention`` in the inputs' dtype, as the JAX package's does, so
+    its scores round to bf16 before the softmax (the kernel keeps them in
+    f32): q and k here are N(0, 1) (scores of spread 1, as a trained
+    encoder's are), not ``kernel_flash``'s peaked 2·N(0, 1).  The check's
+    power: the plain gradients with the padding mask dropped must fail it.
+    The ragged wrapper must refuse a gradient."""
+    import torch
+
+    from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.ops import ragged_attention as ra
+    from memvul_tpu_torch.ops.attention import mask_to_bias
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    lengths_cpu = torch.Generator().manual_seed(12)
+    tol = 3e-2
+    train = train_flash_shapes()
+    rows = max(b for b, _ in train)
+    shapes = [s for s in train if s[0] == rows] + [[8, 256]]
+
+    def plain_grads(q, k, v, bias, g):
+        ref_in = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+        ref = fa.flash_attention_reference(*ref_in, bias.float())
+        return ref.detach(), torch.autograd.grad(ref, ref_in, g.float())
+
+    def grad_errs(got, want):
+        errs, ok = {}, True
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            diff = a.float() - b
+            rel = float(diff.norm() / b.norm())
+            slice_rms = b.pow(2).mean(dim=(1, 3), keepdim=True).sqrt().clamp_min(1e-30)
+            worst = float((diff.abs() / slice_rms).max())
+            errs[f"{name}_rel_err"], errs[f"{name}_max_err_over_row_rms"] = rel, worst
+            ok = ok and rel <= tol and worst <= GRAD_ELEMENT_REL and bool(torch.isfinite(a).all())
+        return errs, ok
+
+    results = []
+    for b, t in shapes:
+        lens = torch.randint(1, t + 1, (b,), generator=lengths_cpu).tolist()
+        q, k, v = (torch.randn(b, t, 12, 64, device="cuda", generator=gen)
+                   .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+        mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
+        for i, n in enumerate(lens):
+            mask[i, n:] = 0
+        bias = mask_to_bias(mask, torch.bfloat16)
+        before = fa.launches
+        out = fa.flash_attention(q, k, v, bias)
+        launched = fa.launches - before
+        g = torch.randn(out.shape, device="cuda", generator=gen).to(out.dtype)
+        grads = torch.autograd.grad(out, (q, k, v), g)
+        ref, ref_grads = plain_grads(q, k, v, bias, g)
+        torch.cuda.synchronize()
+        row = {"shape": [b, t, 12, 64], "grad_fn": type(out.grad_fn).__name__,
+               "forward_launches": launched}
+        row["out_max_abs_err"], ok = max_err(out.detach(), ref, tol, tol)
+        errs, g_ok = grad_errs(grads, ref_grads)
+        row.update(errs)
+        # power: the plain gradients without the padding mask must fail
+        _, unmasked = plain_grads(q, k, v, torch.zeros_like(bias), g)
+        unmasked_errs, unmasked_ok = grad_errs(unmasked, ref_grads)
+        row["unmasked_grad_errs"] = unmasked_errs
+        _, top = _kernel_breakdown(lambda: fa.flash_attention(q, k, v, bias))
+        row["top_kernels"] = top[:3]
+        ran_wgmma = any("flash_fwd_wgmma_kernel" in name for name, _ in top)
+        row["ok"] = (ok and g_ok and not unmasked_ok and launched == 1 and ran_wgmma
+                     and row["grad_fn"] == "FlashAttentionFunctionBackward")
+        results.append(row)
+        del q, k, v, out, grads, ref, ref_grads, unmasked
+        if not row["ok"]:
+            emit("kernel_flash_grad", ok=False, tol=tol, cases=results)
+            raise SystemExit(f"K2 under autograd disagrees with the plain version: {row}")
+    x = torch.zeros(1, 64, 12, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    try:
+        ra.ragged_flash_attention(x, x, x, torch.ones(1, 64, dtype=torch.int32, device="cuda"))
+        refused = False
+    except RuntimeError:
+        refused = True
+    if not refused:
+        raise SystemExit("the ragged wrapper returned a gradient-less output under autograd")
+    emit("kernel_flash_grad", ok=True, tol=tol, grad_element_rel=GRAD_ELEMENT_REL,
+         cases=results, ragged_refuses_grad=refused)
 
 
 def _realistic_pack(budget: int, cap: int, max_rows: int = 16, seed: int = 0):
@@ -1154,7 +1294,10 @@ def _kernel_breakdown(fn):
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0)
-        if not us or evt.key.startswith(("aten::", "cuda", "Memcpy", "Memset", "ProfilerStep")):
+        # a user annotation (the optimizer's step, an autograd Function)
+        # spans kernels already counted
+        if not us or getattr(evt, "is_user_annotation", False) or evt.key.startswith(
+                ("aten::", "cuda", "Memcpy", "Memset", "ProfilerStep")):
             continue
         by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3
     groups: dict = {}
@@ -1194,7 +1337,7 @@ def phase_profile(archive: Path, rows: int = 128, length: int = 2048) -> None:
 
     def batch():
         with torch.no_grad():
-            return anchor_probs(arch.model(ids, mask, anchors=bank))
+            return anchor_probs(arch.model({"input_ids": ids, "attention_mask": mask}, anchors=bank))
 
     batch_ms = time_ms(batch, 3)
     groups, top = _kernel_breakdown(batch)
@@ -1225,6 +1368,334 @@ def phase_profile(archive: Path, rows: int = 128, length: int = 2048) -> None:
          wall_ms=wall_ms, kernel_ms=groups, kernel_total_ms=total,
          device_busy_share=total / wall_ms, top_kernels=top)
     del arch
+
+
+def _train_config(ws: dict, **trainer) -> dict:
+    """``config_memory_longctx.json`` pointed at a ``build_workspace``
+    workspace, with bert-base's 30522-row embedding (as ``main_path``) and
+    ``trainer`` overrides."""
+    from memvul_tpu_torch.config import load_config
+
+    cfg = load_config(CONFIG)
+    paths = ws["paths"]
+    cfg["tokenizer"] = {"type": "wordpiece", "tokenizer_path": paths["tokenizer"]}
+    cfg["dataset_reader"] = dict(cfg["dataset_reader"], cve_path=paths["cve"],
+                                 anchor_path=paths["anchors"])
+    cfg["train_data_path"], cfg["validation_data_path"] = paths["train"], paths["validation"]
+    cfg["model"] = dict(cfg["model"], encoder=dict(cfg["model"]["encoder"], vocab_size=30522))
+    cfg["trainer"] = dict(cfg["trainer"], **trainer)
+    return cfg
+
+
+class _LaunchRecorder:
+    """Counts K2 launches by [rows, length] while installed, by wrapping
+    the kernel's launcher (instrumentation of this script only), and K1/K2
+    launches around ``MemoryTrainer.validate``."""
+
+    def __init__(self):
+        from memvul_tpu_torch.ops import anchor_match as am
+        from memvul_tpu_torch.ops import flash_attention as fa
+        from memvul_tpu_torch.training.trainer import MemoryTrainer
+
+        self.fa, self.am, self.trainer_cls = fa, am, MemoryTrainer
+        self.by_shape: dict = {}
+        self.validation = {"flash": 0, "anchor_match": 0, "seconds": 0.0}
+
+    def __enter__(self):
+        fa, am, rec = self.fa, self.am, self
+        self._launch, self._validate = fa.flash_attention_cuda, self.trainer_cls.validate
+
+        def launch(q, *args):
+            key = (int(q.shape[0]), int(q.shape[1]))
+            rec.by_shape[key] = rec.by_shape.get(key, 0) + 1
+            return rec._launch(q, *args)
+
+        def validate(trainer):
+            import torch
+
+            f0, a0, t0 = fa.launches, am.launches, time.perf_counter()
+            out = rec._validate(trainer)
+            torch.cuda.synchronize()
+            rec.validation["flash"] += fa.launches - f0
+            rec.validation["anchor_match"] += am.launches - a0
+            rec.validation["seconds"] += time.perf_counter() - t0
+            return out
+
+        fa.flash_attention_cuda, self.trainer_cls.validate = launch, validate
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention_cuda, self.trainer_cls.validate = self._launch, self._validate
+
+
+def phase_train_path(workdir: Path, records: dict, steps: int = 8) -> None:
+    """Training at the full width of ``config_memory_longctx.json``
+    (BERT-base, bf16, flash, batch 32, grad_accum 2, max_length 256, pow2
+    buckets, dedup, the shipped param groups and clip) through
+    ``train_from_config`` on a port-built ``build_workspace`` corpus: one
+    epoch of ``steps`` optimizer steps (warmup cut to 2 steps so the lr is
+    not 0), validation at the config's eval buckets, the archive, and
+    ``evaluate_from_archive`` of that archive on the card.  Cut to size:
+    steps and corpus size.  ``sync_every`` 1 so each step's time is its
+    own.  The counts of K1 and K2 are set to 0 before and read after, with
+    validation's share read around it.  A second, 2-step run with encoder
+    ``attention_dropout`` 0 (and no validation) must launch K2 12 layers ×
+    2 towers × microbatches times in its train steps."""
+    import numpy as np
+    import torch
+
+    from memvul_tpu_torch.build import evaluate_from_archive, train_from_config
+    from memvul_tpu_torch.data.synthetic import build_workspace
+    from memvul_tpu_torch.ops import anchor_match as am
+    from memvul_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    ws = build_workspace(workdir / "train_ws", seed=0, num_projects=16, reports_per_project=32,
+                         realistic_lengths=True)
+    cfg = _train_config(ws, num_epochs=1, steps_per_epoch=steps, warmup_steps=2, sync_every=1)
+    setup_s = time.perf_counter() - t0
+    layers = 12
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = am.launches = 0
+    t1 = time.perf_counter()
+    with _LaunchRecorder() as rec:
+        result = train_from_config(cfg, workdir / "train_run", device="cuda")
+    torch.cuda.synchronize()
+    train_wall_s = time.perf_counter() - t1
+    flash_total, match_total = fa.launches, am.launches
+    peak_bytes = torch.cuda.max_memory_allocated()
+    epoch = result["history"][0]
+    losses = epoch["training_losses"]
+    steps_s = epoch["training_step_durations_s"]
+    after_first = steps_s[1:]
+
+    # the archive, scored by the evaluation entry point on the card
+    t2 = time.perf_counter()
+    metrics = evaluate_from_archive(result["archive"], ws["paths"]["test"], workdir / "train_eval",
+                                    overrides={"evaluation": cfg["evaluation"]}, device="cuda")
+    eval_s = time.perf_counter() - t2
+    recs = [r for line in (workdir / "train_eval" / "model_memory_result.json").read_text()
+            .splitlines() if line.strip() for r in json.loads(line)]
+    probs = np.array([list(r["predict"].values()) for r in recs], np.float64)
+    test_reports = len(ws["splits"]["test"])
+    shutil.rmtree(workdir / "train_run")  # checkpoints of 1.3 GB each, no longer needed
+
+    checks = {
+        "steps": len(losses) == steps,
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "validation_ran": "validation_s_f1-score" in epoch,
+        "validation_launched_k1": rec.validation["anchor_match"] > 0,
+        "validation_launched_k2": rec.validation["flash"] > 0,
+        # attention dropout 0.1 trains through the "xla" formulation
+        "train_steps_k2_launches_zero_with_attention_dropout": flash_total == rec.validation["flash"],
+        "archive_scored": len(recs) == test_reports and probs.shape[1] == len(ws["anchors"])
+        and bool(np.isfinite(probs).all()) and probs.min() >= 0.0 and probs.max() <= 1.0,
+    }
+
+    # dropout 0: K2 forward in every train step through the autograd Function
+    cfg0 = _train_config(ws, num_epochs=1, steps_per_epoch=2, warmup_steps=2, sync_every=1)
+    cfg0["validation_data_path"] = None
+    cfg0["model"]["encoder"]["attention_dropout"] = 0.0
+    fa.launches = 0
+    with _LaunchRecorder() as rec0:
+        result0 = train_from_config(cfg0, workdir / "train_run_dropout0", device="cuda")
+    torch.cuda.synchronize()
+    microbatches = 2 * int(cfg0["trainer"]["grad_accum"])
+    flash0 = fa.launches
+    checks["dropout0_k2_launches_eq_layers_x_towers_x_microbatches"] = (
+        flash0 == layers * 2 * microbatches)
+    checks["dropout0_losses_finite"] = bool(np.isfinite(result0["history"][0]["training_losses"]).all())
+
+    checks = {k: bool(v) for k, v in checks.items()}
+    line = {
+        "ok": all(checks.values()), "checks": checks, "config": str(CONFIG.relative_to(ROOT)),
+        "reduced": {"steps": steps, "epochs": 1, "warmup_steps": 2,
+                    "train_reports": len(ws["splits"]["train"]),
+                    "validation_reports": len(ws["splits"]["validation"]),
+                    "anchors": len(ws["anchors"])},
+        "setup_s": setup_s, "train_from_config_wall_s": train_wall_s,
+        "step_s_first": steps_s[0], "step_s_median": float(np.median(after_first)),
+        "step_s_max": float(np.max(after_first)),
+        "padded_tokens": epoch["training_padded_tokens"], "real_tokens": epoch["training_real_tokens"],
+        "padded_tokens_per_s": epoch["training_padded_tokens"] / float(np.sum(steps_s)),
+        "real_tokens_per_s": epoch["training_real_tokens"] / float(np.sum(steps_s)),
+        "epoch_seconds": epoch["training_epoch_seconds"],
+        "peak_memory_gib": peak_bytes / 2**30,
+        "validation_s": rec.validation["seconds"],
+        "validation_launches": {"flash": rec.validation["flash"],
+                                "anchor_match": rec.validation["anchor_match"]},
+        "validation_f1": epoch["validation_s_f1-score"], "validation_auc": epoch["validation_s_auc"],
+        "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+        "grad_norms": epoch["training_grad_norms"],
+        "evaluate_archive_s": eval_s, "archive_test_reports": len(recs),
+        "archive_s_auc": metrics.get("s_auc"),
+        "dropout0": {"steps": 2, "microbatches": microbatches, "k2_launches": flash0,
+                     "want": layers * 2 * microbatches,
+                     "k2_launches_by_shape": {f"{b}x{t}": n for (b, t), n in
+                                              sorted(rec0.by_shape.items())}},
+        "card": nvidia_smi_line(),
+    }
+    emit("train_path", **line)
+    if not line["ok"]:
+        raise SystemExit(f"train_path failed: {checks}")
+    # K2 at the train step's shapes beside its launches per optimizer step
+    fl = records["flash_attention"]
+    per_step = {shape: n / 2 for shape, n in rec0.by_shape.items()}
+    rows = []
+    for shape, n in sorted(per_step.items()):
+        timed = fl["shapes"].get(shape)
+        row = {"shape": [*shape, 12, 64], "launches_per_step": n}
+        if timed is not None:
+            row.update({k: timed.get(k) for k in ("kernel_name", "kernel_ms", "kernel_device_ms",
+                                                  "library_ms", "library_device_ms", "plain_ms",
+                                                  "bound_ms", "bound_by")})
+        rows.append(row)
+    emit("kernel_flash_train_shapes", rows=rows, steps=2, card=nvidia_smi_line())
+    fl["launches"] += flash_total + flash0
+    records["anchor_match"]["launches"] += match_total
+    _train_step_profile(cfg)
+
+
+def _train_step_profile(cfg: dict, stacks: int = 3) -> None:
+    """Host wall against device time of single train steps of
+    ``train_path``'s configuration (as shipped: attention dropout 0.1), by
+    torch.profiler: the trainer's own stacks, the first one warming up,
+    each later one timed from the call to a synchronize, then profiled."""
+    import torch
+
+    from memvul_tpu_torch.build import build_model, build_reader, build_tokenizer, init_params
+    from memvul_tpu_torch.training.trainer import MemoryTrainer, TrainerConfig, train_step
+
+    tok = build_tokenizer(cfg["tokenizer"])
+    model = init_params(build_model(cfg["model"], tok.vocab_size), 0)
+    trainer = MemoryTrainer(model, tok, build_reader(cfg["dataset_reader"], seed=0),
+                            cfg["train_data_path"], config=TrainerConfig(**cfg["trainer"]),
+                            device="cuda")
+    trainer.model.train()
+    feed = trainer._microbatch_stacks()
+
+    def step(stack):
+        return train_step(trainer.model, trainer.optimizer, stack, trainer.generator)
+
+    step(trainer._commit_stack(next(feed))[0])
+    rows = []
+    for _ in range(stacks):
+        stack, info = trainer._commit_stack(next(feed))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(stack)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        groups, top = _kernel_breakdown(lambda: step(stack))
+        kernel_ms = sum(groups.values())
+        rows.append({"sample1": list(stack["sample1"]["input_ids"].shape),
+                     "sample2": list(stack["sample2"]["input_ids"].shape), **info,
+                     "wall_ms": wall_ms, "kernel_ms": kernel_ms,
+                     "device_busy_share": kernel_ms / wall_ms, "kernel_ms_by_group": groups,
+                     "top_kernels": top[:5]})
+    emit("train_step_profile", steps=rows, card=nvidia_smi_line())
+    del trainer, model
+
+
+# the small model trained on the card against the CPU: the largest |Δ| of
+# a step's loss, and the relative error of the weights' total update,
+# ||Δw_card − Δw_cpu|| / ||Δw_cpu|| (Adam moves every weight by about lr a
+# step whatever its gradient's size, so an absolute limit on the weights
+# would say nothing).  In f32 (TF32 off) both agree to f32 rounding in
+# another order; in bf16 through the wgmma K2 every product rounds
+TRAIN_REF_F32 = {"loss_abs": 1e-5, "update_rel": 1e-3}
+TRAIN_REF_BF16 = {"loss_abs": 2e-2, "update_rel": 0.25}
+
+
+def phase_train_reference(steps: int = 4) -> None:
+    """The small memory model (2 layers, 2 heads of 64, dropout 0, flash)
+    trained ``steps`` optimizer steps by ``train_step`` on the card
+    (kernels: K2 under autograd) and on the CPU (plain versions), from the
+    same weights on the same pair stacks (K = 2 microbatches of 8 pairs,
+    sample1 at 128 tokens, a dedup'd sample2 of 4 rows at 64, random ids
+    and key lengths from a seed, one dead microbatch): per-step losses and
+    final weights must agree, in f32 (TF32 off) and in bf16 at head dim 64
+    through the wgmma K2, to the limits above."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from memvul_tpu_torch.models.bert import BertConfig
+    from memvul_tpu_torch.models.memory import MemoryModel
+    from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.training.optim import make_optimizer
+    from memvul_tpu_torch.training.trainer import train_step
+
+    rng = np.random.default_rng(7)
+
+    def side(rows, length):
+        ids = rng.integers(5, 500, size=(2, rows, length))
+        mask = np.ones_like(ids)
+        for k in range(2):
+            for i, n in enumerate(rng.integers(1, length + 1, size=rows)):
+                mask[k, i, n:] = 0
+        return {"input_ids": ids, "attention_mask": mask}
+
+    stacks = []
+    for n in range(steps):
+        weight = np.ones((2, 8), np.float32)
+        if n == steps - 1:
+            weight[1] = 0.0  # a dead microbatch, as the trainer pads tails
+        stacks.append({"sample1": side(8, 128), "sample2": side(4, 64),
+                       "sample2_index": rng.integers(0, 4, size=(2, 8)),
+                       "label": rng.integers(0, 2, size=(2, 8)), "weight": weight})
+
+    def to(stack, device):
+        def put(x):
+            t = torch.from_numpy(np.asarray(x))
+            return (t.long() if t.dtype != torch.float32 else t).to(device)
+
+        return {k: ({kk: put(vv) for kk, vv in v.items()} if isinstance(v, dict) else put(v))
+                for k, v in stack.items()}
+
+    results = {}
+    for dtype, limits in ((torch.float32, TRAIN_REF_F32), (torch.bfloat16, TRAIN_REF_BF16)):
+        cfg = BertConfig(vocab_size=500, hidden_size=128, num_layers=2, num_heads=2,
+                         intermediate_size=256, max_position_embeddings=320, attention_impl="flash",
+                         dtype=dtype, hidden_dropout=0.0, attention_dropout=0.0)
+        torch.manual_seed(0)
+        base = MemoryModel(cfg, header_dim=64)
+        runs = {}
+        for device in ("cpu", "cuda"):
+            model = copy.deepcopy(base).to(device).train()
+            opt = make_optimizer(model.named_parameters(), base_lr=1e-3, warmup_steps=0,
+                                 grad_clip_norm=1.0, group_lrs={"embedder": 5e-4, "pooler": 7e-4})
+            launches0 = fa.launches
+            losses = [float(train_step(model, opt, to(st, device))["loss"]) for st in stacks]
+            runs[device] = {"losses": losses, "launches": fa.launches - launches0,
+                            "params": {k: v.detach().float().cpu() for k, v in
+                                       model.state_dict().items()}}
+        loss_err = max(abs(a - b) for a, b in zip(runs["cuda"]["losses"], runs["cpu"]["losses"]))
+        start = {k: v.float() for k, v in base.state_dict().items()}
+        diff = torch.cat([(runs["cuda"]["params"][k] - runs["cpu"]["params"][k]).flatten()
+                          for k in start])
+        moved = torch.cat([(runs["cpu"]["params"][k] - start[k]).flatten() for k in start])
+        param_err = float(diff.abs().max())
+        update_rel = float(diff.norm() / moved.norm())
+        # K2 on the card: 2 layers × 2 towers × 2 microbatches a step
+        want_launches = 2 * 2 * 2 * steps
+        name = str(dtype).split(".")[-1]
+        results[name] = {
+            "cuda_losses": runs["cuda"]["losses"], "cpu_losses": runs["cpu"]["losses"],
+            "loss_max_abs_err": loss_err, "update_rel_err": update_rel,
+            "param_max_abs_err": param_err, "param_max_abs_move": float(moved.abs().max()),
+            "k2_launches": runs["cuda"]["launches"], "limits": limits,
+            "ok": (loss_err <= limits["loss_abs"] and update_rel <= limits["update_rel"]
+                   and runs["cuda"]["launches"] == want_launches
+                   and bool(np.isfinite(runs["cuda"]["losses"]).all())),
+        }
+        if not results[name]["ok"]:
+            emit("train_reference", ok=False, results=results)
+            raise SystemExit(f"card and CPU training disagree ({name}): {results[name]}")
+    emit("train_reference", ok=True, steps=steps, results=results)
 
 
 # bf16 card-vs-CPU limits of the small model: the largest |Δ| over the live
@@ -1426,6 +1897,7 @@ def main() -> int:
     records: dict = {}
     phase_anchor_match(records)
     phase_flash(records)
+    phase_flash_grad()
     phase_ragged(records)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         phase_main_path(Path(tmp), records)
@@ -1433,8 +1905,10 @@ def main() -> int:
         emit_anchor_shapes(records)
         phase_serve_identity(Path(tmp))
         phase_profile(Path(tmp) / "model.tar.gz")
+        phase_train_path(Path(tmp), records)
     phase_main_path_reference()
     phase_ragged_reference()
+    phase_train_reference()
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]

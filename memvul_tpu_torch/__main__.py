@@ -1,14 +1,18 @@
 """Command-line interface of the PyTorch/CUDA port.
 
+    python -m memvul_tpu_torch train configs/config_memory.json -s out/
     python -m memvul_tpu_torch evaluate out/model.tar.gz data/test_project.json -o eval/
     python -m memvul_tpu_torch evaluate ... --overrides '{"evaluation": {"batch_size": 64}}' --device cpu
     python -m memvul_tpu_torch serve out/model.tar.gz --port 8341 \\
         --overrides '{"serving": {"score_impl": "continuous"}}'
 
+``train`` trains the memory model a config describes into a serialization
+dir (checkpoints, ``metrics.json``, the best weights as ``model.tar.gz``)
+and prints the best epoch and its validation metric as one JSON line.
 ``evaluate`` prints the metric dict as one JSON line.  ``serve`` puts the
 HTTP front end (``POST /score``, ``GET /healthz``) over
 ``build.serve_from_archive``, prints one JSON line with the bound
-``"serving"`` URL once it listens, and drains on SIGTERM/SIGINT.  Both run
+``"serving"`` URL once it listens, and drains on SIGTERM/SIGINT.  All three run
 on the card (``--device cuda``, the default) unless ``--device cpu`` is
 given.
 """
@@ -22,6 +26,16 @@ import os
 import signal
 import sys
 import threading
+
+
+def cmd_train(args) -> int:
+    from .build import train_from_config
+    from .config import load_config
+
+    config = load_config(args.config, overrides=args.overrides)
+    result = train_from_config(config, args.serialization_dir, device=args.device)
+    print(json.dumps({k: result.get(k) for k in ("best_epoch", "best_validation", "archive")}))
+    return 0
 
 
 def cmd_evaluate(args) -> int:
@@ -72,6 +86,12 @@ def cmd_serve(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m memvul_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+    tr = sub.add_parser("train", help="train the memory model a config describes")
+    tr.add_argument("config", help="training config (JSON / Jsonnet subset)")
+    tr.add_argument("-s", "--serialization-dir", required=True)
+    tr.add_argument("--overrides", default=None, help="JSON (Jsonnet subset) config overrides")
+    tr.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    tr.set_defaults(fn=cmd_train)
     ev = sub.add_parser("evaluate", help="score a corpus with an archived memory model")
     ev.add_argument("archive", help="model.tar.gz or a serialization dir holding one")
     ev.add_argument("test_path", help="corpus file (.json array or .jsonl)")

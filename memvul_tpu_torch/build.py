@@ -1,9 +1,13 @@
-"""Config-driven construction and the archive evaluation flow (the JAX
+"""Config-driven construction, training and the archive flows (the JAX
 package's ``build.py``, memory model only).
 
 * :func:`encoder_config` — ``{"preset": "base"|"tiny"|"large", "dtype":
   "bfloat16", ...}`` → :class:`BertConfig`;
-* :func:`build_model` / :func:`build_tokenizer` / :func:`build_reader`;
+* :func:`build_model` / :func:`init_params` / :func:`build_tokenizer` /
+  :func:`build_reader`;
+* :func:`train_from_config` — a training run from a reference-shaped
+  config into a serialization dir, archiving the best weights as
+  ``model.tar.gz`` in the JAX package's format;
 * :func:`evaluate_from_archive` — load an archive with overrides, score a
   corpus, write ``{name}_result.json`` and ``{name}_metric_all.json``;
 * :func:`serve_from_archive` — load an archive, encode its anchor bank,
@@ -69,10 +73,14 @@ def build_tokenizer(cfg: Optional[Dict[str, Any]]):
     return WordPieceTokenizer(**cfg)
 
 
-def build_reader(cfg: Optional[Dict[str, Any]]):
+def build_reader(cfg: Optional[Dict[str, Any]], seed: Optional[int] = None):
+    """The reader; ``seed`` (the config's ``random_seed``) reaches its
+    pair-sampling RNG unless the reader section pins its own."""
     from .data.readers import MemoryReader
 
     cfg = dict(cfg or {})
+    if seed is not None:
+        cfg.setdefault("seed", seed)
     kind = cfg.pop("type", "reader_memory")
     if kind != "reader_memory":
         raise NotImplementedError(f"reader type {kind!r} is not ported yet")
@@ -87,8 +95,103 @@ def build_model(model_cfg: Dict[str, Any], vocab_size: int):
     cfg.pop("pretrained_checkpoint", None)
     model_type = cfg.pop("type", "model_memory")
     if model_type != "model_memory":
-        raise NotImplementedError(f"model type {model_type!r} is not ported yet")
+        raise NotImplementedError(
+            f"model type {model_type!r} belongs to the other-models slice, not ported yet"
+        )
     return MemoryModel(encoder_config(cfg.pop("encoder", None), vocab_size), **cfg)
+
+
+def init_params(model, seed: int = 0):
+    """Redraw every weight of a CPU ``model`` (as :func:`build_model`
+    returns it) from ``seed``: N(0, initializer_range) weights, zero
+    biases, unit LayerNorm scales.  Returns the model."""
+    from .models.bert import init_weights
+
+    gen = torch.Generator().manual_seed(int(seed))
+    std = model.config.initializer_range
+    with torch.no_grad():
+        init_weights(model, std, generator=gen)
+        model.pair_kernel.normal_(0.0, std, generator=gen)
+    return model
+
+
+def _tokenizer_file(tok_cfg: Optional[Dict[str, Any]]) -> Optional[str]:
+    """The file the archive embeds: the one the tokenizer was built from
+    (an existing vocab.txt wins, as in ``WordPieceTokenizer``)."""
+    tok_cfg = tok_cfg or {}
+    vocab = tok_cfg.get("vocab_path")
+    if vocab and Path(vocab).exists():
+        return vocab
+    return tok_cfg.get("tokenizer_path") or vocab
+
+
+def train_from_config(
+    config: Dict[str, Any],
+    serialization_dir: Union[str, Path],
+    device: Union[str, torch.device] = "cuda",
+    mesh=None,
+) -> Dict[str, Any]:
+    """Train the memory model a reference-shaped config describes on
+    ``device``: ``<dir>/config.json``, checkpoints, per-epoch metrics, the
+    best weights archived as ``<dir>/model.tar.gz`` (readable by the JAX
+    package) and ``<dir>/metrics.json``.  Returns the trainer's result
+    with the archive path."""
+    import json
+
+    from .archive import ARCHIVE_NAME, save_archive
+    from .config import check_training_unported, validate_training_config
+    from .models.convert import flax_from_params
+    from .training.trainer import MemoryTrainer, TrainerConfig
+
+    device = resolve_device(device)
+    if mesh is not None:
+        raise NotImplementedError("training on a mesh (DDP) belongs to the multi-device slice")
+    check_training_unported(config)
+    model_cfg = config.get("model") or {}
+    if model_cfg.get("type", "model_memory") != "model_memory":
+        raise NotImplementedError(
+            f"model type {model_cfg.get('type')!r}: the single/TextCNN trainers belong to "
+            "the other-models slice, not ported yet"
+        )
+    trainer_cfg = validate_training_config(config.get("trainer"))
+    serialization_dir = Path(serialization_dir)
+    serialization_dir.mkdir(parents=True, exist_ok=True)
+    (serialization_dir / "config.json").write_text(json.dumps(config, indent=2))
+
+    seed = int(config.get("random_seed", 2021))
+    tokenizer = build_tokenizer(config.get("tokenizer"))
+    reader = build_reader(config.get("dataset_reader"), seed=seed)
+    model = init_params(build_model(model_cfg, tokenizer.vocab_size), seed)
+    ckpt = model_cfg.get("pretrained_checkpoint")
+    if ckpt:
+        if Path(ckpt).exists():
+            raise NotImplementedError(
+                f"pretrained_checkpoint {ckpt}: loading a further-pretrained encoder "
+                "belongs to the MLM slice, not ported yet"
+            )
+        logger.warning("pretrained_checkpoint %s missing: training from scratch", ckpt)
+    trainer_cfg.setdefault("seed", seed)
+    trainer_cfg["serialization_dir"] = str(serialization_dir)
+    trainer = MemoryTrainer(
+        model, tokenizer, reader,
+        train_path=config["train_data_path"],
+        validation_path=config.get("validation_data_path"),
+        anchor_path=config.get("anchor_path")
+        or (config.get("dataset_reader") or {}).get("anchor_path"),
+        config=TrainerConfig(**trainer_cfg),
+        device=device,
+    )
+    result = trainer.train()
+    archived = dict(config)
+    archived["model"] = dict(model_cfg)
+    save_archive(
+        serialization_dir / ARCHIVE_NAME, archived,
+        flax_from_params(trainer.best_params(), model.config),
+        tokenizer_file=_tokenizer_file(config.get("tokenizer")),
+    )
+    (serialization_dir / "metrics.json").write_text(json.dumps(result, indent=2, default=float))
+    result["archive"] = str(serialization_dir / ARCHIVE_NAME)
+    return result
 
 
 def evaluate_from_archive(

@@ -361,3 +361,49 @@ def serving_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
         {"serving": {k: v for k, v in section.items() if k not in SERVING_UNPORTED}},
         "serving", SERVING_DEFAULTS,
     )
+
+
+def validate_training_config(trainer: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """Check the config's ``trainer`` section early (returns a copy):
+    ``prefetch_depth`` >= 1, ``train_buckets`` "pow2", null or a list
+    covering ``max_length``, ``dedup_anchors`` a bool.  The defaults live
+    in ``training.trainer.TrainerConfig``."""
+    trainer = dict(trainer or {})
+    depth = trainer.get("prefetch_depth", 8)
+    if int(depth) < 1:
+        raise ValueError(f"trainer.prefetch_depth must be >= 1, got {depth!r}")
+    from .data.batching import resolve_train_buckets
+
+    resolve_train_buckets(trainer.get("train_buckets", "pow2"), int(trainer.get("max_length", 256)))
+    dedup = trainer.get("dedup_anchors", True)
+    if not isinstance(dedup, bool):
+        raise ValueError(f"trainer.dedup_anchors must be a bool, got {dedup!r}")
+    return trainer
+
+
+# The JAX package's telemetry and tuning keys that a training run would
+# act on, for features this port does not have yet, with their defaults:
+# set away from the default, each raises NotImplementedError naming the
+# slice it belongs to.
+TRAINING_UNPORTED: Dict[str, Any] = {
+    "telemetry.trace_dir": (None, "the profiler trace (ops-plane slice)"),
+    "telemetry.metrics_port": (0, "the live /metrics server (ops-plane slice)"),
+    "telemetry.tsdb_cadence_s": (0.0, "the metrics history (ops-plane slice)"),
+    "tuning.profile_dir": (None, "tuned trainer profiles (ops-plane slice)"),
+}
+
+
+def check_training_unported(cfg: Dict[str, Any]) -> None:
+    """Raise for a key of :data:`TRAINING_UNPORTED` set away from its
+    default; log that the run-dir sinks (``events.jsonl``, heartbeat,
+    ``telemetry.json``) are not written."""
+    for dotted, (default, what) in TRAINING_UNPORTED.items():
+        section, key = dotted.split(".")
+        value = (cfg.get(section) or {}).get(key)
+        if value is not None and value != default:
+            raise NotImplementedError(f"{dotted}={value!r}: {what} is not ported yet (ROADMAP.md)")
+    if (cfg.get("telemetry") or {}).get("enabled", True):
+        logging.getLogger(__name__).info(
+            "telemetry: the events.jsonl/heartbeat sinks are not ported; the run dir gets "
+            "config.json, checkpoints, metrics and the archive"
+        )

@@ -9,6 +9,11 @@ bucket fills; :func:`bucket_batch_sizes` sizes the buckets at a constant
 token budget.  Batches stay numpy; the predictor moves them to the
 device.
 
+Training pairs go through :func:`bucketed_pair_batches_from_instances`:
+each side of a pair is bucketed on its own (reports are long, anchors and
+CVE descriptions short), and with ``dedup_side2`` the second side carries
+only the batch's unique rows plus a ``sample2_index`` gather map.
+
 The packed serve path lays many requests end to end in one fixed
 ``[1, token_budget]`` row instead: :func:`pack_token_budget` groups
 requests into packs, :class:`PackSlotAllocator` writes them into a
@@ -127,7 +132,8 @@ def batches_from_instances(
     label_map: Optional[Dict[str, int]] = None,
 ) -> Iterator[Dict]:
     """Fixed-row batches padded to ``encoder.max_length`` (the unbucketed
-    scoring path): ``sample1`` {input_ids, attention_mask}, ``label``,
+    scoring path, and pad-to-max training): ``sample1`` {input_ids,
+    attention_mask}, ``sample2`` when the instances are pairs, ``label``,
     ``weight`` (0 on dead rows) and ``meta`` (real rows only)."""
     label_map = label_map or LABELS_SIAMESE
     for chunk in _blocks(instances, batch_size):
@@ -136,12 +142,16 @@ def batches_from_instances(
 
 def _collate(chunk, encoder, batch_size, label_map) -> Dict:
     seqs = encoder.encode_many([inst["text1"] for inst in chunk])
-    return {
+    batch = {
         "sample1": _pad_block(seqs, batch_size, encoder.pad_id, encoder.max_length),
         "label": _labels(chunk, label_map, batch_size),
         "weight": _weights(len(chunk), batch_size),
         "meta": [inst.get("meta", {}) for inst in chunk],
     }
+    if chunk and chunk[0].get("text2") is not None:
+        seqs2 = encoder.encode_many([inst["text2"] for inst in chunk])
+        batch["sample2"] = _pad_block(seqs2, batch_size, encoder.pad_id, encoder.max_length)
+    return batch
 
 
 def bucketed_batches_from_instances(
@@ -191,6 +201,121 @@ def _collate_bucket(chunk, encoder, batch_size, label_map, length) -> Dict:
     }
 
 
+def dedup_capacities(batch_size: int, floor: int = 8) -> Tuple[int, ...]:
+    """The closed set of unique-row capacities a deduped side-2 block may
+    take: powers of two from ``floor`` up, plus the row count itself, so
+    the block shapes stay few while tower 2 runs the nearest power of two
+    above the unique count."""
+    caps: List[int] = []
+    c = floor
+    while c < batch_size:
+        caps.append(c)
+        c *= 2
+    caps.append(int(batch_size))
+    return tuple(caps)
+
+
+def _dedup_side2(
+    seqs: Sequence[List[int]], batch_size: int, cap_floor: int = 8
+) -> Tuple[List[List[int]], np.ndarray, int]:
+    """Order-preserving unique rows and per-row gather indices:
+    ``(unique_seqs, index[batch_size], capacity)``, the capacity the
+    smallest of :func:`dedup_capacities` covering the unique count.  Dead
+    rows map to index 0; they carry zero weight."""
+    unique: Dict[Tuple[int, ...], int] = {}
+    index = np.zeros(batch_size, dtype=np.int32)
+    seq_list: List[List[int]] = []
+    for i, seq in enumerate(seqs):
+        key = tuple(seq)
+        slot = unique.get(key)
+        if slot is None:
+            slot = unique[key] = len(seq_list)
+            seq_list.append(seq)
+        index[i] = slot
+    cap = next(c for c in dedup_capacities(batch_size, floor=cap_floor) if c >= len(seq_list))
+    return seq_list, index, cap
+
+
+def bucketed_pair_batches_from_instances(
+    instances: Iterable[Dict],
+    encoder: CachedEncoder,
+    batch_size: Union[int, Dict[int, int]],
+    label_map: Optional[Dict[str, int]] = None,
+    buckets: Sequence[int] = (64, 128, 256, 512),
+    dedup_side2: bool = True,
+    dedup_cap_floor: int = 8,
+) -> Iterator[Dict]:
+    """Length-binned batching of Siamese pair streams.  Each pair goes to
+    the grid cell ``(b1, b2)`` of the smallest buckets covering its two
+    sides independently; a batch is emitted when a cell fills, and tails
+    flush as dead-row-padded batches, in sorted cell order, when the
+    stream ends.  ``batch_size`` may map the side-1 bucket to a row count.
+
+    With ``dedup_side2`` the second side holds only the batch's unique
+    rows (``sample2`` [cap, L2], cap from :func:`dedup_capacities` with
+    ``dedup_cap_floor``) and ``sample2_index`` [B] gathers each pair's
+    embedding back."""
+    label_map = label_map or LABELS_SIAMESE
+    buckets = tuple(sorted(int(b) for b in buckets))
+    if isinstance(batch_size, dict):
+        sizes = {b: int(batch_size[b]) for b in buckets}
+    else:
+        sizes = {b: int(batch_size) for b in buckets}
+    pending: Dict[Tuple[int, int], List[Dict]] = {}
+    for block in _blocks(instances, 512):
+        for inst in block:
+            if inst.get("text2") is None:
+                raise ValueError(
+                    "bucketed pair batching needs text2 on every instance; "
+                    "single-text streams use bucketed_batches_from_instances"
+                )
+        seqs1 = encoder.encode_many([inst["text1"] for inst in block])
+        seqs2 = encoder.encode_many([inst["text2"] for inst in block])
+        for inst, s1, s2 in zip(block, seqs1, seqs2):
+            cell = (_bucket_for(len(s1), buckets), _bucket_for(len(s2), buckets))
+            slot = dict(inst)
+            slot["_ids1"], slot["_ids2"] = s1, s2
+            rows = pending.setdefault(cell, [])
+            rows.append(slot)
+            if len(rows) == sizes[cell[0]]:
+                yield _collate_pair_cell(
+                    rows, encoder, sizes[cell[0]], label_map, cell, dedup_side2, dedup_cap_floor
+                )
+                pending[cell] = []
+    for cell in sorted(pending):
+        if pending[cell]:
+            yield _collate_pair_cell(
+                pending[cell], encoder, sizes[cell[0]], label_map, cell, dedup_side2,
+                dedup_cap_floor,
+            )
+
+
+def _collate_pair_cell(
+    chunk: List[Dict],
+    encoder: CachedEncoder,
+    batch_size: int,
+    label_map: Dict[str, int],
+    cell: Tuple[int, int],
+    dedup: bool,
+    dedup_cap_floor: int = 8,
+) -> Dict:
+    length1, length2 = cell
+    batch: Dict = {
+        "sample1": _pad_block([inst["_ids1"] for inst in chunk], batch_size, encoder.pad_id, length1),
+        "label": _labels(chunk, label_map, batch_size),
+        "weight": _weights(len(chunk), batch_size),
+        "meta": [inst.get("meta", {}) for inst in chunk],
+    }
+    seqs2 = [inst["_ids2"] for inst in chunk]
+    if dedup:
+        unique, index, cap = _dedup_side2(seqs2, batch_size, dedup_cap_floor)
+        batch["sample2"] = _pad_block(unique, cap, encoder.pad_id, length2)
+        batch["sample2_index"] = index
+    else:
+        batch["sample2"] = _pad_block(seqs2, batch_size, encoder.pad_id, length2)
+    return batch
+
+
 def bucket_batch_sizes(
     buckets: Sequence[int],
     tokens_per_batch: int,
@@ -202,6 +327,34 @@ def bucket_batch_sizes(
     for b in sorted(buckets):
         sizes[int(b)] = max(multiple_of, (tokens_per_batch // int(b)) // multiple_of * multiple_of)
     return sizes
+
+
+def pow2_buckets(max_length: int, floor: int = 64) -> Tuple[int, ...]:
+    """Powers of two from ``floor`` up, capped by (and always including)
+    ``max_length``: the default training bucket grid."""
+    out: List[int] = []
+    b = int(floor)
+    while b < max_length:
+        out.append(b)
+        b *= 2
+    out.append(int(max_length))
+    return tuple(out)
+
+
+def resolve_train_buckets(spec, max_length: int) -> Optional[Tuple[int, ...]]:
+    """The ``train_buckets`` knob → a bucket tuple: ``"pow2"`` derives
+    :func:`pow2_buckets`, ``None`` means pad-to-max, and an explicit list
+    must cover ``max_length`` (:func:`validate_buckets`)."""
+    if spec is None:
+        return None
+    if spec == "pow2":
+        return pow2_buckets(max_length)
+    if isinstance(spec, str):
+        raise ValueError(
+            f"train_buckets {spec!r} not understood: use 'pow2', null "
+            "(pad-to-max), or an explicit bucket list"
+        )
+    return validate_buckets([int(b) for b in spec], max_length)
 
 
 def validate_buckets(buckets: Sequence[int], max_length: int):
@@ -410,10 +563,15 @@ def collate_ragged(
     return alloc.sample()
 
 
-def prefetch(iterator: Iterator, depth: int = 4) -> Iterator:
+def prefetch(iterator: Iterator, depth: int = 4, commit=None, occupancy=None) -> Iterator:
     """Run ``iterator`` on a background thread with a bounded queue, so
-    host tokenization and collation overlap the device.  Safe against an
-    early consumer exit: the worker stops instead of blocking forever."""
+    host tokenization and collation overlap the device.  With ``commit``
+    (the trainer's host-to-device copy) the worker applies it to every
+    item before enqueueing, so the copy of batch N+1 overlaps step N.
+    ``occupancy`` (a telemetry gauge) tracks the queue fill after every put
+    and get: pinned at 0 the feed is the bottleneck, at ``depth`` the
+    device.  Safe against an early consumer exit: the worker stops instead
+    of blocking forever."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     end = object()
     stop = threading.Event()
@@ -423,6 +581,8 @@ def prefetch(iterator: Iterator, depth: int = 4) -> Iterator:
         while not stop.is_set():
             try:
                 q.put(item, timeout=0.1)
+                if occupancy is not None:
+                    occupancy.set(q.qsize())
                 return True
             except queue.Full:
                 continue
@@ -431,6 +591,8 @@ def prefetch(iterator: Iterator, depth: int = 4) -> Iterator:
     def worker() -> None:
         try:
             for item in iterator:
+                if commit is not None:
+                    item = commit(item)
                 if not _put(item):
                     return
         except BaseException as e:  # re-raised in the consumer
@@ -443,6 +605,8 @@ def prefetch(iterator: Iterator, depth: int = 4) -> Iterator:
     try:
         while True:
             item = q.get()
+            if occupancy is not None:
+                occupancy.set(q.qsize())
             if item is end:
                 if error:
                     raise error[0]

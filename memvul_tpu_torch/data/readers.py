@@ -1,22 +1,32 @@
-"""Corpus JSON → evaluation instance streams (the scoring path of the JAX
-package's ``data/readers.py``).
+"""Corpus JSON → instance streams (the JAX package's ``data/readers.py``,
+memory model).
 
 Instance = a plain dict: ``text1`` (the issue report, or an anchor
-description), ``label`` ("same"/"diff") and ``meta`` ({"type", "label",
-"Issue_Url"}, carried to the metrics and the output file).
-:class:`MemoryReader` streams test/validation corpora as scoring
-instances and the golden file as the anchor bank.  The split comes from
-an explicit ``split=`` or, failing that, from the file name
-("golden"/"test_"/"validation_").  Training-pair generation, fault points
-and quarantine belong to later slices.
+description), ``text2`` (the pair partner, training only), ``label``
+("same"/"diff") and ``meta`` ({"type", "label", "Issue_Url"}, carried to
+the metrics and the output file).  :class:`MemoryReader` streams
+test/validation corpora as scoring instances, the golden file as the
+anchor bank, and the training corpus as Siamese pairs with online
+sampling: every positive pairs with its own CVE description plus
+``same - 1`` same-CWE partners (partner text: 70% the partner's CVE
+description, 15% its CWE anchor, 15% the partner report); each negative
+survives with probability ``sample_neg`` and pairs with ``diff`` random
+anchors.  The pair stream draws from one ``random.Random`` in the JAX
+reader's order, so both readers give the same pairs for the same seed.
+The split comes from an explicit ``split=`` or, failing that, from the
+file name ("golden"/"test_"/"validation_").  Fault points and quarantine
+belong to a later slice.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import random
 from pathlib import Path
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
+
+from .normalize import normalize_text
 
 logger = logging.getLogger(__name__)
 
@@ -59,16 +69,24 @@ class MemoryReader:
         target: str = "Security_Issue_Full",
         seed: Optional[int] = None,
     ) -> None:
-        # same_diff_ratio / sample_neg / train_iter / seed configure the
-        # training pair stream: accepted so a training config's reader
-        # section loads, unused until training is ported
         self._target = target
+        self._ratio = same_diff_ratio or {"same": 2, "diff": 6}
+        self._sample_neg = sample_neg
+        self._train_iter = train_iter
+        self._rng = random.Random(seed)
         self._cve: Dict[str, Dict] = {}
         self._anchors: Dict[str, str] = {}
         if cve_path:
             self._cve = json.loads(Path(cve_path).read_text())
         if anchor_path:
             self._anchors = json.loads(Path(anchor_path).read_text())
+        self._grouped_cache: Dict[str, Dict[str, List[Dict]]] = {}
+
+    def reseed(self, seed: int) -> None:
+        """Re-seed the pair-sampling RNG.  The trainer calls this at every
+        epoch start, so each epoch's pair stream is a pure function of
+        (trainer seed, epoch index) and a resumed run replays it."""
+        self._rng.seed(seed)
 
     def _prepare_sample(self, s: Dict) -> Optional[Dict]:
         """Concatenated text, pos/neg target, CWE via the CVE record; None
@@ -84,23 +102,53 @@ class MemoryReader:
             s[self._target] = "neg"
         return s
 
+    def _cve_description(self, cve_id: str) -> str:
+        """A CVE description, tag-normalized once."""
+        rec = self._cve[cve_id]
+        if not rec.get("_normalized"):
+            rec["CVE_Description"] = normalize_text(rec.get("CVE_Description") or "")
+            rec["_normalized"] = True
+        return rec["CVE_Description"]
+
+    def group_by_cwe(self, file_path: str) -> Dict[str, List[Dict]]:
+        """Load a corpus file and bucket its samples: negatives under
+        "neg", positives under their CWE category (cached per path)."""
+        if file_path in self._grouped_cache:
+            return self._grouped_cache[file_path]
+        grouped: Dict[str, List[Dict]] = {"neg": []}
+        for s in _iter_corpus(file_path):
+            s = self._prepare_sample(s)
+            if s is None:
+                continue
+            if s[self._target] == "pos":
+                grouped.setdefault(s["CWE_ID"], []).append(s)
+            else:
+                grouped["neg"].append(s)
+        self._grouped_cache[file_path] = grouped
+        return grouped
+
     def read(self, file_path: str, split: Optional[str] = None) -> Iterator[Dict]:
         split = split or detect_split(file_path)
         if split == GOLDEN:
             yield from self.read_anchors(file_path)
             return
         if split not in (TEST, VALIDATION, UNLABEL):
-            raise NotImplementedError(
-                f"split {split!r}: training pair streams are not ported yet"
-            )
+            # pair generation looks up same-CWE partners: grouped corpus
+            yield from self._train_pairs(self.group_by_cwe(file_path))
+            return
         # test corpora stream as unlabeled scoring instances, validation
-        # as labeled "test" instances
+        # as labeled "test" instances; a grouped corpus is reused
         mode = "test" if split == VALIDATION else UNLABEL
         count = 0
-        for s in _iter_corpus(file_path):
-            s = self._prepare_sample(s)
-            if s is None:
-                continue
+        if file_path in self._grouped_cache:
+            samples = (
+                s for bucket in self._grouped_cache[file_path].values() for s in bucket
+            )
+        else:
+            samples = (
+                p for p in map(self._prepare_sample, _iter_corpus(file_path)) if p is not None
+            )
+        for s in samples:
             count += 1
             yield self._eval_instance(s, mode)
         logger.info("%s: %d evaluation instances", file_path, count)
@@ -126,4 +174,55 @@ class MemoryReader:
                 "label": s.get("CWE_ID") if positive else "neg",
                 "Issue_Url": s.get("Issue_Url"),
             },
+        }
+
+    def _train_pairs(self, grouped: Dict[str, List[Dict]]) -> Iterator[Dict]:
+        all_data = [s for bucket in grouped.values() for s in bucket]
+        self._rng.shuffle(all_data)
+        anchor_ids = list(self._anchors.keys())
+        same_k, diff_k = self._ratio["same"], self._ratio["diff"]
+        rng = self._rng
+        same_num = diff_num = 0
+        for _ in range(self._train_iter):
+            for s in all_data:
+                if s[self._target] == "pos":
+                    yield self._pair_instance(s, s)
+                    partners = grouped[s["CWE_ID"]]
+                    for partner in rng.choices(partners, k=same_k - 1):
+                        yield self._pair_instance(s, partner)
+                    same_num += same_k
+                elif rng.random() < self._sample_neg:
+                    for category in rng.choices(anchor_ids, k=diff_k):
+                        yield self._anchor_pair_instance(s, category)
+                    diff_num += diff_k
+        logger.info("pair counts: same=%d diff=%d", same_num, diff_num)
+
+    def _partner_text(self, s: Dict, partner: Dict) -> str:
+        """The matched pair's second text."""
+        rng = self._rng
+        if s["Issue_Url"] == partner["Issue_Url"]:
+            return self._cve_description(partner["CVE_ID"])
+        if rng.random() < 0.7:
+            return self._cve_description(partner["CVE_ID"])
+        if rng.random() < 0.5:
+            category = partner.get("CWE_ID")
+            if category is not None and category in self._anchors:
+                return self._anchors[category]
+            return partner["text"]
+        return partner["text"]
+
+    def _pair_instance(self, s: Dict, partner: Dict) -> Dict:
+        return {
+            "text1": s["text"],
+            "text2": self._partner_text(s, partner),
+            "label": "same",
+            "meta": {"type": TRAIN, "label": s["CWE_ID"], "Issue_Url": s["Issue_Url"]},
+        }
+
+    def _anchor_pair_instance(self, s: Dict, category: str) -> Dict:
+        return {
+            "text1": s["text"],
+            "text2": self._anchors[category],
+            "label": "diff",
+            "meta": {"type": TRAIN, "label": "neg", "Issue_Url": s.get("Issue_Url")},
         }

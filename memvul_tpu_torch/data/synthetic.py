@@ -4,6 +4,10 @@ Deterministic issue-report records and a CVE dict with the reference
 corpus's structure; ``realistic_lengths=True`` draws body lengths from a
 lognormal with a median of about 100 words, so about 10-15% of reports
 exceed 512 wordpieces — the distribution the JAX bench scores.
+:func:`build_workspace` turns such a corpus into a training workspace
+(splits, CVE dict, CWE anchors, a deterministic vocabulary) through the
+offline pipeline, and :func:`selfcheck_config` is the tiny train config
+over it.
 """
 
 from __future__ import annotations
@@ -43,6 +47,27 @@ _CWE_NAMES = {
     "287": ("Improper Authentication", "Class"),
     "787": ("Out-of-bounds Write", "Base"),
 }
+
+
+def research_view_records() -> List[Dict[str, str]]:
+    """A miniature CWE Research View table (shape of 1000.csv)."""
+    ids = list(_CWE_NAMES)
+    records = []
+    for i, (cwe_id, (name, abstraction)) in enumerate(_CWE_NAMES.items()):
+        parent = ids[0] if i else ""
+        related = f"::NATURE:ChildOf:CWE ID:{parent}:VIEW ID:1000:ORDINAL:Primary::" if parent else ""
+        records.append(
+            {
+                "CWE-ID": cwe_id,
+                "Name": name,
+                "Weakness Abstraction": abstraction,
+                "Description": f"The product mishandles {name.lower()} conditions.",
+                "Extended Description": f"Extended notes about {name.lower()}.",
+                "Common Consequences": "::SCOPE:Integrity:IMPACT:Execute Unauthorized Code or Commands::",
+                "Related Weaknesses": related,
+            }
+        )
+    return records
 
 
 def _body_with_length(rng: random.Random, phrases: List[str], base: str) -> str:
@@ -123,3 +148,97 @@ def generate_corpus(
 
 def corpus_texts(reports: List[Dict]) -> List[str]:
     return [f"{r['Issue_Title']}. {r['Issue_Body']}" for r in reports]
+
+
+def selfcheck_config(ws, **trainer_overrides):
+    """A tiny reference-shaped train config over a :func:`build_workspace`
+    artifact set, the geometry that trains in seconds on the CPU while
+    exercising every layer: reader pair sampling, the Siamese train step,
+    threshold-swept validation, archiving."""
+    trainer = {
+        "num_epochs": 1,
+        "patience": 2,
+        "batch_size": 4,
+        "grad_accum": 2,
+        "max_length": 48,
+        "eval_batch_size": 8,
+        "eval_max_length": 48,
+        "warmup_steps": 2,
+        "steps_per_epoch": 3,
+    }
+    trainer.update(trainer_overrides)
+    return {
+        "random_seed": 2021,
+        "tokenizer": {"type": "wordpiece", "tokenizer_path": ws["paths"]["tokenizer"]},
+        "dataset_reader": {
+            "type": "reader_memory",
+            "sample_neg": 1.0,
+            "same_diff_ratio": {"same": 2, "diff": 2},
+            "cve_path": ws["paths"]["cve"],
+            "anchor_path": ws["paths"]["anchors"],
+        },
+        "train_data_path": ws["paths"]["train"],
+        "validation_data_path": ws["paths"]["validation"],
+        "model": {
+            "type": "model_memory",
+            "encoder": {"preset": "tiny", "vocab_size": 4096},
+            "use_header": True,
+            "header_dim": 32,
+            "temperature": 0.1,
+        },
+        "trainer": trainer,
+        "evaluation": {"batch_size": 8, "max_length": 48},
+    }
+
+
+def build_workspace(tmp_dir, seed: int = 0, **corpus_kwargs):
+    """Materialize a full artifact set under ``tmp_dir``: train/validation/
+    test JSON splits, CVE dict, anchors, and a trained tokenizer.  Returns a
+    dict of paths plus in-memory objects."""
+    import json
+    from pathlib import Path
+
+    from .corpus import preprocess, split_by_project, write_json
+    from .cwe import build_anchors, build_cwe_tree, cwe_distribution
+    from .tokenizer import WordPieceTokenizer
+
+    tmp = Path(tmp_dir)
+    tmp.mkdir(parents=True, exist_ok=True)
+    reports, cve_dict = generate_corpus(seed=seed, **corpus_kwargs)
+    clean = preprocess(reports)
+    train, test = split_by_project(clean, held_out_frac=0.25, seed=seed)
+    train, validation = split_by_project(train, held_out_frac=0.25, seed=seed + 1)
+
+    tree = build_cwe_tree(research_view_records())
+    positives = [r for r in train if r["Security_Issue_Full"] == "1"]
+    for r in positives:
+        r["CWE_ID"] = cve_dict[r["CVE_ID"]]["CWE_ID"]
+    dist = cwe_distribution(positives, cve_dict)
+    anchors = build_anchors(dist, tree, cve_dict, seed=seed)
+
+    paths = {
+        "train": tmp / "train_project.json",
+        "validation": tmp / "validation_project.json",
+        "test": tmp / "test_project.json",
+        "cve": tmp / "CVE_dict.json",
+        "anchors": tmp / "CWE_anchor_golden_project.json",
+        "tokenizer": tmp / "tokenizer.json",
+    }
+    write_json(train, paths["train"])
+    write_json(validation, paths["validation"])
+    write_json(test, paths["test"])
+    paths["cve"].write_text(json.dumps(cve_dict))
+    paths["anchors"].write_text(json.dumps(anchors))
+
+    texts = corpus_texts(reports) + [a for a in anchors.values()]
+    # a deterministic vocabulary: the same artifacts from the same seed
+    tokenizer = WordPieceTokenizer.build_deterministic(
+        texts, vocab_size=2048, save_path=paths["tokenizer"]
+    )
+    return {
+        "paths": {k: str(v) for k, v in paths.items()},
+        "tokenizer": tokenizer,
+        "anchors": anchors,
+        "cve_dict": cve_dict,
+        "splits": {"train": train, "validation": validation, "test": test},
+    }

@@ -158,7 +158,10 @@ class SiamesePredictor:
     def _score(self, block: Dict[str, np.ndarray], bank: Optional[torch.Tensor] = None) -> torch.Tensor:
         ids, mask = self._to_device(block)
         bank = self.anchor_bank if bank is None else bank
-        logits = self.model(ids, mask, anchors=bank, anchor_impl=self.anchor_match_impl)
+        logits = self.model(
+            {"input_ids": ids, "attention_mask": mask}, anchors=bank,
+            anchor_impl=self.anchor_match_impl,
+        )
         return anchor_probs(logits)
 
     # -- serving: one block or one pack per call -----------------------------

@@ -8,8 +8,16 @@ does; LayerNorm statistics are taken in f32.  Attention goes through
 :func:`memvul_tpu_torch.ops.attention.dot_product_attention`, so
 ``attention_impl="flash"`` runs the hand-written CUDA kernel on the card.
 
+Dropout sits where the JAX package has it: after the embeddings, on the
+attention probabilities (the ``"xla"`` formulation only), after the
+attention output, after the FFN output and after the pooler.  It runs
+when the module is in training mode (``model.train()``, the JAX
+``deterministic=False``), with masks drawn from the ``generator`` passed
+down the forward call; ``model.eval()`` makes it the identity.
+
 ``scan_layers`` and ``remat`` are layout and memory knobs of the JAX
-package with no effect on the forward: they are accepted and ignored.
+package with no effect on the forward: they are accepted and ignored
+(``remat``, recomputing activations in the backward, is still to port).
 The int8 tier (``quant``) and ScalarMix (``last_layer_only=False``) are
 not ported yet.
 """
@@ -82,6 +90,19 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+def dropout(
+    x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """Flax's ``Dropout``: in training, each element kept with probability
+    ``1 - rate`` (masks from ``generator``) and scaled by its inverse;
+    otherwise the identity."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
+    return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype) -> torch.Tensor:
     """LayerNorm with statistics in f32, output in ``dtype``."""
     return F.layer_norm(
@@ -98,14 +119,16 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(c.type_vocab_size, c.hidden_size)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
 
-    def forward(self, input_ids, token_type_ids, position_ids=None):
-        dt = self.config.dtype
+    def forward(self, input_ids, token_type_ids, position_ids=None, generator=None):
+        c = self.config
+        dt = c.dtype
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[-1], device=input_ids.device)[None, :]
         word = F.embedding(input_ids, self.word_embeddings.weight).to(dt)
         pos = F.embedding(position_ids, self.position_embeddings.weight).to(dt)
         typ = F.embedding(token_type_ids, self.token_type_embeddings.weight).to(dt)
-        return layer_norm(word + pos + typ, self.LayerNorm, dt)
+        x = layer_norm(word + pos + typ, self.LayerNorm, dt)
+        return dropout(x, c.hidden_dropout, self.training, generator)
 
 
 class BertSelfAttention(nn.Module):
@@ -132,7 +155,7 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(c)
         self.output = BertSelfOutput(c, c.hidden_size)
 
-    def forward(self, hidden, bias, segment_ids=None):
+    def forward(self, hidden, bias, segment_ids=None, generator=None):
         c = self.config
         b, t, _ = hidden.shape
         head_dim = c.hidden_size // c.num_heads
@@ -143,8 +166,10 @@ class BertAttention(nn.Module):
         attn = dot_product_attention(
             heads(self.self.query), heads(self.self.key), heads(self.self.value),
             bias=bias, impl=c.attention_impl, segment_ids=segment_ids,
+            dropout_rate=c.attention_dropout, training=self.training, generator=generator,
         )
         out = linear(attn.reshape(b, t, c.hidden_size), self.output.dense, c.dtype)
+        out = dropout(out, c.hidden_dropout, self.training, generator)
         return layer_norm(hidden + out, self.output.LayerNorm, c.dtype)
 
 
@@ -162,11 +187,12 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(c)
         self.output = BertSelfOutput(c, c.intermediate_size)
 
-    def forward(self, hidden, bias, segment_ids=None):
-        dt = self.config.dtype
-        hidden = self.attention(hidden, bias, segment_ids)
+    def forward(self, hidden, bias, segment_ids=None, generator=None):
+        c = self.config
+        dt = c.dtype
+        hidden = self.attention(hidden, bias, segment_ids, generator)
         inter = F.gelu(linear(hidden, self.intermediate.dense, dt))  # exact (erf)
-        out = linear(inter, self.output.dense, dt)
+        out = dropout(linear(inter, self.output.dense, dt), c.hidden_dropout, self.training, generator)
         return layer_norm(hidden + out, self.output.LayerNorm, dt)
 
 
@@ -175,9 +201,9 @@ class BertEncoderStack(nn.Module):
         super().__init__()
         self.layer = nn.ModuleList(BertLayer(c) for _ in range(c.num_layers))
 
-    def forward(self, hidden, bias, segment_ids=None):
+    def forward(self, hidden, bias, segment_ids=None, generator=None):
         for layer in self.layer:
-            hidden = layer(hidden, bias, segment_ids)
+            hidden = layer(hidden, bias, segment_ids, generator)
         return hidden
 
 
@@ -202,7 +228,7 @@ class BertEncoder(nn.Module):
 
     def forward(
         self, input_ids, attention_mask, token_type_ids=None,
-        position_ids=None, segment_ids=None,
+        position_ids=None, segment_ids=None, generator=None,
     ):
         c = self.config
         if position_ids is None and input_ids.shape[-1] > c.max_position_embeddings:
@@ -213,31 +239,34 @@ class BertEncoder(nn.Module):
             )
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        hidden = self.embeddings(input_ids, token_type_ids, position_ids)
+        hidden = self.embeddings(input_ids, token_type_ids, position_ids, generator)
         if segment_ids is None:
-            return self.encoder(hidden, mask_to_bias(attention_mask, c.dtype))
+            return self.encoder(hidden, mask_to_bias(attention_mask, c.dtype), generator=generator)
         # the packed path: one tile table for all the layers of the pack
-        return self.encoder(hidden, None, pack_segments(segment_ids))
+        return self.encoder(hidden, None, pack_segments(segment_ids), generator)
 
 
 class BertPooler(nn.Module):
-    """tanh(dense(CLS)) — dropout is inactive at inference."""
+    """dropout(tanh(dense(CLS)))."""
 
     def __init__(self, c: BertConfig) -> None:
         super().__init__()
         self.config = c
         self.dense = nn.Linear(c.hidden_size, c.hidden_size)
 
-    def forward(self, hidden):
-        return torch.tanh(linear(hidden[:, 0], self.dense, self.config.dtype))
+    def forward(self, hidden, generator=None):
+        c = self.config
+        pooled = torch.tanh(linear(hidden[:, 0], self.dense, c.dtype))
+        return dropout(pooled, c.hidden_dropout, self.training, generator)
 
 
-def init_weights(module: nn.Module, std: float) -> None:
+def init_weights(module: nn.Module, std: float, generator: Optional[torch.Generator] = None) -> None:
     """The JAX package's initialisation: N(0, std) weights and
-    embeddings, zero biases, unit LayerNorm scales."""
+    embeddings, zero biases, unit LayerNorm scales (draws from
+    ``generator`` when given)."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Embedding)):
-            nn.init.normal_(m.weight, std=std)
+            nn.init.normal_(m.weight, std=std, generator=generator)
             if getattr(m, "bias", None) is not None:
                 nn.init.zeros_(m.bias)
         elif isinstance(m, nn.LayerNorm):

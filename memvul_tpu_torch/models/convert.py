@@ -1,4 +1,4 @@
-"""Carry the JAX package's weights across to the port.
+"""Carry weights between the JAX package's layout and the port's.
 
 :func:`params_from_flax` maps a flax ``MemoryModel`` param tree (numpy or
 torch leaves, e.g. as :func:`memvul_tpu_torch.archive.load_archive` reads
@@ -6,6 +6,9 @@ them) onto the port's :class:`~memvul_tpu_torch.models.memory.MemoryModel`
 state dict.  Encoder keys are HF ``BertModel``'s under ``bert.``, the
 layout ``memvul_tpu.models.convert.export_bert_state_dict`` writes; the
 pooler, header and pair kernel follow.  Every tensor comes out f32.
+:func:`flax_from_params` is its inverse: a port state dict → the flax
+tree (numpy f32) that ``memvul_tpu.archive.load_archive`` reads, in the
+layer layout that ``scan_layers`` in the config names.
 
 Layout notes: flax ``Dense`` kernels are ``[in, out]`` (torch ``Linear``
 stores ``[out, in]``); the per-head ``DenseGeneral`` kernels are
@@ -93,3 +96,75 @@ def params_from_flax(params: Dict, config: BertConfig) -> Dict[str, torch.Tensor
         sd["header.dense.bias"] = _f32(p["header"]["dense"]["bias"])
     sd["pair_kernel"] = _f32(p["pair_kernel"])
     return sd
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to(torch.float32).cpu().numpy()
+
+
+def flax_from_params(state_dict: Dict[str, torch.Tensor], config: BertConfig) -> Dict:
+    """The port's ``MemoryModel`` state dict → the flax ``{"params": ...}``
+    tree of numpy f32 arrays, with the layers stacked under
+    ``encoder/layers/layer`` when ``config.scan_layers``, else at
+    ``encoder/layer_{i}``."""
+    sd = state_dict
+    h, heads = config.hidden_size, config.num_heads
+    dh = h // heads
+
+    def dense(pre):
+        return {"kernel": _np(sd[pre + ".weight"]).T.copy(), "bias": _np(sd[pre + ".bias"])}
+
+    def ln(pre):
+        return {"scale": _np(sd[pre + ".weight"]), "bias": _np(sd[pre + ".bias"])}
+
+    def layer(i):
+        pre = f"bert.encoder.layer.{i}."
+
+        def qkv(name):
+            return {
+                "kernel": _np(sd[pre + f"attention.self.{name}.weight"]).T.reshape(h, heads, dh).copy(),
+                "bias": _np(sd[pre + f"attention.self.{name}.bias"]).reshape(heads, dh),
+            }
+
+        return {
+            "attention": {
+                "query": qkv("query"), "key": qkv("key"), "value": qkv("value"),
+                "output": {
+                    "kernel": _np(sd[pre + "attention.output.dense.weight"]).T.reshape(heads, dh, h).copy(),
+                    "bias": _np(sd[pre + "attention.output.dense.bias"]),
+                },
+                "output_LayerNorm": ln(pre + "attention.output.LayerNorm"),
+            },
+            "intermediate": dense(pre + "intermediate.dense"),
+            "output": dense(pre + "output.dense"),
+            "output_LayerNorm": ln(pre + "output.LayerNorm"),
+        }
+
+    layers = [layer(i) for i in range(config.num_layers)]
+    if config.scan_layers:
+
+        def stack(*xs):
+            if isinstance(xs[0], dict):
+                return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+            return np.stack(xs, 0)
+
+        encoder = {"layers": {"layer": stack(*layers)}}
+    else:
+        encoder = {f"layer_{i}": layers[i] for i in range(config.num_layers)}
+    emb = "bert.embeddings."
+    params = {
+        "bert": {
+            "embeddings": {
+                "word_embeddings": {"embedding": _np(sd[emb + "word_embeddings.weight"])},
+                "position_embeddings": {"embedding": _np(sd[emb + "position_embeddings.weight"])},
+                "token_type_embeddings": {"embedding": _np(sd[emb + "token_type_embeddings.weight"])},
+                "LayerNorm": ln(emb + "LayerNorm"),
+            },
+            "encoder": encoder,
+        },
+        "pooler": {"dense": dense("pooler.dense")},
+        "pair_kernel": _np(sd["pair_kernel"]),
+    }
+    if "header.dense.weight" in sd:
+        params["header"] = {"dense": dense("header.dense")}
+    return {"params": params}

@@ -1,14 +1,18 @@
 """The Siamese memory-network matcher (the JAX package's
-``models/memory.py``), inference path.
+``models/memory.py``).
 
 Encode a text with BERT, take the tanh-pooled CLS, optionally pass the
-ReLU projection header, then match the report against the whole anchor
-bank through the decomposed bias-free ``[u, v, |u−v|]`` classifier:
+ReLU projection header.  Training classifies each pair ``[u, v, |u−v|]``
+with the bias-free pair kernel (:meth:`MemoryModel.pair_logits`, a plain
+matmul) and :func:`pair_loss` takes the cross-entropy of the logits over
+the temperature.  Inference matches the report against the whole anchor
+bank through the decomposed classifier
 
     logits[b, a] = u[b]·W_u + v[a]·W_v + |u[b] − v[a]|·W_d
 
 (:mod:`memvul_tpu_torch.ops.anchor_match`: the hand-written CUDA kernel
-on the card, its plain version on the CPU).
+on the card, its plain version on the CPU).  Samples are dicts
+{input_ids, attention_mask[, token_type_ids]} of tensors.
 """
 
 from __future__ import annotations
@@ -19,19 +23,21 @@ import torch
 from torch import nn
 
 from ..ops.anchor_match import anchor_match
-from .bert import BertConfig, BertEncoder, BertPooler, init_weights, linear
+from .bert import BertConfig, BertEncoder, BertPooler, dropout, init_weights, linear
+from .losses import masked_cross_entropy
 
 
 class ProjectionHeader(nn.Module):
-    """dense(hidden → header_dim) + ReLU (dropout is inactive at inference)."""
+    """dropout(ReLU(dense(hidden → header_dim)))."""
 
     def __init__(self, config: BertConfig, header_dim: int = 512) -> None:
         super().__init__()
         self.config = config
         self.dense = nn.Linear(config.hidden_size, header_dim)
 
-    def forward(self, x):
-        return torch.relu(linear(x, self.dense, self.config.dtype))
+    def forward(self, x, generator=None):
+        x = torch.relu(linear(x, self.dense, self.config.dtype))
+        return dropout(x, self.config.hidden_dropout, self.training, generator)
 
 
 class MemoryModel(nn.Module):
@@ -57,14 +63,17 @@ class MemoryModel(nn.Module):
         init_weights(self, config.initializer_range)
         nn.init.normal_(self.pair_kernel, std=config.initializer_range)
 
-    def encode(self, input_ids, attention_mask, token_type_ids=None) -> torch.Tensor:
+    def encode(
+        self, input_ids, attention_mask, token_type_ids=None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
         """Token batch → [B, D] embeddings in ``config.dtype``."""
-        hidden = self.bert(input_ids, attention_mask, token_type_ids)
-        return self._pool(hidden)
+        hidden = self.bert(input_ids, attention_mask, token_type_ids, generator=generator)
+        return self._pool(hidden, generator)
 
-    def _pool(self, hidden: torch.Tensor) -> torch.Tensor:
-        pooled = self.pooler(hidden)
-        return self.header(pooled) if self.use_header else pooled
+    def _pool(self, hidden: torch.Tensor, generator=None) -> torch.Tensor:
+        pooled = self.pooler(hidden, generator)
+        return self.header(pooled, generator) if self.use_header else pooled
 
     def encode_ragged(self, sample: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One packed flat batch (:func:`~memvul_tpu_torch.data.batching.
@@ -95,12 +104,47 @@ class MemoryModel(nn.Module):
         kernel = self.pair_kernel.to(u.dtype)
         return anchor_match(u, anchors, kernel, impl=impl or self.config.anchor_match_impl)
 
-    def forward(self, input_ids, attention_mask, anchors=None, anchor_impl=None):
-        """(ids, mask) → [B, D]; with ``anchors`` [A, D] → logits [B, A, C]."""
-        u = self.encode(input_ids, attention_mask)
-        if anchors is None:
+    def pair_logits(self, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """[B, D] × [B, D] → [B, C] (the training path)."""
+        features = torch.cat([u, v, (u - v).abs()], dim=-1)
+        return features @ self.pair_kernel.to(features.dtype)
+
+    def forward(
+        self,
+        sample1: Dict[str, torch.Tensor],
+        sample2: Optional[Dict[str, torch.Tensor]] = None,
+        anchors: Optional[torch.Tensor] = None,
+        anchor_impl: Optional[str] = None,
+        sample2_index: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Training: (sample1, sample2) → pair logits [B, C].  Inference:
+        (sample1, anchors=[A, D]) → anchor logits [B, A, C]; sample1 alone
+        → embeddings [B, D].  ``sample2_index`` [B] is the dedup gather:
+        sample2 then holds only the batch's unique rows, and each pair's
+        embedding is gathered back (``index_select``, whose backward
+        scatter-adds).  Dropout masks come from ``generator``."""
+        u = self.encode(
+            sample1["input_ids"], sample1["attention_mask"], sample1.get("token_type_ids"),
+            generator=generator,
+        )
+        if anchors is not None:
+            return self.match_anchors(u, anchors, impl=anchor_impl)
+        if sample2 is None:
             return u
-        return self.match_anchors(u, anchors, impl=anchor_impl)
+        v = self.encode(
+            sample2["input_ids"], sample2["attention_mask"], sample2.get("token_type_ids"),
+            generator=generator,
+        )
+        if sample2_index is not None:
+            v = v.index_select(0, sample2_index.long())
+        return self.pair_logits(u, v)
+
+
+def pair_loss(logits, labels, weights, temperature: float) -> torch.Tensor:
+    """Mean cross-entropy over the real rows of ``logits / temperature``,
+    in f32."""
+    return masked_cross_entropy(logits.to(torch.float32) / temperature, labels, weights)
 
 
 def anchor_probs(anchor_logits: torch.Tensor, same_index: int = 0) -> torch.Tensor:

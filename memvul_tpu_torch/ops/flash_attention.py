@@ -16,7 +16,10 @@ key-only bias (the encoder's padding mask, broadcastable to
   and two or three consumer warpgroups), and ``flash_fwd_kernel`` on the
   CUDA cores for f32, head dims 16 and 32, and unaligned views.
   :data:`launches` counts its launches.  A CPU tensor goes to the plain
-  version.
+  version.  Under a gradient (grad enabled, an input that requires it)
+  the call goes through :class:`FlashAttentionFunction`, the counterpart
+  of the TPU kernel's ``jax.custom_vjp``: the kernel's forward, and a
+  backward that recomputes through the plain ``xla_attention``.
 * :func:`flash_attention_reference` is the plain PyTorch version of the
   same arithmetic: scores in f32, the finite f32 minimum for masked keys
   (a fully masked row averages its values uniformly), p rounded to the
@@ -148,6 +151,38 @@ def flash_attention_cuda(
     return out
 
 
+def _reference_forward(query, key, value, key_bias_f32):
+    """The plain version on an f32 [B, Tk] key bias (the CPU's forward)."""
+    return flash_attention_reference(query, key, value, key_bias_f32[:, None, None, :])
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention under autograd, the port of the TPU kernel's
+    ``jax.custom_vjp`` (``memvul_tpu/ops/pallas/flash_kernel.py:215-241``).
+    The forward runs ``kernel`` (the CUDA kernel on the card, the plain
+    version on the CPU) and saves q, k, v and the f32 key bias; the
+    backward recomputes attention through the plain ``xla_attention``
+    under autograd and returns its dq/dk/dv.  The bias gets no gradient.
+    The backward holds the [B, H, Tq, Tk] scores, as the JAX package's
+    XLA recompute does: the flash memory saving is forward-only."""
+
+    @staticmethod
+    def forward(ctx, query, key, value, key_bias_f32, kernel):
+        ctx.save_for_backward(query, key, value, key_bias_f32)
+        return kernel(query, key, value, key_bias_f32)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from .attention import xla_attention
+
+        query, key, value, key_bias_f32 = ctx.saved_tensors
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_(True) for t in (query, key, value))
+            out = xla_attention(q, k, v, key_bias_f32[:, None, None, :])
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     query: torch.Tensor,
     key: torch.Tensor,
@@ -155,13 +190,14 @@ def flash_attention(
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Blockwise exact attention, [B, T, H, D] in and out: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    for CUDA tensors, the plain version for CPU tensors, each through
+    :class:`FlashAttentionFunction` when a gradient is wanted."""
     if query.ndim != 4:
         raise ValueError(f"expected [B, T, H, D], got {tuple(query.shape)}")
-    if query.device.type == "cuda":
-        kb = key_bias(bias, query.shape[0], key.shape[1], query.device)
-        return flash_attention_cuda(query, key, value, kb)
-    if query.device.type != "cpu":
+    if query.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention: unsupported device {query.device}")
-    key_bias(bias, query.shape[0], key.shape[1], query.device)  # shape check
-    return flash_attention_reference(query, key, value, bias)
+    kb = key_bias(bias, query.shape[0], key.shape[1], query.device)
+    kernel = flash_attention_cuda if query.device.type == "cuda" else _reference_forward
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (query, key, value)):
+        return FlashAttentionFunction.apply(query, key, value, kb, kernel)
+    return kernel(query, key, value, kb)

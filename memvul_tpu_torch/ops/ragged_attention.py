@@ -218,10 +218,17 @@ def ragged_flash_attention(
 ) -> torch.Tensor:
     """Segment-masked exact attention, [B, T, H, D] in and out: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors.
-    ``segment_ids`` is a [B, T] tensor or :func:`pack_segments` of one."""
+    ``segment_ids`` is a [B, T] tensor or :func:`pack_segments` of one.
+    The kernel is forward-only, as the TPU kernel is: a CUDA input that
+    needs a gradient raises instead of returning an output with none."""
     ids = segment_ids.ids if isinstance(segment_ids, PackedSegments) else segment_ids
     _check_shapes(query, key, value, ids)
     if query.device.type == "cuda":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (query, key, value)):
+            raise RuntimeError(
+                "ragged_flash_attention is forward-only (the packed serve path "
+                "never trains); it has no gradient for q/k/v"
+            )
         return ragged_flash_attention_cuda(query, key, value, segment_ids)
     if query.device.type != "cpu":
         raise ValueError(f"ragged_flash_attention: unsupported device {query.device}")

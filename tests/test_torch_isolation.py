@@ -13,7 +13,15 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "memvul_tpu_torch"
-FORBIDDEN = ("memvul_tpu", "jax", "jaxlib", "flax", "msgpack", "tokenizers", "sklearn", "transformers")
+FORBIDDEN = ("memvul_tpu", "jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "tokenizers",
+             "sklearn", "transformers")
+# modules each slice added, which the checks below must reach
+EXPECTED_MODULES = (
+    "memvul_tpu_torch.data.normalize", "memvul_tpu_torch.data.corpus", "memvul_tpu_torch.data.cwe",
+    "memvul_tpu_torch.training.optim", "memvul_tpu_torch.training.metrics",
+    "memvul_tpu_torch.training.checkpoint", "memvul_tpu_torch.training.trainer",
+    "memvul_tpu_torch.models.losses", "memvul_tpu_torch.resilience.io",
+)
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_compare.py"]
 
 
@@ -45,19 +53,27 @@ import chip_smoke
 import kernel_compare
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in {FORBIDDEN!r} and sys.modules[k] is not None)
 assert not loaded, loaded
+missing = sorted(set({EXPECTED_MODULES!r}) - set(names))
+assert not missing, missing
 print(len(names))
 """
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip()) >= 15
+    assert int(proc.stdout.strip()) >= 15 + len(EXPECTED_MODULES)
 
 
 def test_default_device_refuses_a_host_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device; the check is for CUDA-less hosts")
-    from memvul_tpu_torch.build import evaluate_from_archive, resolve_device, serve_from_archive
+    from memvul_tpu_torch.build import (
+        evaluate_from_archive,
+        resolve_device,
+        serve_from_archive,
+        train_from_config,
+    )
+    from memvul_tpu_torch.training.trainer import MemoryTrainer
     from memvul_tpu_torch.evaluate.predict_memory import test_siamese as port_test_siamese
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -66,6 +82,10 @@ def test_default_device_refuses_a_host_without_cuda(tmp_path):
         serve_from_archive(tmp_path / "missing.tar.gz")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_test_siamese(None, None, "t", "g", tmp_path / "r.json")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_from_config({"train_data_path": "t"}, tmp_path / "run")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MemoryTrainer(None, None, None, "t")
     assert resolve_device("cpu") == torch.device("cpu")
     proc = subprocess.run(
         [sys.executable, "-m", "memvul_tpu_torch", "serve", str(tmp_path / "missing.tar.gz"),

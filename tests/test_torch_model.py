@@ -73,7 +73,7 @@ def test_encode_match_and_probs(models):
         u = pmodel.encode(_t(ids), _t(mask))
         bank = pmodel.encode(_t(bank_ids), _t(bank_mask))
         logits = pmodel.match_anchors(u, bank)
-        via_forward = pmodel(_t(ids), _t(mask), anchors=bank)
+        via_forward = pmodel({"input_ids": _t(ids), "attention_mask": _t(mask)}, anchors=bank)
     np.testing.assert_allclose(u.numpy(), u_want, **TOL)
     np.testing.assert_allclose(bank.numpy(), bank_want, **TOL)
     np.testing.assert_allclose(logits.numpy(), logits_want, **TOL)
