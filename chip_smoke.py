@@ -50,6 +50,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  the bucketed path on the card; ``kernel_anchor_match_shapes``
                  then puts K1's time at each row count beside its launches
                  in both paths' runs;
+   ``main_path_auto`` / ``main_path_int8`` ``evaluate_from_archive`` of the
+                 same archive and corpus with the reference's own override
+                 files verbatim (``configs/test_config_memory.json``: auto-8
+                 buckets, warmup; ``configs/test_config_memory_int8.json``:
+                 the encoder in dynamic int8), K2 and K1 held against their
+                 plain versions at the auto shapes (some with T % 64 != 0,
+                 where a read past Tk into the next sequence would fail the
+                 check), and the int8 run's drift against the bf16 run;
+   ``int8_linear`` the int8 linear (quantize, ``torch._int_mm``, dequantize)
+                 against bf16 ``F.linear`` at the encoder's projections, and
+                 the cached-weight mode's bits against the dynamic one's;
+   ``evaluate_resume`` a small dirty corpus scored with resume, quarantine
+                 and anchor attribution, killed after a few batches and
+                 resumed: the bytes of an uninterrupted run;
+   ``serve_cascade`` ``score_impl`` "cascade" served from the same archive;
+                 rescored answers hold the bucketed strategy's bits;
    ``serve_identity`` the small f32 model's archive served "continuous" with
                  ``prefix_share`` on (duplicates aliased inside packs), each
                  response held against its own request's answer on the CPU,
@@ -70,8 +86,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
 7. ``main_path_reference`` / ``ragged_reference`` / ``train_reference``
                  a small model scored on the card (kernels) and on the CPU
                  (plain versions), padded and then packed, which must agree:
-                 in f32, and in bf16 at head dim 64 through the tensor-core
-                 attention kernels the main paths run; and the same model
+                 in f32 (with ScalarMix too), and in bf16 at head dim 64
+                 through the tensor-core attention kernels the main paths
+                 run; and the same model
                  trained a few steps on both from the same weights and
                  stacks;
 8. ``kernels``   one line per ported kernel, then the card's nvidia-smi line,
@@ -168,7 +185,7 @@ def bound(nbytes: float, flops: float, flop_rate: float):
 
 
 # K1's rows: the main path's bucket batches and the serve pack's 16 rows
-ANCHOR_ROWS = (16, 128, 256, 512, 1024)
+ANCHOR_ROWS = (16, 64, 128, 256, 512, 1024)
 
 
 def phase_anchor_match(records: dict) -> None:
@@ -304,7 +321,8 @@ def main_path_flash_shapes() -> list:
     configuration through the port's own sizing: one batch shape per length
     bucket (``bucket_batch_sizes`` at ``tokens_per_batch``, as
     ``SiamesePredictor`` sizes them; the 4096 bucket is ``[64, 4096]``,
-    which no synthetic report reaches) and the anchor bank's chunk
+    which no synthetic report reaches, so only the warmup runs it) and the
+    anchor bank's chunk
     (``anchor_chunk`` rows padded to ``evaluation.max_length``)."""
     import inspect
 
@@ -495,16 +513,18 @@ def phase_flash(records: dict) -> None:
 
 
 def emit_flash_shapes(records: dict, bucket_batches: dict, anchor_chunks: int,
-                      layers: int = 12) -> None:
+                      layers: int = 12, warm: bool = True) -> None:
     """K2 at each main-path shape beside its launches in ``main_path``'s
-    run: ``layers`` per batch of a bucket and per anchor-bank chunk."""
+    run: ``layers`` per batch of a bucket, per anchor-bank chunk and, with
+    ``warm``, per bucket shape's warmup run."""
     rec = records["flash_attention"]
     main_shapes = [tuple(s) for s in main_path_flash_shapes()]
     bank = main_shapes[-1]
     launches = {}
-    for length, count in bucket_batches.items():
+    for length in main_path_bucket_rows():
+        count = int(bucket_batches.get(length, 0)) + (1 if warm else 0)
         shape = next(s for s in main_shapes if s[1] == int(length) and s != bank)
-        launches[shape] = launches.get(shape, 0) + layers * int(count)
+        launches[shape] = launches.get(shape, 0) + layers * count
     launches[bank] = launches.get(bank, 0) + layers * anchor_chunks
     rows = [{"shape": list(shape), "launches": launches.get(shape, 0),
              **{k: rec["shapes"][shape][k] for k in ("kernel_name", "kernel_ms", "library_ms",
@@ -983,20 +1003,23 @@ def phase_main_path(workdir: Path, records: dict, reports_wanted: int = 512) -> 
     if missing or saved["TP"] + saved["FN"] + saved["TN"] + saved["FP"] != len(reports):
         raise SystemExit(f"metric file is wrong: missing {missing}, {saved}")
     batches, chunks = int(metrics["s_batches"]), int(metrics["s_anchor_chunks"])
+    # aot_warmup (on by default) runs every stream shape once before scoring
+    warm = "s_warmup_s" in metrics
+    shapes = len(metrics["s_stream_shapes"]) if warm else 0
     layers = 12
-    if flash_launches != layers * (batches + chunks) or match_launches != batches:
+    if flash_launches != layers * (shapes + batches + chunks) or match_launches != shapes + batches:
         raise SystemExit(
-            f"launch counts off: flash {flash_launches} (want {layers * (batches + chunks)}), "
-            f"anchor_match {match_launches} (want {batches})"
+            f"launch counts off: flash {flash_launches} (want "
+            f"{layers * (shapes + batches + chunks)}), anchor_match {match_launches} "
+            f"(want {shapes + batches})"
         )
     anchor = records["anchor_match"]
     anchor["launches"] += match_launches
     rows = main_path_bucket_rows()
-    for length, count in metrics["s_bucket_batches"].items():
-        if not int(count):
-            continue
-        b = rows[int(length)]
-        anchor["launches_by_rows"][b] = anchor["launches_by_rows"].get(b, 0) + int(count)
+    for length, b in rows.items():
+        count = int(metrics["s_bucket_batches"].get(length, 0)) + (1 if warm else 0)
+        if count:
+            anchor["launches_by_rows"][b] = anchor["launches_by_rows"].get(b, 0) + count
     records["flash_attention"]["launches"] = flash_launches
     emit(
         "main_path", ok=True, config=str(CONFIG.relative_to(ROOT)),
@@ -1009,10 +1032,668 @@ def phase_main_path(workdir: Path, records: dict, reports_wanted: int = 512) -> 
         host_seconds={k: metrics[f"s_{k}"] for k in ("feed_wait_s", "launch_s", "sync_s")},
         batches=batches, anchor_chunks=chunks,
         flash_launches=flash_launches, anchor_match_launches=match_launches,
+        warmup_s=metrics.get("s_warmup_s"),
         peak_memory_gib=peak_bytes / 2**30, f1=saved["f1"], auc=saved["auc"],
         card=nvidia_smi_line(),
     )
-    emit_flash_shapes(records, metrics["s_bucket_batches"], chunks, layers)
+    emit_flash_shapes(records, metrics["s_bucket_batches"], chunks, layers, warm)
+
+
+# -- the reference's evaluation override files, the int8 tier, resume -----------
+
+# the JAX package's own drift bound for the int8 tier: the largest
+# |Δ best-anchor probability| between the int8 and the full-precision
+# scoring of the same reports (tests/test_quant.py,
+# test_quant_memory_model_scoring_decision_stability)
+INT8_BEST_PROB_DRIFT = 0.15
+# the JAX package's bound on the int8 encoder's output against the
+# full-precision encoder's on the same weights: their correlation
+# (tests/test_quant.py, test_quant_encoder_shares_checkpoints_and_tracks_f32)
+INT8_ENCODER_CORR = 0.99
+# the dynamic int8 linear against bf16 F.linear on N(0, 1) inputs and
+# N(0, 0.02) weights: max |Δ| / max |bf16| (dynamic int8's own rounding is
+# about 0.011-0.013 at the encoder's projections; a wrong weight scale of
+# one column in 768 reads 0.29-0.43 there)
+INT8_LINEAR_REL_ERR = 0.05
+HAND_BUCKETS = (64, 128, 256, 512)
+
+
+def _corpus_lengths(tok, test_path: Path, max_length: int) -> list:
+    """Token lengths of the corpus's reports at ``max_length``, as the
+    scoring path reads (with the CVE records beside the corpus) and
+    encodes them."""
+    from memvul_tpu_torch.data.readers import MemoryReader
+
+    reader = MemoryReader(cve_path=str(test_path.parent / "CVE_dict.json"))
+    texts = [inst["text1"] for inst in reader.read(str(test_path), split="test")]
+    return [len(ids) for ids in tok.encode_many(texts, max_length=max_length)]
+
+
+def _bucket_tokens(lengths: list, buckets, tokens_per_batch: int) -> dict:
+    """What a bucket set makes of the corpus: each report padded to its
+    bucket (live tokens) and each bucket's batches padded to their full
+    row count (slots, dead rows included)."""
+    from memvul_tpu_torch.data.batching import bucket_batch_sizes
+
+    rows = bucket_batch_sizes(buckets, tokens_per_batch, multiple_of=8)
+    counts = {b: 0 for b in buckets}
+    for n in lengths:
+        counts[next(b for b in sorted(buckets) if b >= n)] += 1
+    return {
+        "buckets": list(buckets),
+        "real_tokens": int(sum(lengths)),
+        "padded_tokens": int(sum(b * c for b, c in counts.items())),
+        "slot_tokens": int(sum(-(-c // rows[b]) * rows[b] * b for b, c in counts.items())),
+        "batches": int(sum(-(-c // rows[b]) for b, c in counts.items())),
+    }
+
+
+def _result_records(path: Path) -> list:
+    return [r for line in path.read_text().splitlines() if line.strip() for r in json.loads(line)]
+
+
+def _flash_at_auto_shapes(shapes: list, records: dict) -> list:
+    """K2 against its plain version at each (rows, length) a run launched
+    it with.  Every row's first keys are scaled up 3x, so they dominate any
+    softmax that sees them: a kernel whose last, partial key tile read past
+    Tk into the next sequence's keys would move the outputs far beyond the
+    tolerance.  The phase computes that leak with the plain version (keys
+    of sequence i extended by those of sequence i + 1 up to the 128-key
+    tile) and requires it to fail the check wherever T % 128 != 0.  The
+    values stay N(0, 1), so the bf16 check's tolerance keeps its scale."""
+    import torch
+
+    from memvul_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    lengths_cpu = torch.Generator().manual_seed(7)
+    tol, tile = 3e-2, 128
+    out = []
+    for rows, t in shapes:
+        lens = [t if i % 2 == 0 else int(torch.randint(1, t + 1, (1,), generator=lengths_cpu))
+                for i in range(rows)]
+        q, k, v, bias = _flash_inputs(rows, t, 12, 64, torch.bfloat16, gen, lens)
+        ext = (-t) % tile
+        if ext:
+            k[:, :ext] *= 3.0
+        got = fa.flash_attention(q, k, v, bias)
+        want = fa.flash_attention_reference(q, k, v, bias)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, want, tol, tol)
+        row = {"shape": [rows, t, 12, 64], "t_mod_64": t % 64, "max_abs_err": err, "ok": ok,
+               "want_rms": rms(want)}
+        if ext:
+            n = min(rows - 1, 16) // 2 * 2  # even rows 0..n-2, each with its successor's keys
+            idx = torch.arange(0, n, 2, device="cuda")
+            k_leak = torch.cat([k[idx], k[idx + 1, :ext]], dim=1)
+            v_leak = torch.cat([v[idx], v[idx + 1, :ext]], dim=1)
+            b_leak = torch.cat([bias[idx], bias[idx + 1][..., :ext]], dim=-1)
+            leak = fa.flash_attention_reference(q[idx], k_leak, v_leak, b_leak)
+            row["leak_err"], leak_ok = max_err(leak, want[idx], tol, tol)
+            row["ok"] = ok and not leak_ok
+        item = q.element_size()
+        row["kernel_ms"] = time_ms(lambda: fa.flash_attention(q, k, v, bias), 5)
+        row["plain_ms"] = time_ms(lambda: fa.flash_attention_reference(q, k, v, bias), 1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        row["library_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias), 5)
+        row["bound_ms"], row["bound_by"] = bound(4 * rows * t * 12 * 64 * item + rows * t * 4,
+                                                 4 * rows * 12 * t * t * 64, BF16_TENSOR_FLOPS)
+        del q, k, v, bias, got, want
+        out.append(row)
+        if not row["ok"]:
+            emit("kernel_flash_auto_shapes", ok=False, cases=out)
+            raise SystemExit(f"flash kernel at an auto-bucket shape: {row}")
+    return out
+
+
+def _anchor_match_at_rows(row_counts) -> list:
+    """K1 against its plain version (f64) at each row count, A = 129,
+    D = 512, bf16, twice for the same bits."""
+    import torch
+
+    from memvul_tpu_torch.ops import anchor_match as am
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = []
+    for b in sorted(set(row_counts)):
+        u = torch.randn(b, 512, device="cuda", generator=gen).to(torch.bfloat16)
+        v = torch.randn(129, 512, device="cuda", generator=gen).to(torch.bfloat16)
+        w = (torch.randn(1024 + 512, 2, device="cuda", generator=gen) * 0.1).to(torch.bfloat16)
+        got, again = am.fused_anchor_match(u, v, w), am.fused_anchor_match(u, v, w)
+        want = am.anchor_match_reference(u.double(), v.double(), w.double())
+        torch.cuda.synchronize()
+        err, ok = max_err(got, want, 3e-2, 3e-2)
+        out.append({"rows": b, "max_abs_err": err, "same_bits_twice": bool(torch.equal(got, again)),
+                    "ok": ok and bool(torch.equal(got, again))})
+        if not out[-1]["ok"]:
+            raise SystemExit(f"anchor-match kernel at an auto-bucket row count: {out[-1]}")
+    return out
+
+
+def _evaluate_counted(archive: Path, test_path: Path, out_dir: Path, overrides):
+    """``evaluate_from_archive`` on the card with the launch counts set to
+    0 just before it and read just after: (metrics, wall s, peak GiB,
+    {kernel: launches}, int8 GEMMs)."""
+    import torch
+
+    from memvul_tpu_torch.build import evaluate_from_archive
+    from memvul_tpu_torch.ops import anchor_match as am
+    from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.ops import quant
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = am.launches = quant.calls = 0
+    t0 = time.perf_counter()
+    metrics = evaluate_from_archive(archive, test_path, out_dir, overrides=overrides, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches, "anchor_match": am.launches}
+    return metrics, wall, torch.cuda.max_memory_allocated() / 2**30, launches, quant.calls
+
+
+def _check_path_launches(phase: str, metrics: dict, launches: dict, layers: int = 12) -> dict:
+    """K2 runs in every layer of every forward (warmup shapes, batches,
+    anchor chunks) and K1 once per scored block: the counts the run must
+    show, by shape."""
+    warm = len(metrics["s_stream_shapes"]) if "s_warmup_s" in metrics else 0
+    batches, chunks = int(metrics["s_batches"]), int(metrics["s_anchor_chunks"])
+    want = {"flash_attention": layers * (warm + batches + chunks), "anchor_match": warm + batches}
+    if launches != want:
+        raise SystemExit(f"{phase}: launch counts {launches}, want {want}")
+    rows = {length: r for r, length in metrics["s_stream_shapes"]}
+    by_shape = {f"{rows[length]}x{length}": layers * (int(count) + (1 if warm else 0))
+                for length, count in metrics["s_bucket_batches"].items()}
+    for r, length in metrics["s_stream_shapes"]:
+        by_shape.setdefault(f"{r}x{length}", layers if warm else 0)
+    by_shape["128x512 (anchor bank)"] = layers * chunks
+    return by_shape
+
+
+def phase_main_path_auto(workdir: Path, records: dict) -> dict:
+    """``evaluate_from_archive`` over the main path's corpus with
+    ``configs/test_config_memory.json``'s text verbatim as the overrides
+    (auto-8 buckets at max_length 512, 262144 tokens a batch, warmup of
+    every stream shape), then K2 and K1 held against their plain versions
+    at the shapes the run launched them with."""
+    import numpy as np
+
+    from memvul_tpu_torch.data.tokenizer import WordPieceTokenizer
+
+    archive, test_path = workdir / "model.tar.gz", workdir / "test_project.json"
+    overrides = (ROOT / "configs" / "test_config_memory.json").read_text()
+    metrics, wall, peak, launches, _ = _evaluate_counted(archive, test_path, workdir / "eval_auto",
+                                                         overrides)
+    by_shape = _check_path_launches("main_path_auto", metrics, launches)
+    shapes = [list(s) for s in metrics["s_stream_shapes"]]
+    auto = [length for _, length in shapes]
+    tok = WordPieceTokenizer(vocab_path=str(workdir / "vocab.txt"))
+    lengths = _corpus_lengths(tok, test_path, 512)
+    recs = _result_records(workdir / "eval_auto" / "model_memory_result.json")
+    probs = np.array([list(r["predict"].values()) for r in recs])
+    if len(recs) != len(lengths) or probs.shape[1] != 129 or not np.isfinite(probs).all():
+        raise SystemExit(f"main_path_auto wrote {len(recs)} records of shape {probs.shape}")
+    slots = sum(int(metrics["s_bucket_row_slots"][length]) * int(length)
+                for length in metrics["s_bucket_row_slots"])
+    auto_tokens = _bucket_tokens(lengths, auto, 262144)
+    if auto_tokens["slot_tokens"] != slots:
+        raise SystemExit(f"main_path_auto padded {slots} slot tokens, the sizing says {auto_tokens}")
+    flash = _flash_at_auto_shapes(shapes, records)
+    if not any(r["t_mod_64"] and "leak_err" in r for r in flash):
+        raise SystemExit(f"no auto shape with T % 64 != 0 was held against the plain version: {auto}")
+    anchor = _anchor_match_at_rows([r for r, _ in shapes])
+    emit("main_path_auto", ok=True, config="configs/test_config_memory.json (verbatim)",
+         reports=len(recs), auto_buckets=auto, stream_shapes=shapes,
+         tokens={"auto": auto_tokens, "hand": _bucket_tokens(lengths, HAND_BUCKETS, 262144)},
+         wall_s=wall, warmup_s=metrics["s_warmup_s"],
+         reports_per_s=len(recs) / metrics["s_elapsed_s"], scoring_s=metrics["s_elapsed_s"],
+         anchor_encode_s=metrics["s_anchor_encode_s"], bucket_seconds=metrics["s_bucket_seconds"],
+         bucket_batches=metrics["s_bucket_batches"], launches=launches,
+         flash_launches_by_shape=by_shape, peak_memory_gib=peak, f1=metrics["f1"],
+         auc=metrics["auc"], card=nvidia_smi_line())
+    emit("kernel_flash_auto_shapes", ok=True, cases=flash, tol=3e-2, card=nvidia_smi_line())
+    emit("kernel_anchor_match_auto_rows", ok=True, cases=anchor, tol=3e-2)
+    records["flash_attention"]["launches"] += launches["flash_attention"]
+    records["anchor_match"]["launches"] += launches["anchor_match"]
+    return metrics
+
+
+class _planted_fault:
+    """A deliberate fault in the int8 tier, for as long as the ``with``
+    lasts, to show that a gate catches it: ``"weight_scale"`` dequantizes
+    each output column with its neighbour's weight scale, ``"layout"``
+    hands the card's int8 GEMM the weight codes [N, K] read as [K, N]."""
+
+    def __init__(self, kind: str) -> None:
+        self.kind = kind
+
+    def __enter__(self):
+        import torch
+
+        from memvul_tpu_torch.ops import quant
+
+        self.saved = quant._dequantize, quant._int_mm
+        dequantize, int_mm = self.saved
+        if self.kind == "weight_scale":
+            quant._dequantize = lambda acc, xs, ws, dt: dequantize(acc, xs, ws.roll(1), dt)
+        elif self.kind == "layout":
+            quant._int_mm = lambda a, b_t: int_mm(a, b_t.contiguous().view(a.shape[1], -1).t())
+        else:
+            raise ValueError(self.kind)
+        return self
+
+    def __exit__(self, *exc):
+        from memvul_tpu_torch.ops import quant
+
+        quant._dequantize, quant._int_mm = self.saved
+        return False
+
+
+def _corr(a, b) -> float:
+    """Pearson correlation of two tensors' elements, in f64."""
+    a, b = a.double().flatten(), b.double().flatten()
+    a, b = a - a.mean(), b - b.mean()
+    return float((a @ b) / (a.norm() * b.norm()))
+
+
+def _int8_encoder_check(workdir: Path, reports: int = 64) -> dict:
+    """The int8 encoder against the bf16 encoder on the main path's archive
+    (the same weights) and the corpus's first ``reports`` reports at 512
+    tokens: the correlation of the last hidden states over real tokens and
+    of the pooled embeddings.  The hidden states are gated by the JAX
+    package's bound (``INT8_ENCODER_CORR``), and each planted fault must
+    fall below it."""
+    import itertools
+
+    import torch
+
+    from memvul_tpu_torch.archive import load_archive
+    from memvul_tpu_torch.data.readers import MemoryReader
+    from memvul_tpu_torch.evaluate.predict_memory import _int8_twin
+
+    arch = load_archive(workdir / "model.tar.gz", device="cuda")
+    reader = MemoryReader(cve_path=str(workdir / "CVE_dict.json"))
+    texts = [inst["text1"] for inst in
+             itertools.islice(reader.read(str(workdir / "test_project.json"), split="test"), reports)]
+    encoded = arch.tokenizer.encode_many(texts, max_length=512)
+    t = -(-max(len(e) for e in encoded) // 8) * 8
+    ids = torch.zeros(len(encoded), t, dtype=torch.long)
+    mask = torch.zeros(len(encoded), t, dtype=torch.int32)
+    for i, e in enumerate(encoded):
+        ids[i, :len(e)] = torch.tensor(e)
+        mask[i, :len(e)] = 1
+    ids, mask = ids.cuda(), mask.cuda()
+    real = mask.bool()
+    model = arch.model.eval()
+    twin = _int8_twin(model)
+    with torch.no_grad():
+        hidden, pooled = model.bert(ids, mask)[real], model.encode(ids, mask)
+        out = {"reports": len(encoded), "length": t, "real_tokens": int(real.sum()),
+               "hidden_corr": _corr(hidden, twin.bert(ids, mask)[real]),
+               "pooled_corr": _corr(pooled, twin.encode(ids, mask)), "planted": {}}
+        for kind in ("weight_scale", "layout"):
+            with _planted_fault(kind):
+                out["planted"][kind] = _corr(hidden, twin.bert(ids, mask)[real])
+    torch.cuda.synchronize()
+    del arch, model, twin
+    torch.cuda.empty_cache()
+    out["ok"] = bool(out["hidden_corr"] > INT8_ENCODER_CORR
+                     and all(c <= INT8_ENCODER_CORR for c in out["planted"].values()))
+    return out
+
+
+def phase_main_path_int8(workdir: Path, records: dict, bf16_metrics: dict) -> None:
+    """The same corpus with ``configs/test_config_memory_int8.json``
+    verbatim (the encoder's six projections a layer in dynamic int8),
+    against the bf16 run of ``main_path_auto``: the largest |Δ best
+    probability| (gated by the JAX package's drift bound), the decisions
+    that flip at 0.5, and both runs' ``cal_metrics``; then the int8
+    encoder's output against bf16's (``_int8_encoder_check``)."""
+    import numpy as np
+
+    archive, test_path = workdir / "model.tar.gz", workdir / "test_project.json"
+    overrides = (ROOT / "configs" / "test_config_memory_int8.json").read_text()
+    metrics, wall, peak, launches, gemms = _evaluate_counted(archive, test_path,
+                                                             workdir / "eval_int8", overrides)
+    by_shape = _check_path_launches("main_path_int8", metrics, launches)
+    forwards = len(metrics["s_stream_shapes"]) + int(metrics["s_batches"]) + int(metrics["s_anchor_chunks"])
+    if gemms != 6 * 12 * forwards:
+        raise SystemExit(f"main_path_int8 ran {gemms} int8 GEMMs, want 6 x 12 x {forwards}")
+    best = {}
+    for name in ("eval_auto", "eval_int8"):
+        best[name] = {r["Issue_Url"]: max(r["predict"].values())
+                      for r in _result_records(workdir / name / "model_memory_result.json")}
+    urls = sorted(best["eval_auto"])
+    if sorted(best["eval_int8"]) != urls:
+        raise SystemExit("main_path_int8 scored another set of reports than main_path_auto")
+    b16 = np.array([best["eval_auto"][u] for u in urls])
+    i8 = np.array([best["eval_int8"][u] for u in urls])
+    drift = float(np.abs(i8 - b16).max())
+    keys = ["TP", "FN", "TN", "FP", "pd&recall", "prec", "f1", "ap", "auc", "thres"]
+    encoder = _int8_encoder_check(workdir)
+    ok = np.isfinite(i8).all() and drift < INT8_BEST_PROB_DRIFT and encoder["ok"]
+    emit("main_path_int8", ok=bool(ok), config="configs/test_config_memory_int8.json (verbatim)",
+         reports=len(urls), reports_per_s=len(urls) / metrics["s_elapsed_s"],
+         bf16_reports_per_s=len(urls) / bf16_metrics["s_elapsed_s"],
+         scoring_s=metrics["s_elapsed_s"], wall_s=wall, warmup_s=metrics["s_warmup_s"],
+         anchor_encode_s=metrics["s_anchor_encode_s"], bucket_seconds=metrics["s_bucket_seconds"],
+         peak_memory_gib=peak, best_prob_max_abs_diff=drift, drift_bound=INT8_BEST_PROB_DRIFT,
+         encoder_vs_bf16=encoder, encoder_corr_bound=INT8_ENCODER_CORR,
+         decision_flips_at_0_5=int(((i8 >= 0.5) != (b16 >= 0.5)).sum()),
+         best_prob_mean={"bf16": float(b16.mean()), "int8": float(i8.mean())},
+         cal_metrics={"bf16": {k: bf16_metrics[k] for k in keys}, "int8": {k: metrics[k] for k in keys}},
+         launches=launches, flash_launches_by_shape=by_shape, int8_gemms=gemms,
+         card=nvidia_smi_line())
+    if not ok:
+        raise SystemExit(f"main_path_int8: best-probability drift {drift} (bound "
+                         f"{INT8_BEST_PROB_DRIFT}) or the encoder against bf16 {encoder} (bound "
+                         f"{INT8_ENCODER_CORR}, each planted fault at or below it)")
+    records["flash_attention"]["launches"] += launches["flash_attention"]
+    records["anchor_match"]["launches"] += launches["anchor_match"]
+
+
+def phase_int8_linear(batch_rows=(262144, 2048)) -> None:
+    """The dynamic int8 linear (quantize the activations, ``torch._int_mm``,
+    dequantize) against bf16 ``F.linear`` at the encoder's four projections,
+    at a full batch (M = 262144, CUDA events) and a serve pack (M = 2048,
+    the profiler's device time), with each part's time; the ``"int8"``
+    mode (weights quantized once) must give the dynamic mode's bits.
+    Gated: the card's int32 products equal an f64 product of the same
+    codes (sampled rows here, every row at the padded shapes of
+    ``_int_mm_exact_cases``), the error against bf16 stays under
+    ``INT8_LINEAR_REL_ERR``, and each planted fault breaks a gate."""
+    import torch
+    import torch.nn.functional as F
+
+    from memvul_tpu_torch.ops import quant
+
+    INT8_OPS = 1979e12  # dense int8 tensor-core operations a second
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    projections = [("query/key/value (x3 a layer)", 768, 768), ("attention output", 768, 768),
+                   ("intermediate", 768, 3072), ("output", 3072, 768)]
+    rows = []
+    for m in batch_rows:
+        timer = (lambda fn: time_ms(fn, 5)) if m > 16384 else (lambda fn: device_ms(fn, 20))
+        for name, k, n in projections:
+            x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+            layer = {mode: quant.QuantLinear(k, n, mode).to("cuda") for mode in quant.QUANT_MODES}
+            with torch.no_grad():
+                torch.nn.init.normal_(layer["int8_dynamic"].weight, std=0.02, generator=gen)
+                layer["int8"].load_state_dict(layer["int8_dynamic"].state_dict())
+                dyn = layer["int8_dynamic"].quantized(x, torch.bfloat16)
+                pre = layer["int8"].quantized(x, torch.bfloat16)
+                ref = F.linear(x, layer["int8_dynamic"].weight.to(torch.bfloat16),
+                               layer["int8_dynamic"].bias.to(torch.bfloat16))
+                torch.cuda.synchronize()
+                same = bool(torch.equal(dyn, pre))
+                rel = float((dyn.float() - ref.float()).abs().max() / ref.float().abs().max())
+                w = layer["int8"].weight
+                xq, xs = quant.quantize_rowwise(x)
+                wq, ws = layer["int8"].quantized_weight()
+                acc = quant._int_mm(xq, wq)
+                exact = _int_mm_matches_f64(xq, wq, acc)
+                planted = {}
+                for kind in ("weight_scale", "layout"):
+                    with _planted_fault(kind):
+                        bad = layer["int8_dynamic"].quantized(x, torch.bfloat16)
+                        planted[kind] = {
+                            "max_rel_err_vs_bf16": float((bad.float() - ref.float()).abs().max()
+                                                         / ref.float().abs().max()),
+                            "int32_exact": _int_mm_matches_f64(xq, wq, quant._int_mm(xq, wq)),
+                        }
+                    del bad
+                row = {
+                    "projection": name, "m": m, "k": k, "n": n, "int8_modes_same_bits": same,
+                    "int32_exact": exact, "max_rel_err_vs_bf16": rel, "planted_faults": planted,
+                    "bf16_linear_ms": timer(lambda: F.linear(x, w.to(torch.bfloat16),
+                                                             layer["int8"].bias.to(torch.bfloat16))),
+                    "int8_dynamic_ms": timer(lambda: layer["int8_dynamic"].quantized(x, torch.bfloat16)),
+                    "int8_cached_ms": timer(lambda: layer["int8"].quantized(x, torch.bfloat16)),
+                    "quantize_x_ms": timer(lambda: quant.quantize_rowwise(x)),
+                    "int_mm_ms": timer(lambda: quant._int_mm(xq, wq)),
+                    "dequantize_ms": timer(lambda: quant._dequantize(acc, xs, ws, torch.bfloat16)),
+                }
+            flops = 2.0 * m * k * n
+            row["int8_bound_ms"], row["int8_bound_by"] = bound(m * k * 2 + k * n * 4 + m * n * 2,
+                                                               flops, INT8_OPS)
+            row["bf16_bound_ms"], row["bf16_bound_by"] = bound(m * k * 2 + k * n * 4 + m * n * 2,
+                                                               flops, BF16_TENSOR_FLOPS)
+            row["int_mm_tops"] = flops / (row["int_mm_ms"] * 1e-3) / 1e12
+            rows.append(row)
+            del x, layer, dyn, pre, ref, xq, acc
+            torch.cuda.empty_cache()
+            # a planted fault must fail the exactness or the error gate
+            caught = all(not f["int32_exact"] or f["max_rel_err_vs_bf16"] >= INT8_LINEAR_REL_ERR
+                         for f in planted.values())
+            if not (same and exact and rel < INT8_LINEAR_REL_ERR and caught):
+                emit("int8_linear", ok=False, rows=rows)
+                raise SystemExit(f"int8 linear wrong on the card (modes same bits, int32 exact, "
+                                 f"error under {INT8_LINEAR_REL_ERR}, planted faults caught): {row}")
+    cases = _int_mm_exact_cases()
+    if not all(c["int32_exact"] for c in cases):
+        emit("int8_linear", ok=False, rows=rows, padded_cases=cases)
+        raise SystemExit(f"int8 GEMM not exact at a padded shape: {cases}")
+    emit("int8_linear", ok=True, rows=rows, padded_cases=cases, rel_err_bound=INT8_LINEAR_REL_ERR,
+         bound_rates="int8 1979 TOP/s, bf16 989 TFLOP/s, 3.35 TB/s", card=nvidia_smi_line())
+
+
+def _int_mm_matches_f64(xq, wq, acc, rows: int = 128) -> bool:
+    """``acc`` (the card's int32 ``xq @ wq.T``) against an f64 product of
+    the same int8 codes on its first and last ``rows`` rows (all rows when
+    fewer): exact, since every partial sum at these K stays below 2^53."""
+    import torch
+
+    m = xq.shape[0]
+    idx = torch.unique(torch.cat([torch.arange(min(rows, m)), torch.arange(max(m - rows, 0), m)]))
+    idx = idx.to(xq.device)
+    want = xq[idx].double() @ wq.double().t()
+    return bool(torch.equal(acc[idx], want.to(torch.int32)))
+
+
+def _int_mm_exact_cases() -> list:
+    """``quant._int_mm`` at the shapes it pads (M <= 16, K or N not a
+    multiple of 8) and one it does not, against the f64 product."""
+    import torch
+
+    from memvul_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    cases = []
+    for m, k, n in ((1, 768, 2304), (16, 768, 768), (17, 3072, 768), (3, 20, 12), (40, 768, 3072)):
+        a = torch.randint(-127, 128, (m, k), device="cuda", generator=gen, dtype=torch.int8)
+        b_t = torch.randint(-127, 128, (n, k), device="cuda", generator=gen, dtype=torch.int8)
+        cases.append({"m": m, "k": k, "n": n,
+                      "int32_exact": _int_mm_matches_f64(a, b_t, quant._int_mm(a, b_t), rows=m)})
+    return cases
+
+
+def phase_evaluate_resume(workdir: Path, records: dict, reports: int = 96, crash_after: int = 3) -> None:
+    """Restartable scoring on the card: a ``.jsonl`` corpus of ``reports``
+    reports of the main path's corpus plus one malformed line and one
+    over-long record, scored with ``resume``, ``quarantine``,
+    ``attribute_anchors``, ``heartbeat_batches: 1`` and ``score_retries: 1``
+    (a) without interruption and (b) with the batch scoring raising once
+    after ``crash_after`` batches (the kill, caught here), then resumed.
+    The resumed result file must hold the uninterrupted one's bytes, the
+    dead-letter file both bad records, and every record its anchor."""
+    from memvul_tpu_torch.evaluate.predict_memory import SiamesePredictor
+
+    src = json.loads((workdir / "test_project.json").read_text())[:reports]
+    corpus = workdir / "test_resume.jsonl"
+    monster = dict(src[1], Issue_Url=src[1]["Issue_Url"] + "/dump",
+                   Issue_Body="core dump follows " * 60_000)
+    with open(corpus, "w") as f:
+        for i, rec in enumerate(src):
+            f.write(json.dumps(rec) + "\n")
+            if i == 10:
+                f.write("{a torn record\n")
+            if i == 20:
+                f.write(json.dumps(monster) + "\n")
+    # explicit buckets: the auto-bucket sample reads the corpus head without
+    # the quarantine (as the reference's does) and would raise on the torn line
+    overrides = {"evaluation": {"max_length": 512, "buckets": list(HAND_BUCKETS),
+                                "tokens_per_batch": 2048, "aot_warmup": False, "resume": True,
+                                "quarantine": True, "attribute_anchors": True,
+                                "heartbeat_batches": 1, "score_retries": 1}}
+    archive = workdir / "model.tar.gz"
+    whole, whole_s, _, launches, _ = _evaluate_counted(archive, corpus, workdir / "resume_whole",
+                                                       overrides)
+    _check_path_launches("evaluate_resume", whole, launches)
+    real, calls = SiamesePredictor._score, {"n": 0, "kill_at": crash_after + 1}
+
+    def counted(self, *args, **kwargs):
+        # the batch scoring, counted; it raises once, at call kill_at
+        calls["n"] += 1
+        if calls["n"] == calls["kill_at"]:
+            raise RuntimeError("evaluate_resume: injected kill")
+        return real(self, *args, **kwargs)
+
+    SiamesePredictor._score = counted
+    try:
+        try:
+            _evaluate_counted(archive, corpus, workdir / "resume_cut", overrides)
+            raise SystemExit("evaluate_resume: the injected kill did not stop the run")
+        except RuntimeError as e:
+            if "injected kill" not in str(e):
+                raise
+        result = "model_memory_result.json"
+        cut_lines = len((workdir / "resume_cut" / result).read_text().splitlines())
+        calls.update(n=0, kill_at=None)
+        resumed, resumed_s, _, resumed_launches, _ = _evaluate_counted(
+            archive, corpus, workdir / "resume_cut", overrides)
+    finally:
+        SiamesePredictor._score = real
+    a, b = ((workdir / d / result).read_bytes() for d in ("resume_whole", "resume_cut"))
+    dead = [json.loads(line)["reason"] for line in
+            (workdir / "resume_cut" / (result + ".deadletter")).read_text().splitlines()]
+    recs = _result_records(workdir / "resume_cut" / result)
+    checks = {
+        "byte_identical": a == b,
+        "crash_left_a_partial_output": 0 < cut_lines < int(whole["s_batches"]),
+        "resume_scored_only_the_rest": calls["n"] == int(whole["s_batches"]) - cut_lines,
+        "dead_letters": len(dead) == 2 and "JSONDecodeError" in dead[0] and "over-long" in dead[1],
+        "every_record_has_its_anchor": len(recs) == reports and all(
+            isinstance(r.get("anchor"), str) and isinstance(r.get("anchor_index"), int)
+            and r["predict"][r["anchor"]] == max(r["predict"].values()) for r in recs),
+        "metrics_equal": all(resumed[k] == whole[k] for k in ("TP", "FN", "TN", "FP", "f1", "auc")),
+    }
+    ok = all(checks.values())
+    emit("evaluate_resume", ok=ok, checks=checks, reports=reports, batches=whole["s_batches"],
+         committed_before_the_kill=cut_lines, resumed_batches=calls["n"],
+         quarantined=resumed.get("s_num_quarantined"), dead_letter_reasons=dead,
+         whole_wall_s=whole_s, resumed_wall_s=resumed_s, launches=launches,
+         resumed_launches=resumed_launches, card=nvidia_smi_line())
+    if not ok:
+        raise SystemExit(f"evaluate_resume failed: {checks}")
+    for run in (launches, resumed_launches):
+        records["flash_attention"]["launches"] += run["flash_attention"]
+        records["anchor_match"]["launches"] += run["anchor_match"]
+
+
+def phase_serve_cascade(workdir: Path, records: dict, requests: int = 256, threads: int = 16,
+                        split_requests: int = 64) -> None:
+    """``serve_from_archive`` with ``score_impl: "cascade"`` on the main
+    path's archive: the default band [0.3, 0.7], ``requests`` texts from
+    ``threads`` client threads; then ``split_requests`` more through a
+    band cut at the int8 tier's median best probability, so both exits
+    run.  Every rescored response must hold the bucketed strategy's bits
+    for its text at the same shape, every short-circuited one the int8
+    tier's answer, within the int8 drift bound of the full-precision one."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from memvul_tpu_torch.build import serve_from_archive
+    from memvul_tpu_torch.data.synthetic import corpus_texts
+    from memvul_tpu_torch.ops import anchor_match as am
+    from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.serving import InprocessClient
+
+    texts_all = corpus_texts(json.loads((workdir / "test_project.json").read_text()))
+    runs = {}
+    split_cut = None
+    for run, n in (("default_band", requests), ("split_band", split_requests)):
+        texts = texts_all[:n]
+        serving = {"score_impl": "cascade", "default_deadline_ms": 30000}
+        if run == "split_band":
+            serving.update(cascade_low=0.0, cascade_high=split_cut)
+        t0 = time.perf_counter()
+        service = serve_from_archive(workdir / "model.tar.gz", device="cuda",
+                                     overrides={"serving": serving})
+        build_s = time.perf_counter() - t0
+        predictor = service.predictor
+        torch.cuda.synchronize()
+        fa.launches = am.launches = 0
+        client = InprocessClient(service)
+        results = [None] * len(texts)
+
+        def worker(indices):
+            for i in indices:
+                results[i] = client.score(texts[i])
+
+        pool = [threading.Thread(target=worker, args=(range(k, len(texts), threads),))
+                for k in range(threads)]
+        t1 = time.perf_counter()
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join()
+        traffic_s = time.perf_counter() - t1
+        service.drain()
+        launches = {"flash_attention": fa.launches, "anchor_match": am.launches}
+        snap = service.registry.snapshot()
+        counters, hists = snap["counters"], snap["histograms"]
+        bad = [r for r in results if r is None or r.get("status") != "ok"]
+        if bad:
+            raise SystemExit(f"serve_cascade ({run}): {len(bad)} responses not ok, first {bad[0]}")
+        labels = predictor.anchor_labels
+        got = np.array([[r["predict"][a] for a in labels] for r in results], np.float32)
+        fp32 = predictor.score_texts(texts, impl="bucketed")
+        int8 = predictor.score_texts(texts, impl="int8")
+        low, high = predictor.cascade_band
+        in_band = [bool(low <= b <= high) for b in int8.max(axis=1)]
+        rescored = [i for i, x in enumerate(in_band) if x]
+        short = [i for i, x in enumerate(in_band) if not x]
+        checks = {
+            "rescored_bitwise_eq_bucketed": all(np.array_equal(got[i], fp32[i]) for i in rescored),
+            "shortcircuit_within_drift_of_fp32": all(
+                float(np.abs(got[i].max() - fp32[i].max())) < INT8_BEST_PROB_DRIFT for i in short),
+            "counters_match_the_band": counters.get("serve.cascade_rescored", 0) == len(rescored)
+            and counters.get("serve.cascade_shortcircuit", 0) == len(short),
+            "launches": launches["flash_attention"] == 12 * counters["serve.batches"]
+            and launches["anchor_match"] == counters["serve.batches"],
+        }
+        if run == "split_band":
+            checks["both_exits_ran"] = bool(rescored) and bool(short)
+        latency = hists.get("serve.latency_s", {})
+        runs[run] = {
+            "ok": all(checks.values()), "checks": checks, "band": [low, high],
+            "requests": len(texts), "client_threads": threads, "build_and_warmup_s": build_s,
+            "traffic_s": traffic_s, "requests_per_s": len(texts) / traffic_s,
+            "latency_p50_ms": latency.get("p50", 0.0) * 1e3,
+            "latency_p99_ms": latency.get("p99", 0.0) * 1e3,
+            "shortcircuit": counters.get("serve.cascade_shortcircuit", 0),
+            "rescored": counters.get("serve.cascade_rescored", 0),
+            "device_batches": counters["serve.batches"],
+            "shortcircuit_bitwise_eq_int8_offline": all(np.array_equal(got[i], int8[i]) for i in short),
+            "shortcircuit_max_abs_diff_vs_fp32": max(
+                [float(np.abs(got[i] - fp32[i]).max()) for i in short], default=0.0),
+            "launches": launches,
+        }
+        records["flash_attention"]["launches"] += launches["flash_attention"]
+        records["anchor_match"]["launches"] += launches["anchor_match"]
+        if split_cut is None:
+            # the next run's band: up to the int8 tier's median best probability
+            split_cut = float(np.median(predictor.score_texts(
+                texts_all[:split_requests], impl="int8").max(axis=1)))
+        del service, predictor
+        torch.cuda.empty_cache()
+        if not runs[run]["ok"]:
+            emit("serve_cascade", ok=False, runs=runs, card=nvidia_smi_line())
+            raise SystemExit(f"serve_cascade ({run}) failed: {runs[run]['checks']}")
+    emit("serve_cascade", ok=True, runs=runs, card=nvidia_smi_line())
 
 
 # bf16 parity of the packed serve path against the bucketed path on the
@@ -1706,11 +2387,12 @@ BF16_HIDDEN_REL = 0.25
 BF16_PROBS_ABS = 1e-3
 
 
-def _small_model(impl: str, dtype):
+def _small_model(impl: str, dtype, last_layer_only: bool = True):
     """The reference phases' small memory model (2 layers, 2 heads of 64)
     from a seed.  In bf16 the attention weights are scaled up, so each
     softmax is peaked and the attention branch weighs in the residual
-    stream."""
+    stream.  ``last_layer_only=False`` mixes the layers with ScalarMix,
+    its weights and gamma drawn away from their init."""
     import torch
 
     from memvul_tpu_torch.models.bert import BertConfig
@@ -1719,10 +2401,14 @@ def _small_model(impl: str, dtype):
     cfg = BertConfig(
         vocab_size=500, hidden_size=128, num_layers=2, num_heads=2,
         intermediate_size=256, max_position_embeddings=320, attention_impl=impl,
-        dtype=dtype,
+        dtype=dtype, last_layer_only=last_layer_only,
     )
     torch.manual_seed(0)
     model = MemoryModel(cfg, header_dim=64).eval()
+    if not last_layer_only:
+        with torch.no_grad():
+            model.bert.scalar_mix.scalar_weights.copy_(torch.tensor([0.7, -0.4]))
+            model.bert.scalar_mix.gamma.fill_(1.3)
     if dtype == torch.bfloat16:
         with torch.no_grad():
             for layer in model.bert.encoder.layer:
@@ -1738,7 +2424,8 @@ def _small_model(impl: str, dtype):
 def phase_main_path_reference() -> None:
     """A small memory model scored on the card (kernels) and on the CPU
     (plain versions), which must agree: in f32 through both attention impls
-    (per-anchor probabilities to rtol 1e-4 / atol 1e-5), and in bf16 at head
+    and with ScalarMix over its layers (per-anchor probabilities, and the
+    mixed hidden states, to rtol 1e-4 / atol 1e-5), and in bf16 at head
     dim 64 through flash, the main path's tensor-core kernel, with the
     attention weights scaled up so each softmax is peaked and the attention
     branch weighs in the residual stream (the final hidden states and the
@@ -1747,6 +2434,7 @@ def phase_main_path_reference() -> None:
     import torch
 
     from memvul_tpu_torch.models.memory import anchor_probs
+    from memvul_tpu_torch.ops.attention import mask_to_bias
 
     rng = np.random.default_rng(0)
     ids = torch.as_tensor(rng.integers(5, 500, size=(9, 300)))
@@ -1758,9 +2446,9 @@ def phase_main_path_reference() -> None:
     live = mask.bool()
 
     results = {}
-    for impl, dtype in (("flash", torch.float32), ("xla", torch.float32),
-                        ("flash", torch.bfloat16)):
-        model = _small_model(impl, dtype)
+    for impl, dtype, last_only in (("flash", torch.float32, True), ("xla", torch.float32, True),
+                                   ("flash", torch.float32, False), ("flash", torch.bfloat16, True)):
+        model = _small_model(impl, dtype, last_only)
         out, hidden = {}, {}
         for device in ("cpu", "cuda"):
             m = model.to(device)
@@ -1769,10 +2457,22 @@ def phase_main_path_reference() -> None:
                 u = m.encode(ids.to(device), mask.to(device))
                 out[device] = anchor_probs(m.match_anchors(u, bank)).cpu()
                 hidden[device] = m.bert(ids.to(device), mask.to(device)).cpu().float()[live]
-        name = f"{impl}_{str(dtype).split('.')[-1]}"
+        name = f"{impl}_{str(dtype).split('.')[-1]}" + ("" if last_only else "_scalar_mix")
         if dtype == torch.float32:
             err, ok = max_err(out["cuda"], out["cpu"], 1e-5, 1e-4)
             results[name] = {"max_abs_err": err, "ok": ok}
+            if not last_only:
+                # the mixed hidden states, and the check's power: the last
+                # layer alone must differ from the mix
+                h_err, h_ok = max_err(hidden["cuda"], hidden["cpu"], 1e-5, 1e-4)
+                with torch.no_grad():
+                    last = model.to("cpu").bert.encoder(
+                        model.bert.embeddings(ids, torch.zeros_like(ids)),
+                        mask_to_bias(mask, dtype))[-1].float()[live]
+                results[name].update(hidden_max_abs_err=h_err,
+                                     last_layer_vs_mix=max_err(last, hidden["cpu"], 0.0, 0.0)[0])
+                ok = ok and h_ok and results[name]["last_layer_vs_mix"] > 1e-2
+                results[name]["ok"] = ok
         else:
             err, _ = max_err(out["cuda"], out["cpu"], 0.0, 0.0)
             h_err, _ = max_err(hidden["cuda"], hidden["cpu"], 0.0, 0.0)
@@ -1903,6 +2603,14 @@ def main() -> int:
         phase_main_path(Path(tmp), records)
         phase_serve_path(Path(tmp), records)
         emit_anchor_shapes(records)
+        # the evaluate paths of the reference's override files, the int8
+        # tier, restartable scoring and the cascade (their launches add to
+        # the kernels' counts after the per-shape checks above)
+        bf16_auto = phase_main_path_auto(Path(tmp), records)
+        phase_main_path_int8(Path(tmp), records, bf16_auto)
+        phase_int8_linear()
+        phase_evaluate_resume(Path(tmp), records)
+        phase_serve_cascade(Path(tmp), records)
         phase_serve_identity(Path(tmp))
         phase_profile(Path(tmp) / "model.tar.gz")
         phase_train_path(Path(tmp), records)

@@ -2,6 +2,7 @@
 
     python -m memvul_tpu_torch train configs/config_memory.json -s out/
     python -m memvul_tpu_torch evaluate out/model.tar.gz data/test_project.json -o eval/
+    python -m memvul_tpu_torch evaluate ... --overrides "$(cat configs/test_config_memory.json)"
     python -m memvul_tpu_torch evaluate ... --overrides '{"evaluation": {"batch_size": 64}}' --device cpu
     python -m memvul_tpu_torch serve out/model.tar.gz --port 8341 \\
         --overrides '{"serving": {"score_impl": "continuous"}}'
@@ -43,8 +44,8 @@ def cmd_evaluate(args) -> int:
 
     metrics = evaluate_from_archive(
         args.archive, args.test_path, args.out_dir,
-        overrides=args.overrides, golden_file=args.golden, name=args.name,
-        thres=args.thres, device=args.device,
+        overrides=args.overrides, golden_file=args.golden_file, name=args.name,
+        thres=args.threshold, device=args.device,
     )
     print(json.dumps(metrics, default=float))
     return 0
@@ -89,7 +90,8 @@ def main(argv=None) -> int:
     tr = sub.add_parser("train", help="train the memory model a config describes")
     tr.add_argument("config", help="training config (JSON / Jsonnet subset)")
     tr.add_argument("-s", "--serialization-dir", required=True)
-    tr.add_argument("--overrides", default=None, help="JSON (Jsonnet subset) config overrides")
+    tr.add_argument("-o", "--overrides", default=None,
+                    help="JSON (Jsonnet subset) config overrides")
     tr.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     tr.set_defaults(fn=cmd_train)
     ev = sub.add_parser("evaluate", help="score a corpus with an archived memory model")
@@ -97,9 +99,10 @@ def main(argv=None) -> int:
     ev.add_argument("test_path", help="corpus file (.json array or .jsonl)")
     ev.add_argument("-o", "--out-dir", required=True)
     ev.add_argument("--overrides", default=None, help="JSON (Jsonnet subset) config overrides")
-    ev.add_argument("--golden", default=None, help="anchor file (default: the config's anchor_path)")
+    ev.add_argument("--golden-file", "--golden", dest="golden_file", default=None,
+                    help="anchor file (default: the config's anchor_path)")
     ev.add_argument("--name", default=None, help="output file prefix (default: the model type)")
-    ev.add_argument("--thres", type=float, default=0.5)
+    ev.add_argument("--threshold", "--thres", dest="threshold", type=float, default=0.5)
     ev.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ev.set_defaults(fn=cmd_evaluate)
     sv = sub.add_parser("serve", help="online scoring service over HTTP")

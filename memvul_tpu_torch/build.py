@@ -194,6 +194,20 @@ def train_from_config(
     return result
 
 
+def _auto_buckets_for_corpus(
+    reader, tokenizer, test_path, max_length: int, n_buckets: int = 8, sample: int = 2048,
+):
+    """The token lengths of the corpus head (``sample`` reports) → the
+    padding-minimising bucket boundaries (``data.batching.auto_buckets``)."""
+    import itertools
+
+    from .data.batching import auto_buckets
+
+    texts = [inst["text1"] for inst in itertools.islice(reader.read(str(test_path), split="test"), sample)]
+    lengths = [len(ids) for ids in tokenizer.encode_many(texts, max_length=max_length)]
+    return auto_buckets(lengths, max_length, n_buckets=n_buckets)
+
+
 def evaluate_from_archive(
     archive_path: Union[str, Path],
     test_path: Union[str, Path],
@@ -205,7 +219,11 @@ def evaluate_from_archive(
     device: Union[str, torch.device] = "cuda",
 ) -> Dict[str, float]:
     """Load the archive with overrides, score the test corpus on
-    ``device``, write ``{name}_result.json`` + ``{name}_metric_all.json``."""
+    ``device``, write ``{name}_result.json`` + ``{name}_metric_all.json``.
+    Every key of the ``evaluation`` section is honoured
+    (``config.EVALUATION_DEFAULTS``) or raises
+    (``config.EVALUATION_UNPORTED``); ``buckets: "auto"`` derives
+    ``n_buckets`` boundaries from a 2048-report sample of the corpus."""
     from .archive import load_archive
     from .config import evaluation_config
     from .evaluate.predict_memory import test_siamese
@@ -230,8 +248,11 @@ def evaluate_from_archive(
         max_length = model_positions
     buckets = eval_cfg["buckets"]
     if buckets == "auto":
-        raise NotImplementedError('evaluation.buckets "auto" is not ported yet')
-    if buckets is not None:
+        buckets = _auto_buckets_for_corpus(
+            reader, arch.tokenizer, test_path, max_length, n_buckets=int(eval_cfg["n_buckets"]),
+        )
+        logger.info("auto buckets for %s: %s", test_path, buckets)
+    elif buckets is not None:
         buckets = [int(b) for b in buckets]
     tokens_per_batch = eval_cfg["tokens_per_batch"]
     golden = golden_file or (arch.config.get("dataset_reader") or {}).get("anchor_path")
@@ -253,6 +274,12 @@ def evaluate_from_archive(
         inflight=int(eval_cfg["inflight"]),
         anchor_match_impl=eval_cfg["anchor_match_impl"],
         device=device,
+        aot_warmup=bool(eval_cfg["aot_warmup"]),
+        resume=bool(eval_cfg["resume"]),
+        quarantine=eval_cfg["quarantine"],
+        heartbeat_batches=int(eval_cfg["heartbeat_batches"]),
+        score_retries=int(eval_cfg["score_retries"]),
+        attribute_anchors=bool(eval_cfg["attribute_anchors"]),
     )
 
 
@@ -321,6 +348,10 @@ def serve_from_archive(
         score_impl=score_impl,
         token_budget=None if token_budget is None else int(token_budget),
         max_rows_per_pack=int(serve_cfg["max_batch"] if max_rows is None else max_rows),
+        # the cascade's first tier is the int8 twin
+        encoder_precision="int8" if score_impl == "cascade" else "fp32",
+        cascade_low=float(serve_cfg["cascade_low"]),
+        cascade_high=float(serve_cfg["cascade_high"]),
     )
     predictor.encode_anchors(reader.read_anchors(str(golden)))
     shapes = predictor.warmup_compile()

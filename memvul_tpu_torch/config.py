@@ -238,9 +238,13 @@ EVALUATION_DEFAULTS: Dict[str, Any] = {
     # (docs/anchor_bank.md) — off so the default output format stays
     # byte-stable with the reference's
     "attribute_anchors": False,
-    # sharded corpus scoring (distributed/, docs/full_corpus.md) — the
-    # score-corpus CLI reads these; shards=1 keeps the single-worker
-    # degenerate case the default
+}
+
+# The JAX package's evaluation keys for sharded corpus scoring (its
+# ``score-corpus`` CLI, the multi-device slice), with their defaults.
+# Leaving one at its default is fine; setting it to anything else raises,
+# so a setting is never silently ignored.
+EVALUATION_UNPORTED: Dict[str, Any] = {
     "shards": 1,               # supervised worker subprocesses
     "max_shard_attempts": 3,   # launches per shard before quarantine
     "shard_stall_timeout_s": 120.0,  # heartbeat age that counts as wedged
@@ -272,9 +276,32 @@ def _section_over_defaults(
     return out
 
 
+def _refuse_unported(section: Dict[str, Any], unported: Dict[str, Any], name: str,
+                     exempt: tuple = ()) -> None:
+    """Raise ValueError naming every key of ``unported`` that ``section``
+    sets to anything but its default."""
+    changed = sorted(
+        key for key, default in unported.items()
+        if key in section and section[key] is not None and section[key] != default
+        and key not in exempt
+    )
+    if changed:
+        raise ValueError(
+            f"{name} keys {changed} name features the port does not have yet "
+            "(ROADMAP.md); leave them at their defaults"
+        )
+
+
 def evaluation_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
-    """``cfg["evaluation"]`` merged over :data:`EVALUATION_DEFAULTS`."""
-    return _section_over_defaults(cfg, "evaluation", EVALUATION_DEFAULTS)
+    """``cfg["evaluation"]`` merged over :data:`EVALUATION_DEFAULTS`.
+    Raises ValueError when a key of :data:`EVALUATION_UNPORTED` is set to
+    anything but its default."""
+    section = dict((cfg or {}).get("evaluation") or {})
+    _refuse_unported(section, EVALUATION_UNPORTED, "evaluation")
+    return _section_over_defaults(
+        {"evaluation": {k: v for k, v in section.items() if k not in EVALUATION_UNPORTED}},
+        "evaluation", EVALUATION_DEFAULTS,
+    )
 
 
 # The ``serving`` section's keys that the port honours, with the JAX
@@ -288,7 +315,11 @@ SERVING_DEFAULTS: Dict[str, Any] = {
     "retries": 2,            # transient batch retry attempts (0 = off)
     "max_length": 512,       # token cap (clamped to the model's positions)
     "buckets": None,         # explicit length buckets (bucketed impl)
-    "score_impl": "bucketed",    # "bucketed" | "ragged" | "continuous"
+    "score_impl": "bucketed",    # "bucketed" | "ragged" | "continuous" | "cascade"
+    # the cascade's [low, high] band of best-anchor probability (inclusive):
+    # rows inside are rescored by the full-precision tier
+    "cascade_low": 0.3,
+    "cascade_high": 0.7,
     "token_budget": None,        # pack size (None → 4 × max_length)
     "max_rows_per_pack": None,   # rows per pack (None → max_batch)
     "prefix_share": False,   # continuous packs share exact-duplicate segments
@@ -300,8 +331,6 @@ SERVING_DEFAULTS: Dict[str, Any] = {
 # with their defaults.  Leaving one at its default is fine; setting it to
 # anything else raises, so a setting is never silently ignored.
 SERVING_UNPORTED: Dict[str, Any] = {
-    "cascade_low": 0.3,
-    "cascade_high": 0.7,
     "replicas": 1,
     "heartbeat_timeout_s": 10.0,
     "max_batch_errors": 3,
@@ -345,16 +374,7 @@ def serving_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     left on, it only logs that the SLO monitor is not ported; set off, it
     asks for what the port does."""
     section = dict((cfg or {}).get("serving") or {})
-    changed = sorted(
-        key for key, default in SERVING_UNPORTED.items()
-        if key in section and section[key] is not None and section[key] != default
-        and key != "slo_enabled"
-    )
-    if changed:
-        raise ValueError(
-            f"serving keys {changed} name features the port does not have yet "
-            "(ROADMAP.md); leave them at their defaults"
-        )
+    _refuse_unported(section, SERVING_UNPORTED, "serving", exempt=("slo_enabled",))
     if section.get("slo_enabled", True):
         logging.getLogger(__name__).info("serving.slo_enabled: the SLO monitor is not ported; no SLO gauges")
     return _section_over_defaults(

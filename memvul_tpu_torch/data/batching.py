@@ -329,6 +329,64 @@ def bucket_batch_sizes(
     return sizes
 
 
+def auto_buckets(
+    lengths: Sequence[int],
+    max_length: int,
+    n_buckets: int = 4,
+    align: int = 8,
+) -> Tuple[int, ...]:
+    """Bucket boundaries that minimise the padded tokens of a sample of
+    sequence lengths: an exact interval-partition DP over the lengths
+    rounded up to ``align``, at most ``n_buckets`` boundaries (at least
+    one), ``max_length`` always the last."""
+    if not len(lengths):
+        return (max_length,)
+    ls = np.minimum(np.asarray(lengths, np.int64), max_length)
+    # candidate boundaries with (count, length sum) each: the DP runs over
+    # at most max_length / align values whatever the sample's size
+    aligned = np.minimum(max_length, -(-ls // align) * align)
+    values, inverse = np.unique(aligned, return_inverse=True)
+    counts = np.bincount(inverse)
+    sums = np.bincount(inverse, weights=ls.astype(np.float64))
+    if int(values[-1]) < max_length:
+        # the cap is a boundary: a zero-count top candidate that the DP may
+        # also use to cover stragglers, counted against n_buckets
+        values = np.concatenate([values, [max_length]])
+        counts = np.concatenate([counts, [0]])
+        sums = np.concatenate([sums, [0.0]])
+    m = len(values)
+    n_pre = np.concatenate([[0], np.cumsum(counts)])
+    s_pre = np.concatenate([[0.0], np.cumsum(sums)])
+
+    def cost(i: int, j: int) -> float:
+        # one bucket over candidates (i, j]: each sequence pads to values[j-1]
+        return float(values[j - 1]) * (n_pre[j] - n_pre[i]) - (s_pre[j] - s_pre[i])
+
+    inf = float("inf")
+    k_max = max(1, n_buckets)
+    f = [[inf] * (m + 1) for _ in range(k_max + 1)]
+    arg = [[0] * (m + 1) for _ in range(k_max + 1)]
+    f[0][0] = 0.0
+    for k in range(1, k_max + 1):
+        for j in range(1, m + 1):
+            best, best_i = inf, 0
+            for i in range(j):
+                if f[k - 1][i] == inf:
+                    continue
+                c = f[k - 1][i] + cost(i, j)
+                if c < best:
+                    best, best_i = c, i
+            f[k][j] = best
+            arg[k][j] = best_i
+    k_best = min(range(1, k_max + 1), key=lambda k: f[k][m])
+    bounds = []
+    j = m
+    for k in range(k_best, 0, -1):
+        bounds.append(int(values[j - 1]))
+        j = arg[k][j]
+    return tuple(sorted(set(bounds) | {max_length}))
+
+
 def pow2_buckets(max_length: int, floor: int = 64) -> Tuple[int, ...]:
     """Powers of two from ``floor`` up, capped by (and always including)
     ``max_length``: the default training bucket grid."""

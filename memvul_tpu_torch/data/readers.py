@@ -14,8 +14,12 @@ survives with probability ``sample_neg`` and pairs with ``diff`` random
 anchors.  The pair stream draws from one ``random.Random`` in the JAX
 reader's order, so both readers give the same pairs for the same seed.
 The split comes from an explicit ``split=`` or, failing that, from the
-file name ("golden"/"test_"/"validation_").  Fault points and quarantine
-belong to a later slice.
+file name ("golden"/"test_"/"validation_").  Scoring streams take a
+``quarantine`` (:class:`~memvul_tpu_torch.resilience.journal.DeadLetter`):
+a record that does not parse, fails to prepare or is over-long is
+dead-lettered with its reason and the stream goes on; without one such a
+record raises, and training keeps that fail-fast rule.  The chaos fault
+points belong to the ops-plane slice.
 """
 
 from __future__ import annotations
@@ -46,14 +50,23 @@ def detect_split(file_path: str) -> str:
     return TRAIN
 
 
-def _iter_corpus(file_path: str) -> Iterator[Dict]:
+def _iter_corpus(file_path: str, quarantine=None) -> Iterator[Dict]:
     """Raw sample dicts: ``.jsonl`` streams one record per line, a ``.json``
-    array loads at once."""
+    array loads at once.  With a ``quarantine`` a ``.jsonl`` line that does
+    not parse is dead-lettered and skipped; without one it raises."""
     if str(file_path).endswith(".jsonl"):
         with open(file_path, encoding="utf-8") as f:
-            for line in f:
-                if line.strip():
-                    yield json.loads(line)
+            for lineno, line in enumerate(f):
+                if not line.strip():
+                    continue
+                try:
+                    record = json.loads(line)
+                except ValueError as e:
+                    if quarantine is None:
+                        raise
+                    quarantine.record(f"line {lineno}: {type(e).__name__}: {e}", raw=line)
+                    continue
+                yield record
     else:
         yield from json.loads(Path(file_path).read_text())
 
@@ -127,7 +140,9 @@ class MemoryReader:
         self._grouped_cache[file_path] = grouped
         return grouped
 
-    def read(self, file_path: str, split: Optional[str] = None) -> Iterator[Dict]:
+    def read(
+        self, file_path: str, split: Optional[str] = None, quarantine=None
+    ) -> Iterator[Dict]:
         split = split or detect_split(file_path)
         if split == GOLDEN:
             yield from self.read_anchors(file_path)
@@ -145,13 +160,32 @@ class MemoryReader:
                 s for bucket in self._grouped_cache[file_path].values() for s in bucket
             )
         else:
-            samples = (
-                p for p in map(self._prepare_sample, _iter_corpus(file_path)) if p is not None
-            )
+            samples = self._prepared_stream(file_path, quarantine)
         for s in samples:
+            if quarantine is not None and len(s.get("text") or "") > quarantine.max_text_chars:
+                quarantine.record(
+                    f"over-long text ({len(s['text'])} chars > {quarantine.max_text_chars} cap)",
+                    meta={"Issue_Url": s.get("Issue_Url")},
+                )
+                continue
             count += 1
             yield self._eval_instance(s, mode)
         logger.info("%s: %d evaluation instances", file_path, count)
+
+    def _prepared_stream(self, file_path: str, quarantine) -> Iterator[Dict]:
+        for s in _iter_corpus(file_path, quarantine=quarantine):
+            try:
+                prepared = self._prepare_sample(s)
+            except Exception as e:
+                if quarantine is None:
+                    raise
+                quarantine.record(
+                    f"prepare failed: {type(e).__name__}: {e}",
+                    meta={"Issue_Url": s.get("Issue_Url")} if isinstance(s, dict) else None,
+                )
+                continue
+            if prepared is not None:
+                yield prepared
 
     def read_anchors(self, anchor_path: Optional[str] = None) -> Iterator[Dict]:
         anchors = (

@@ -14,12 +14,27 @@ score_block`), ``"ragged"`` and ``"continuous"`` pack them into one
 ``[1, token_budget]`` row scored through the segment-masked attention
 kernel (:meth:`SiamesePredictor.score_ragged_sample`).
 
+``encoder_precision="int8"`` adds an int8 twin of the model that shares
+its weights (``BertConfig.quant="int8"``, the projections' int8 codes
+cached once); ``score_impl="cascade"`` serves through it first and
+rescores the rows whose best probability lies in the cascade band on the
+full-precision model (:class:`~memvul_tpu_torch.serving.dispatch.
+CascadeDispatcher`).
+
+A corpus pass can be made restartable: ``resume`` keeps a journal of
+committed output lines (:mod:`memvul_tpu_torch.resilience.journal`) and a
+restarted run skips what it covers, ending with the same bytes as an
+uninterrupted run; ``quarantine`` dead-letters records the stream cannot
+score; ``retry_policy`` retries a batch's transient failures (never
+rerouting it to a plain version); ``heartbeat_batches`` logs progress;
+``attribute_anchors`` adds the winning anchor to every output record.
+The counters go to the predictor's ``telemetry`` registry.
+
 PyTorch runs eagerly, so the JAX package's AOT compile, its trace
 counter and its program registry have no counterpart here;
 :meth:`SiamesePredictor.warmup_bank_shapes` instead runs each shape once,
 which builds the kernel library and launches the kernels before the
-first request.  Resume/journal/quarantine, meshes and the int8 cascade
-belong to later slices.
+first request (``aot_warmup``).  Meshes belong to a later slice.
 """
 
 from __future__ import annotations
@@ -50,6 +65,9 @@ from ..data.batching import (
 )
 from ..data.readers import MemoryReader
 from ..models.memory import MemoryModel, anchor_probs
+from ..resilience.journal import DeadLetter, ScoreJournal
+from ..resilience.retry import RetryPolicy, exception_text
+from ..telemetry import Registry
 from .measure import cal_metrics
 from .metrics import SiameseMeasure
 
@@ -75,17 +93,33 @@ class SiamesePredictor:
         score_impl: str = "bucketed",
         token_budget: Optional[int] = None,
         max_rows_per_pack: Optional[int] = None,
+        encoder_precision: str = "fp32",
+        cascade_low: float = 0.3,
+        cascade_high: float = 0.7,
     ) -> None:
         if score_impl not in ("bucketed", "ragged", "continuous", "cascade"):
             raise ValueError(
                 f"score_impl must be 'bucketed', 'ragged', 'continuous' or "
                 f"'cascade', got {score_impl!r}"
             )
-        if score_impl == "cascade":
-            raise NotImplementedError(
-                "score_impl='cascade' needs the int8 tier, which is not ported "
-                "yet (the int8 slice in ROADMAP.md)"
+        if encoder_precision not in ("fp32", "int8"):
+            raise ValueError(f"encoder_precision must be 'fp32' or 'int8', got {encoder_precision!r}")
+        if score_impl == "cascade" and encoder_precision != "int8":
+            raise ValueError("score_impl='cascade' needs the int8 tier: pass encoder_precision='int8'")
+        if encoder_precision == "int8" and score_impl in ("ragged", "continuous"):
+            raise ValueError(
+                f"encoder_precision='int8' scores bucket blocks; score_impl={score_impl!r} "
+                "is not cascadable"
             )
+        if not 0.0 <= cascade_low <= cascade_high <= 1.0:
+            raise ValueError(
+                f"cascade band must satisfy 0 <= low <= high <= 1, got "
+                f"[{cascade_low!r}, {cascade_high!r}]"
+            )
+        # rows whose best probability lies in [low, high] (inclusive) are
+        # rescored on the full-precision model; the rest keep the int8 score
+        self.cascade_band = (float(cascade_low), float(cascade_high))
+        self.encoder_precision = encoder_precision
         if token_budget is None:
             token_budget = 4 * max_length
         if token_budget < max_length:
@@ -116,6 +150,8 @@ class SiamesePredictor:
         # what the last run did: anchor chunks and seconds, scored batches,
         # and device seconds per bucket length
         self.stats: Dict = {}
+        self.telemetry = Registry()
+        self.int8_model = _int8_twin(self.model) if encoder_precision == "int8" else None
 
     def _to_device(self, block: Dict[str, np.ndarray]):
         return (
@@ -155,10 +191,12 @@ class SiamesePredictor:
     # -- phase 2: streaming scoring ------------------------------------------
 
     @torch.no_grad()
-    def _score(self, block: Dict[str, np.ndarray], bank: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _score(
+        self, block: Dict[str, np.ndarray], bank: Optional[torch.Tensor] = None, model=None
+    ) -> torch.Tensor:
         ids, mask = self._to_device(block)
         bank = self.anchor_bank if bank is None else bank
-        logits = self.model(
+        logits = (model or self.model)(
             {"input_ids": ids, "attention_mask": mask}, anchors=bank,
             anchor_impl=self.anchor_match_impl,
         )
@@ -173,6 +211,17 @@ class SiamesePredictor:
     def score_block(self, block: Dict[str, np.ndarray], bank: torch.Tensor) -> np.ndarray:
         """One padded (rows, length) block × bank → probabilities [rows, A]."""
         return self._score(block, bank).cpu().numpy()
+
+    def score_block_int8(self, block: Dict[str, np.ndarray], bank: torch.Tensor) -> np.ndarray:
+        """:meth:`score_block` on the int8 tier (``encoder_precision="int8"``)."""
+        return self._score(block, bank, self._require_int8()).cpu().numpy()
+
+    def _require_int8(self) -> MemoryModel:
+        if self.int8_model is None:
+            raise RuntimeError(
+                "the int8 tier needs a predictor built with encoder_precision='int8'"
+            )
+        return self.int8_model
 
     @torch.no_grad()
     def score_ragged_sample(self, sample: Dict[str, np.ndarray], bank: torch.Tensor) -> np.ndarray:
@@ -215,13 +264,15 @@ class SiamesePredictor:
             )
             return 1
         shapes = self.stream_shapes()
-        for rows, length in shapes:
-            self.score_block(
-                {"input_ids": np.zeros((rows, length), np.int32),
-                 "attention_mask": np.ones((rows, length), np.int32)},
-                bank,
-            )
-        return len(shapes)
+        tiers = [self.score_block] + ([self.score_block_int8] if self.int8_model else [])
+        for score in tiers:
+            for rows, length in shapes:
+                score(
+                    {"input_ids": np.zeros((rows, length), np.int32),
+                     "attention_mask": np.ones((rows, length), np.int32)},
+                    bank,
+                )
+        return len(shapes) * len(tiers)
 
     def warmup_compile(self) -> int:
         """:meth:`warmup_bank_shapes` against the encoded bank."""
@@ -232,16 +283,31 @@ class SiamesePredictor:
     def score_texts(self, texts: Sequence[str], impl: Optional[str] = None) -> np.ndarray:
         """Score raw texts against the anchor bank the way the service
         would: packed into ``[1, token_budget]`` rows on the packed path,
-        else grouped into bucket blocks (``impl="bucketed"`` forces those).
-        Returns ``[len(texts), n_anchors]`` probabilities."""
-        if impl not in (None, "bucketed"):
-            raise ValueError(f"impl must be None or 'bucketed' (int8 is not ported), got {impl!r}")
+        else grouped into bucket blocks (``impl="bucketed"`` forces those,
+        on the full-precision model even for ``score_impl="cascade"``).
+        ``impl="int8"`` scores the blocks on the int8 tier; ``"cascade"``
+        applies the serving rule offline: int8 everywhere, then the rows
+        whose best probability lies in ``cascade_band`` (inclusive) rescored
+        at full precision.  Returns ``[len(texts), n_anchors]``
+        probabilities."""
+        if impl not in (None, "bucketed", "int8", "cascade"):
+            raise ValueError(f"impl must be None, 'bucketed', 'int8' or 'cascade', got {impl!r}")
         bank, n = self.anchor_bank, self.n_anchors
         if bank is None:
             raise RuntimeError("call encode_anchors() first")
+        int8 = self._require_int8() if impl in ("int8", "cascade") else None
         if not texts:
             return np.zeros((0, n), np.float32)
         seqs = self.encoder.encode_many(list(texts))
+        if int8 is not None:
+            out = self._score_seqs_bucketed(seqs, bank, n, int8)
+            if impl == "cascade":
+                low, high = self.cascade_band
+                best = out.max(axis=1) if n else np.zeros(len(seqs))
+                band = [i for i in range(len(seqs)) if low <= best[i] <= high]
+                if band:
+                    out[band] = self._score_seqs_bucketed([seqs[i] for i in band], bank, n)
+            return out
         if impl is not None or not self.uses_ragged_program:
             return self._score_seqs_bucketed(seqs, bank, n)
         out = np.zeros((len(texts), n), np.float32)
@@ -251,10 +317,11 @@ class SiamesePredictor:
             out[pack] = self.score_ragged_sample(sample, bank)[: len(pack), :n]
         return out
 
-    def _score_seqs_bucketed(self, seqs, bank: torch.Tensor, n: int) -> np.ndarray:
-        """Encoded sequences through the bucket blocks: grouped by the
-        smallest covering length, chunked at its row count, in the
-        service's ``_pad_block`` layout."""
+    def _score_seqs_bucketed(self, seqs, bank: torch.Tensor, n: int, model=None) -> np.ndarray:
+        """Encoded sequences through the bucket blocks (on ``model``, the
+        full-precision one by default): grouped by the smallest covering
+        length, chunked at its row count, in the service's ``_pad_block``
+        layout."""
         out = np.zeros((len(seqs), n), np.float32)
         rows_by_length = {length: rows for rows, length in self.stream_shapes()}
         lengths = sorted(rows_by_length)
@@ -268,15 +335,27 @@ class SiamesePredictor:
             for start in range(0, len(indices), rows):
                 chunk = indices[start : start + rows]
                 block = _pad_block([seqs[i] for i in chunk], rows, self.encoder.pad_id, length)
-                out[chunk] = self.score_block(block, bank)[: len(chunk), :n]
+                out[chunk] = self._score(block, bank, model).cpu().numpy()[: len(chunk), :n]
         return out
 
     def score_instances(
-        self, instances: Iterable[Dict], inflight: int = 2, prefetch_depth: int = 4
+        self,
+        instances: Iterable[Dict],
+        inflight: int = 2,
+        prefetch_depth: int = 4,
+        retry_policy: Optional[RetryPolicy] = None,
+        with_anchors: bool = False,
     ) -> Iterator[Tuple[np.ndarray, List[Dict]]]:
         """Yields (per-anchor probabilities [b, A], metas) per batch, dead
         rows and padded anchors sliced off.  Up to ``inflight`` batches are
-        launched before the oldest is synced to the host (once per batch)."""
+        launched before the oldest is synced to the host (once per batch).
+
+        ``retry_policy`` retries a batch whose launch or host sync fails
+        transiently (the policy's classification; launches on the card are
+        asynchronous, so a device fault surfaces at the sync, where the
+        batch is launched again); anything else propagates.
+        ``with_anchors`` stamps each meta with the winning anchor
+        (``_anchor``, its id; ``_anchor_index``, its bank index)."""
         if self.anchor_bank is None:
             raise RuntimeError("call encode_anchors() first")
         if self.buckets is not None:
@@ -301,24 +380,45 @@ class SiamesePredictor:
         self.stats.update(host)
         on_card = self.device.type == "cuda"
         pending: deque = deque()
+        tel = self.telemetry
+
+        def count_retry(exc, attempt):
+            tel.counter("resilience.retries").inc()
 
         def launch(batch):
             # each batch's device time, by CUDA events around its launches
             # (host time on the CPU, where the forward is synchronous)
+            def once():
+                return self._score(batch["sample1"])
+
+            def score():
+                if retry_policy is None:
+                    return once()
+                return retry_policy.call(once, description="score batch", on_retry=count_retry)
+
             if on_card:
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
-                probs = self._score(batch["sample1"])
+                probs = score()
                 end.record()
                 return probs, batch, (start, end)
             t0 = time.perf_counter()
-            probs = self._score(batch["sample1"])
+            probs = score()
             return probs, batch, time.perf_counter() - t0
 
         def drain():
             probs, batch, timing = pending.popleft()
             t0 = time.perf_counter()
-            arr = probs.cpu().numpy()  # the one host sync of this batch
+            try:
+                arr = probs.cpu().numpy()  # the one host sync of this batch
+            except Exception as e:
+                if retry_policy is None or not retry_policy.is_transient(exception_text(e)):
+                    raise
+                logger.warning("batch failed at the host sync (%s); launching it again",
+                               exception_text(e)[:200])
+                count_retry(e, 1)
+                probs, batch, timing = launch(batch)
+                arr = probs.cpu().numpy()
             host["sync_s"] += time.perf_counter() - t0
             elapsed = timing[0].elapsed_time(timing[1]) / 1e3 if on_card else timing
             n_slots, length = batch["sample1"]["input_ids"].shape
@@ -327,7 +427,14 @@ class SiamesePredictor:
             counts[length] = counts.get(length, 0) + 1
             rows[length] = rows.get(length, 0) + len(metas)
             slots[length] = slots.get(length, 0) + n_slots
-            return arr[: len(metas), : self.n_anchors], metas
+            tel.counter("score.batches").inc()
+            tel.counter("score.rows").inc(len(metas))
+            sliced = arr[: len(metas), : self.n_anchors]
+            if with_anchors:
+                for meta, idx in zip(metas, sliced.argmax(axis=-1)):
+                    meta["_anchor_index"] = int(idx)
+                    meta["_anchor"] = self.anchor_labels[int(idx)]
+            return sliced, metas
 
         feed = iter(prefetch(batches, depth=prefetch_depth))
         while True:
@@ -372,25 +479,79 @@ class SiamesePredictor:
         out_path: Union[str, Path],
         split: Optional[str] = None,
         inflight: int = 2,
+        resume: bool = False,
+        quarantine: Union[bool, str, Path, None] = None,
+        heartbeat_batches: int = 0,
+        retry_policy: Optional[RetryPolicy] = None,
+        attribute_anchors: bool = False,
     ) -> Dict[str, float]:
         """Stream a corpus file, write the reference-format result lines
         (one JSON list of records per batch, serialised on a writer
-        thread), and return the threshold-swept siamese metrics."""
+        thread), and return the threshold-swept siamese metrics.
+
+        * ``resume`` keeps ``<out>.journal``, an entry per committed output
+          line; a restarted run verifies it against the output, cuts any
+          torn tail, skips the reports the verified prefix covers and feeds
+          its lines back into the metrics, so it ends with the bytes and
+          metrics of an uninterrupted run.  A run without ``resume``
+          deletes a stale journal.
+        * ``quarantine`` (True for ``<out>.deadletter``, or a path)
+          dead-letters malformed and over-long records with their reasons.
+        * ``heartbeat_batches=N`` logs progress every N batches (rows/s,
+          the journal's total, the quarantine count).
+        * ``retry_policy`` retries transient batch failures
+          (:meth:`score_instances`).
+        * ``attribute_anchors`` adds the winning anchor's id and bank index
+          (``"anchor"``, ``"anchor_index"``) to every output record.
+
+        Counters go to :attr:`telemetry`: ``score.rows``,
+        ``score.batches``, ``score.journal_commit_lag_s`` (scored on the
+        host → committed in the journal), ``journal.lines_committed``,
+        ``journal.rows_committed`` and ``score.dead_letters``."""
         out_path = Path(out_path)
+        tel = self.telemetry
         measure = SiameseMeasure()
         n = 0
+        journal: Optional[ScoreJournal] = None
+        completed: set = set()
+        dead: Optional[DeadLetter] = None
+        if quarantine:
+            dead_path = (Path(str(out_path) + ".deadletter") if isinstance(quarantine, bool)
+                         else Path(quarantine))
+            dead = DeadLetter(dead_path, registry=tel)
+        journal_path = Path(str(out_path) + ".journal")
+        if resume:
+            journal = ScoreJournal(journal_path, registry=tel)
+            kept_n, completed, kept_lines = journal.verified_prefix(out_path)
+            # drop the unverified tail so this run scores those rows again
+            journal.truncate_to(kept_n, out_path)
+            for line in kept_lines:
+                for rec in json.loads(line):
+                    preds = rec.get("predict") or {}
+                    measure.update([max(preds.values()) if preds else 0.0],
+                                   [{"label": rec.get("label")}])
+                    n += 1
+            if kept_n:
+                logger.info("resume: %d journaled output lines verified (%d reports); "
+                            "skipping them", kept_n, n)
+        elif journal_path.exists():
+            # this run rewrites the output: a stale journal would poison a
+            # later resume
+            journal_path.unlink()
+        n_resumed = n
+        commit_lag = tel.histogram("score.journal_commit_lag_s")
         q: "queue.Queue" = queue.Queue(maxsize=16)
         writer_error: List[BaseException] = []
         failed = threading.Event()
 
         def _writer() -> None:
             try:
-                with open(out_path, "w") as f:
+                with open(out_path, "a" if resume else "w") as f:
                     while True:
                         item = q.get()
                         if item is None:
                             return
-                        probs, metas = item
+                        probs, metas, scored_at = item
                         records = [
                             {
                                 "Issue_Url": meta.get("Issue_Url"),
@@ -399,10 +560,20 @@ class SiamesePredictor:
                                     anchor: float(p)
                                     for anchor, p in zip(self.anchor_labels, row)
                                 },
+                                **({"anchor": meta.get("_anchor"),
+                                    "anchor_index": meta.get("_anchor_index")}
+                                   if attribute_anchors else {}),
                             }
                             for row, meta in zip(probs, metas)
                         ]
-                        f.write(json.dumps(records) + "\n")
+                        text = json.dumps(records)
+                        f.write(text + "\n")
+                        if journal is not None:
+                            # the entry claims the line landed: flush it first
+                            f.flush()
+                            journal.append(journal.entries_written,
+                                           [meta["_row"] for meta in metas], text)
+                            commit_lag.observe(time.monotonic() - scored_at)
             except BaseException as e:  # re-raised in the caller below
                 writer_error.append(e)
                 failed.set()
@@ -415,30 +586,81 @@ class SiamesePredictor:
                 except queue.Full:
                     continue
 
+        instances = reader.read(str(test_path), split=split, quarantine=dead)
+        if journal is not None:
+            instances = _indexed_stream(instances, completed)
         writer = threading.Thread(target=_writer, daemon=True)
         writer.start()
         start = time.perf_counter()
+        batches_done = 0
         try:
             for probs, metas in self.score_instances(
-                reader.read(str(test_path), split=split), inflight=inflight
+                instances, inflight=inflight, retry_policy=retry_policy,
+                with_anchors=attribute_anchors,
             ):
-                _put((probs, metas))
+                _put((probs, metas, time.monotonic()))
                 if failed.is_set():
                     break
                 measure.update(probs.max(axis=-1), metas)
                 n += len(metas)
+                batches_done += 1
+                if heartbeat_batches and batches_done % heartbeat_batches == 0:
+                    rate = (n - n_resumed) / max(time.perf_counter() - start, 1e-9)
+                    logger.info(
+                        "scoring heartbeat: %d batches this run (journal total %s), "
+                        "%d/%d reports, %.0f rows/s, %d quarantined",
+                        batches_done, journal.entries_written if journal is not None else "-",
+                        n - n_resumed, n, rate, dead.count if dead is not None else 0,
+                    )
         finally:
             _put(None)
             writer.join()
+            if journal is not None:
+                journal.close()
+            if dead is not None:
+                dead.close()
         if writer_error:
             raise writer_error[0]
         elapsed = time.perf_counter() - start
-        logger.info("scored %d reports in %.1fs (%.0f reports/s)", n, elapsed, n / max(elapsed, 1e-9))
+        logger.info("scored %d reports in %.1fs (%.0f reports/s)%s%s", n - n_resumed, elapsed,
+                    (n - n_resumed) / max(elapsed, 1e-9),
+                    f", {n_resumed} resumed from the journal" if n_resumed else "",
+                    f", {dead.count} quarantined" if dead is not None and dead.count else "")
         metrics = measure.compute(reset=True)
         metrics["num_samples"] = n
         metrics["elapsed_s"] = elapsed
+        if dead is not None:
+            metrics["num_quarantined"] = dead.count
         metrics.update(self.stats)
+        metrics["stream_shapes"] = [list(shape) for shape in self.stream_shapes()]
         return metrics
+
+
+def _indexed_stream(instances: Iterable[Dict], completed: set) -> Iterator[Dict]:
+    """Stamp each instance's meta with its stream index (``_row``, what the
+    journal records) and drop the rows a verified resume prefix covers.
+    The index counts the stream after quarantine, whose decisions are the
+    same on every pass over a file, so it is stable across a restart."""
+    for i, inst in enumerate(instances):
+        if i in completed:
+            continue
+        inst = dict(inst)
+        inst["meta"] = dict(inst.get("meta") or {}, _row=i)
+        yield inst
+
+
+def _int8_twin(model: MemoryModel) -> MemoryModel:
+    """``model`` with ``quant="int8"``, sharing its weights (built on the
+    meta device, then given the model's own tensors): the int8 codes are
+    derived state, cached at its first call."""
+    kw = dict(use_header=model.use_header, temperature=model.temperature,
+              num_classes=model.pair_kernel.shape[1])
+    if model.use_header:
+        kw["header_dim"] = model.header.dense.out_features
+    with torch.device("meta"):
+        twin = MemoryModel(model.config.replace(quant="int8"), **kw)
+    twin.load_state_dict(model.state_dict(), assign=True)
+    return twin.eval()
 
 
 def test_siamese(
@@ -457,11 +679,21 @@ def test_siamese(
     inflight: int = 2,
     anchor_match_impl: Optional[str] = None,
     device: Union[str, torch.device] = "cuda",
+    aot_warmup: bool = True,
+    resume: bool = False,
+    quarantine: Union[bool, str, Path, None] = None,
+    heartbeat_batches: int = 0,
+    score_retries: int = 0,
+    attribute_anchors: bool = False,
 ) -> Dict[str, float]:
-    """End-to-end evaluation: encode the anchor bank, score the corpus,
-    then ``cal_metrics``.  The scoring metrics come back under ``s_`` keys
-    beside the ``cal_metrics`` dict.  Runs on ``device`` (the card unless
-    the caller asks for the CPU)."""
+    """End-to-end evaluation: encode the anchor bank, run every stream
+    shape once (``aot_warmup``), score the corpus, then ``cal_metrics``.
+    The scoring metrics come back under ``s_`` keys beside the
+    ``cal_metrics`` dict.  ``resume``, ``quarantine``,
+    ``heartbeat_batches`` and ``attribute_anchors`` go to
+    :meth:`SiamesePredictor.predict_file`; ``score_retries`` > 0 retries
+    transient batch failures that many times.  Runs on ``device``
+    (the card unless the caller asks for the CPU)."""
     from ..build import resolve_device
 
     device = resolve_device(device)
@@ -473,7 +705,17 @@ def test_siamese(
         anchor_match_impl=anchor_match_impl,
     )
     predictor.encode_anchors(reader.read_anchors(str(golden_file)))
-    eval_metrics = predictor.predict_file(reader, test_file, out_results, inflight=inflight)
+    if aot_warmup:
+        t0 = time.perf_counter()
+        shapes = predictor.warmup_compile()
+        predictor.stats["warmup_s"] = time.perf_counter() - t0
+        logger.info("warmup: %d stream shape(s) run in %.1fs", shapes, predictor.stats["warmup_s"])
+    eval_metrics = predictor.predict_file(
+        reader, test_file, out_results, inflight=inflight, resume=resume,
+        quarantine=quarantine, heartbeat_batches=heartbeat_batches,
+        retry_policy=RetryPolicy(attempts=score_retries) if score_retries > 0 else None,
+        attribute_anchors=attribute_anchors,
+    )
     final = cal_metrics(out_results, thres=thres, out_file=out_metrics)
     final.update({f"s_{k}": v for k, v in eval_metrics.items()})
     return final

@@ -18,8 +18,13 @@ down the forward call; ``model.eval()`` makes it the identity.
 ``scan_layers`` and ``remat`` are layout and memory knobs of the JAX
 package with no effect on the forward: they are accepted and ignored
 (``remat``, recomputing activations in the backward, is still to port).
-The int8 tier (``quant``) and ScalarMix (``last_layer_only=False``) are
-not ported yet.
+
+``quant`` (``"int8_dynamic"`` or ``"int8"``) makes the six projections
+of every layer (q, k, v, the attention output, the FFN's intermediate and
+output) :class:`~memvul_tpu_torch.ops.quant.QuantLinear`: same weights,
+an int8 contraction.  The pooler and the header stay full precision.
+``last_layer_only=False`` mixes every layer's output with
+:class:`ScalarMix` instead of taking the last.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention, mask_to_bias
+from ..ops.quant import QUANT_MODES, QuantLinear, make_linear
 from ..ops.ragged_attention import pack_segments
 
 
@@ -86,7 +92,10 @@ class BertConfig:
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
-    """``x @ W.T + b`` with input and params cast to ``dtype``."""
+    """``x @ W.T + b`` with input and params cast to ``dtype`` (through the
+    int8 contraction for a :class:`QuantLinear`)."""
+    if isinstance(layer, QuantLinear):
+        return layer.quantized(x, dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
@@ -136,15 +145,15 @@ class BertSelfAttention(nn.Module):
 
     def __init__(self, c: BertConfig) -> None:
         super().__init__()
-        self.query = nn.Linear(c.hidden_size, c.hidden_size)
-        self.key = nn.Linear(c.hidden_size, c.hidden_size)
-        self.value = nn.Linear(c.hidden_size, c.hidden_size)
+        self.query = make_linear(c.hidden_size, c.hidden_size, c.quant)
+        self.key = make_linear(c.hidden_size, c.hidden_size, c.quant)
+        self.value = make_linear(c.hidden_size, c.hidden_size, c.quant)
 
 
 class BertSelfOutput(nn.Module):
     def __init__(self, c: BertConfig, in_features: int) -> None:
         super().__init__()
-        self.dense = nn.Linear(in_features, c.hidden_size)
+        self.dense = make_linear(in_features, c.hidden_size, c.quant)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
 
 
@@ -176,7 +185,7 @@ class BertAttention(nn.Module):
 class BertIntermediate(nn.Module):
     def __init__(self, c: BertConfig) -> None:
         super().__init__()
-        self.dense = nn.Linear(c.hidden_size, c.intermediate_size)
+        self.dense = make_linear(c.hidden_size, c.intermediate_size, c.quant)
 
 
 class BertLayer(nn.Module):
@@ -197,14 +206,37 @@ class BertLayer(nn.Module):
 
 
 class BertEncoderStack(nn.Module):
+    """The last layer's hidden states, or every layer's output stacked
+    ``[L, B, T, H]`` when ``config.last_layer_only`` is False."""
+
     def __init__(self, c: BertConfig) -> None:
         super().__init__()
+        self.collect = not c.last_layer_only
         self.layer = nn.ModuleList(BertLayer(c) for _ in range(c.num_layers))
 
     def forward(self, hidden, bias, segment_ids=None, generator=None):
+        outputs = []
         for layer in self.layer:
             hidden = layer(hidden, bias, segment_ids, generator)
-        return hidden
+            if self.collect:
+                outputs.append(hidden)
+        return torch.stack(outputs) if self.collect else hidden
+
+
+class ScalarMix(nn.Module):
+    """A learned softmax-weighted sum of every layer's output, scaled by a
+    learned gamma (the reference embedder's option for
+    ``last_layer_only=False``).  The weights' softmax is taken in f32; the
+    sum runs in the compute dtype."""
+
+    def __init__(self, num_layers: int) -> None:
+        super().__init__()
+        self.scalar_weights = nn.Parameter(torch.zeros(num_layers))
+        self.gamma = nn.Parameter(torch.ones(()))
+
+    def forward(self, stacked: torch.Tensor) -> torch.Tensor:  # [L, B, T, H] → [B, T, H]
+        norm = torch.softmax(self.scalar_weights.to(torch.float32), dim=0).to(stacked.dtype)
+        return self.gamma.to(stacked.dtype) * torch.einsum("l,l...->...", norm, stacked)
 
 
 class BertEncoder(nn.Module):
@@ -212,19 +244,15 @@ class BertEncoder(nn.Module):
 
     def __init__(self, c: BertConfig) -> None:
         super().__init__()
-        if c.quant is not None:
-            raise NotImplementedError(
-                f"quant={c.quant!r}: the int8 tier is not ported yet (ROADMAP.md)"
-            )
-        if not c.last_layer_only:
-            raise NotImplementedError(
-                "last_layer_only=False (ScalarMix) is not ported yet (ROADMAP.md)"
-            )
+        if c.quant is not None and c.quant not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode {c.quant!r}")
         if c.attention_impl not in ("xla", "flash"):
             raise ValueError(f"unknown attention impl {c.attention_impl!r}")
         self.config = c
         self.embeddings = BertEmbeddings(c)
         self.encoder = BertEncoderStack(c)
+        if not c.last_layer_only:
+            self.scalar_mix = ScalarMix(c.num_layers)
 
     def forward(
         self, input_ids, attention_mask, token_type_ids=None,
@@ -241,9 +269,11 @@ class BertEncoder(nn.Module):
             token_type_ids = torch.zeros_like(input_ids)
         hidden = self.embeddings(input_ids, token_type_ids, position_ids, generator)
         if segment_ids is None:
-            return self.encoder(hidden, mask_to_bias(attention_mask, c.dtype), generator=generator)
-        # the packed path: one tile table for all the layers of the pack
-        return self.encoder(hidden, None, pack_segments(segment_ids), generator)
+            out = self.encoder(hidden, mask_to_bias(attention_mask, c.dtype), generator=generator)
+        else:
+            # the packed path: one tile table for all the layers of the pack
+            out = self.encoder(hidden, None, pack_segments(segment_ids), generator)
+        return out if c.last_layer_only else self.scalar_mix(out)
 
 
 class BertPooler(nn.Module):

@@ -15,6 +15,8 @@ stores ``[out, in]``); the per-head ``DenseGeneral`` kernels are
 ``[H, heads, Dh]`` for q/k/v and ``[heads, Dh, H]`` for the attention
 output; with ``scan_layers`` the layers stack into leading-``[L]`` arrays
 under ``encoder/layers/layer``, otherwise they sit at ``encoder/layer_{i}``.
+A ScalarMix encoder (``last_layer_only=False``) carries
+``bert/scalar_mix/{scalar_weights, gamma}`` ↔ ``bert.scalar_mix.*``.
 """
 
 from __future__ import annotations
@@ -89,6 +91,10 @@ def params_from_flax(params: Dict, config: BertConfig) -> Dict[str, torch.Tensor
         sd[pre + "output.dense.bias"] = _f32(layer["output"]["bias"])
         sd[pre + "output.LayerNorm.weight"] = _f32(layer["output_LayerNorm"]["scale"])
         sd[pre + "output.LayerNorm.bias"] = _f32(layer["output_LayerNorm"]["bias"])
+    mix = p["bert"].get("scalar_mix")
+    if mix is not None:
+        sd["bert.scalar_mix.scalar_weights"] = _f32(mix["scalar_weights"])
+        sd["bert.scalar_mix.gamma"] = _f32(mix["gamma"]).reshape(())
     sd["pooler.dense.weight"] = _t(p["pooler"]["dense"]["kernel"])
     sd["pooler.dense.bias"] = _f32(p["pooler"]["dense"]["bias"])
     if "header" in p:
@@ -165,6 +171,11 @@ def flax_from_params(state_dict: Dict[str, torch.Tensor], config: BertConfig) ->
         "pooler": {"dense": dense("pooler.dense")},
         "pair_kernel": _np(sd["pair_kernel"]),
     }
+    if "bert.scalar_mix.gamma" in sd:
+        params["bert"]["scalar_mix"] = {
+            "scalar_weights": _np(sd["bert.scalar_mix.scalar_weights"]),
+            "gamma": _np(sd["bert.scalar_mix.gamma"]),
+        }
     if "header.dense.weight" in sd:
         params["header"] = {"dense": dense("header.dense")}
     return {"params": params}

@@ -17,9 +17,10 @@ strategy decides only how accepted requests become device calls:
   each request straight into the open pack of a
   :class:`~memvul_tpu_torch.data.batching.PackSlotAllocator` while a
   device worker thread scores the sealed one, so pack N+1 fills during
-  pack N's round trip (``serve.pack_topups`` counts those admissions).
-
-The int8 ``CascadeDispatcher`` waits for the int8 slice.
+  pack N's round trip (``serve.pack_topups`` counts those admissions);
+* :class:`CascadeDispatcher` routes like the bucketed strategy but scores
+  each block on the int8 tier first and rescores, at the same (rows,
+  length), only the rows whose best probability lies in the cascade band.
 """
 
 from __future__ import annotations
@@ -136,9 +137,26 @@ class Dispatcher:
         real_tokens: int,
         score_fn: Callable[[Dict[str, np.ndarray], Any], np.ndarray],
     ) -> None:
-        """One retried device round trip, booked and resolved to clients.
-        Retry exhaustion (or a non-transient failure) dead-letters the
-        chunk: every request resolves ``"error"`` with the reason."""
+        """One retried device round trip, booked and resolved to clients."""
+        probs = self._device_call(chunk, bank, sample=sample, score_fn=score_fn)
+        if probs is None:
+            return  # dead-lettered or killed: nothing left to resolve
+        self._finalize_batch(len(chunk), occupancy_rows=occupancy_rows,
+                             padded_tokens=padded_tokens, real_tokens=real_tokens)
+        self._resolve_scored(chunk, probs, bank)
+
+    def _device_call(
+        self,
+        chunk: Chunk,
+        bank: _BankVersion,
+        *,
+        sample: Dict[str, np.ndarray],
+        score_fn: Callable[[Dict[str, np.ndarray], Any], np.ndarray],
+    ) -> Optional[np.ndarray]:
+        """One retried device round trip: the ``[len(chunk), n_anchors]``
+        probabilities, or None when the worker was killed or the chunk was
+        dead-lettered (retries exhausted or a non-transient failure: every
+        request resolves ``"error"`` with the reason)."""
         svc = self.service
         tel = svc._tel
 
@@ -157,22 +175,28 @@ class Dispatcher:
             probs = np.asarray(probs)[: len(chunk), : bank.n_anchors]
         except Exception as e:
             if svc._killed.is_set():
-                return  # a killed worker neither counts nor resolves
+                return None  # a killed worker neither counts nor resolves
             reason = exception_text(e)
             logger.error("serve batch dead-lettered (%d request(s)): %s", len(chunk), reason[:300])
             tel.counter("serve.dead_letters").inc()
             tel.counter("serve.errors").inc(len(chunk))
             for request, _ in chunk:
                 request.future.resolve({"status": STATUS_ERROR, "reason": reason})
-            return
+            return None
         if svc._killed.is_set():
-            return  # killed mid-dispatch: the sweep accounts this chunk
+            return None  # killed mid-dispatch: the sweep accounts this chunk
         tel.histogram("serve.batch_latency_s").observe(time.perf_counter() - start)
-        tel.histogram("serve.batch_occupancy").observe(len(chunk) / occupancy_rows)
+        return probs
+
+    def _finalize_batch(self, n_rows: int, *, occupancy_rows: int, padded_tokens: int,
+                        real_tokens: int) -> None:
+        """Book one device batch into the occupancy and padding ledger (a
+        cascade's rescore is a second batch and books a second entry)."""
+        tel = self.service._tel
+        tel.histogram("serve.batch_occupancy").observe(n_rows / occupancy_rows)
         tel.counter("serve.tokens_real").inc(real_tokens)
         tel.counter("serve.tokens_padded").inc(padded_tokens)
         tel.counter("serve.batches").inc()
-        self._resolve_scored(chunk, probs, bank)
 
     def _resolve_scored(self, chunk: Chunk, probs: np.ndarray, bank: _BankVersion) -> None:
         """Resolve scored rows to their clients (each request passes here
@@ -209,15 +233,21 @@ class BucketedDispatcher(Dispatcher):
             for start in range(0, len(group), rows):
                 if svc._killed.is_set():
                     return  # abandoned: the kill sweep takes over
-                chunk = group[start : start + rows]
-                self._score_chunk(
-                    chunk, bank,
-                    sample=_pad_block([seq for _, seq in chunk], rows, svc.predictor.encoder.pad_id, length),
-                    occupancy_rows=rows,
-                    padded_tokens=rows * length,
-                    real_tokens=sum(min(len(seq), length) for _, seq in chunk),
-                    score_fn=svc.predictor.score_block,
-                )
+                self._score_bucket_chunk(group[start : start + rows], bank, rows, length)
+
+    def _pad_bucket(self, chunk: Chunk, rows: int, length: int) -> Dict[str, np.ndarray]:
+        return _pad_block([seq for _, seq in chunk], rows, self.service.predictor.encoder.pad_id,
+                          length)
+
+    def _score_bucket_chunk(self, chunk: Chunk, bank: _BankVersion, rows: int, length: int) -> None:
+        self._score_chunk(
+            chunk, bank,
+            sample=self._pad_bucket(chunk, rows, length),
+            occupancy_rows=rows,
+            padded_tokens=rows * length,
+            real_tokens=sum(min(len(seq), length) for _, seq in chunk),
+            score_fn=self.service.predictor.score_block,
+        )
 
     def _bucket_for(self, n_tokens: int) -> int:
         """Smallest bucket covering the token count; longer texts
@@ -226,6 +256,46 @@ class BucketedDispatcher(Dispatcher):
             if length >= n_tokens:
                 return length
         return self.service._lengths[-1]
+
+
+class CascadeDispatcher(BucketedDispatcher):
+    """The two-tier int8 cascade: every block is scored on the int8 tier
+    first; rows whose best probability lies in the inclusive
+    ``[cascade_low, cascade_high]`` band are scored again, at the same
+    (rows, length), on the full-precision model, and resolve with the
+    bucketed strategy's bits.  The rest resolve with their int8 scores.
+    Both tiers read ONE bank snapshot; each tier's device call is retried
+    and dead-lettered on its own (a failing rescore dead-letters only the
+    in-band rows).  ``serve.cascade_shortcircuit`` and
+    ``serve.cascade_rescored`` count the rows of each exit."""
+
+    def _score_bucket_chunk(self, chunk: Chunk, bank: _BankVersion, rows: int, length: int) -> None:
+        predictor = self.service.predictor
+        tel = self.service._tel
+        probs = self._device_call(chunk, bank, sample=self._pad_bucket(chunk, rows, length),
+                                  score_fn=predictor.score_block_int8)
+        if probs is None:
+            return
+        self._finalize_batch(len(chunk), occupancy_rows=rows, padded_tokens=rows * length,
+                             real_tokens=sum(min(len(seq), length) for _, seq in chunk))
+        low, high = predictor.cascade_band
+        best = probs.max(axis=1) if probs.size else np.zeros(len(chunk))
+        in_band = [i for i, b in enumerate(best) if low <= b <= high]
+        confident = [i for i in range(len(chunk)) if not low <= best[i] <= high]
+        if confident:
+            tel.counter("serve.cascade_shortcircuit").inc(len(confident))
+            self._resolve_scored([chunk[i] for i in confident], probs[confident], bank)
+        if not in_band:
+            return
+        tel.counter("serve.cascade_rescored").inc(len(in_band))
+        self._score_chunk(
+            [chunk[i] for i in in_band], bank,
+            sample=self._pad_bucket([chunk[i] for i in in_band], rows, length),
+            occupancy_rows=rows,
+            padded_tokens=rows * length,
+            real_tokens=sum(min(len(chunk[i][1]), length) for i in in_band),
+            score_fn=predictor.score_block,
+        )
 
 
 class RaggedDispatcher(Dispatcher):
@@ -443,6 +513,7 @@ _DISPATCHERS = {
     "bucketed": BucketedDispatcher,
     "ragged": RaggedDispatcher,
     "continuous": ContinuousDispatcher,
+    "cascade": CascadeDispatcher,
 }
 
 

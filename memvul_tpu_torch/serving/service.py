@@ -11,7 +11,9 @@ predictor's ``score_impl``:
 * ``"ragged"`` packs the same pull into fixed ``[1, token_budget]`` rows
   scored through the segment-masked attention kernel;
 * ``"continuous"`` admits each request straight into the open pack while
-  the previous pack is on the card, on a device worker thread.
+  the previous pack is on the card, on a device worker thread;
+* ``"cascade"`` routes as ``"bucketed"``, scores on the int8 tier first
+  and rescores the uncertain rows at full precision.
 
 Admission control lives here: the queue is bounded (``max_queue``) and on
 overflow the *oldest* request is shed (``"shed"``); every request carries

@@ -1,10 +1,14 @@
 """Counters, gauges and histograms (the part of the JAX package's
-``telemetry/registry.py`` that the serving path books).
+``telemetry/registry.py`` that the serving path and the corpus pass book).
 
 Each :class:`~memvul_tpu_torch.serving.service.ScoringService` owns one
 :class:`Registry`; it books the JAX package's names (``serve.requests``,
 ``serve.served``, ``serve.tokens_real`` / ``serve.tokens_padded``,
-``serve.latency_s`` …).  Sinks (``events.jsonl``, ``HEARTBEAT.json``), spans,
+``serve.latency_s``, ``serve.cascade_rescored`` …).  Each
+:class:`~memvul_tpu_torch.evaluate.predict_memory.SiamesePredictor` owns
+another for its corpus passes (``score.rows``, ``score.batches``,
+``score.journal_commit_lag_s``, ``journal.rows_committed``,
+``score.dead_letters``, ``resilience.retries``).  Sinks (``events.jsonl``, ``HEARTBEAT.json``), spans,
 the time-series store and the roofline gauges wait for the ops-plane slice
 (ROADMAP.md).
 """

@@ -21,6 +21,7 @@ EXPECTED_MODULES = (
     "memvul_tpu_torch.training.optim", "memvul_tpu_torch.training.metrics",
     "memvul_tpu_torch.training.checkpoint", "memvul_tpu_torch.training.trainer",
     "memvul_tpu_torch.models.losses", "memvul_tpu_torch.resilience.io",
+    "memvul_tpu_torch.resilience.journal", "memvul_tpu_torch.ops.quant",
 )
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_compare.py"]
 

@@ -1,6 +1,8 @@
 """The port's encoder and memory model against the JAX package's on
 carried weights, for both attention impls, in f32 at the conversion
-tests' tolerance (rtol 2e-4 / atol 2e-5)."""
+tests' tolerance (rtol 2e-4 / atol 2e-5); and the ScalarMix encoder
+(``last_layer_only=False``) against JAX's, through convert and an
+archive."""
 
 import numpy as np
 import pytest
@@ -99,10 +101,118 @@ def test_bf16_forward_close_to_f32(models):
 
 
 def test_encoder_guards():
-    with pytest.raises(NotImplementedError, match="ScalarMix"):
-        BertEncoder(BertConfig.tiny(last_layer_only=False))
-    with pytest.raises(NotImplementedError, match="int8"):
-        BertEncoder(BertConfig.tiny(quant="int8"))
+    with pytest.raises(ValueError, match="unknown quant mode"):
+        BertEncoder(BertConfig.tiny(quant="int4"))
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        BertEncoder(BertConfig.tiny(attention_impl="ring"))
     enc = BertEncoder(BertConfig.tiny(max_position_embeddings=16))
     with pytest.raises(ValueError, match="max_position_embeddings"):
         enc(torch.zeros(1, 17, dtype=torch.long), torch.ones(1, 17, dtype=torch.long))
+
+
+# -- ScalarMix (last_layer_only=False) ------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    """A ScalarMix memory model from JAX-initialised weights, its mixing
+    weights and gamma drawn away from their zero/one init."""
+    jcfg = JaxBertConfig.tiny(vocab_size=300, scan_layers=True, last_layer_only=False)
+    dummy = {"input_ids": np.zeros((2, 8), np.int32), "attention_mask": np.ones((2, 8), np.int32)}
+    params = jax.device_get(JaxMemoryModel(jcfg, header_dim=32).init(jax.random.PRNGKey(5), dummy, dummy))
+    mix = params["params"]["bert"]["scalar_mix"]
+    assert mix["scalar_weights"].shape == (2,) and mix["gamma"].shape == ()
+    mix["scalar_weights"] = np.array([0.7, -0.4], np.float32)
+    mix["gamma"] = np.array(1.3, np.float32)
+    pcfg = BertConfig.tiny(vocab_size=300, scan_layers=True, last_layer_only=False)
+    pmodel = MemoryModel(pcfg, header_dim=32).eval()
+    pmodel.load_state_dict(params_from_flax(params, pcfg))
+    return JaxMemoryModel(jcfg, header_dim=32), params, pmodel
+
+
+def test_scalar_mix_encoder_matches_jax(mixed):
+    from memvul_tpu.models import BertEncoder as JaxBertEncoder
+
+    jmodel, params, pmodel = mixed
+    ids, mask = _batch(4)
+    want = np.asarray(
+        JaxBertEncoder(jmodel.config).apply({"params": params["params"]["bert"]}, ids, mask)
+    )
+    with torch.no_grad():
+        got = pmodel.bert(_t(ids), _t(mask)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    u_want = np.asarray(jmodel.apply(params, {"input_ids": ids, "attention_mask": mask}))
+    with torch.no_grad():
+        np.testing.assert_allclose(pmodel.encode(_t(ids), _t(mask)).numpy(), u_want, **TOL)
+    assert set(k for k in pmodel.state_dict() if "scalar_mix" in k) == {
+        "bert.scalar_mix.scalar_weights", "bert.scalar_mix.gamma"}
+
+
+def test_scalar_mix_equal_weights_is_the_layer_mean():
+    from memvul_tpu_torch.models.bert import ScalarMix
+    from memvul_tpu_torch.ops.attention import mask_to_bias
+
+    torch.manual_seed(0)
+    cfg = BertConfig.tiny(vocab_size=300, num_layers=3, last_layer_only=False)
+    enc = BertEncoder(cfg).eval()
+    last = BertEncoder(cfg.replace(last_layer_only=True)).eval()
+    last.load_state_dict({k: v for k, v in enc.state_dict().items() if "scalar_mix" not in k})
+    ids, mask = _batch(5)
+    with torch.no_grad():
+        layers = []
+        hidden = last.embeddings(_t(ids), torch.zeros_like(_t(ids)))
+        bias = mask_to_bias(_t(mask), cfg.dtype)
+        for layer in last.encoder.layer:
+            hidden = layer(hidden, bias)
+            layers.append(hidden)
+        mean = torch.stack(layers).mean(0)
+        np.testing.assert_allclose(enc(_t(ids), _t(mask)).numpy(), mean.numpy(), rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(last(_t(ids), _t(mask)).numpy(), layers[-1].numpy())
+        mix = ScalarMix(3)
+        stacked = torch.randn(3, 2, 4, 8)
+        np.testing.assert_allclose(mix(stacked).numpy(), stacked.mean(0).numpy(), rtol=1e-6, atol=1e-7)
+
+
+def test_convert_round_trips_scalar_mix(mixed):
+    from memvul_tpu_torch.models.convert import flax_from_params
+
+    _, params, pmodel = mixed
+    back = flax_from_params(pmodel.state_dict(), pmodel.config)
+    mix, want = back["params"]["bert"]["scalar_mix"], params["params"]["bert"]["scalar_mix"]
+    np.testing.assert_array_equal(mix["scalar_weights"], want["scalar_weights"])
+    np.testing.assert_array_equal(mix["gamma"], want["gamma"])
+    assert np.asarray(mix["gamma"]).shape == ()
+    again = params_from_flax(back, pmodel.config)
+    for key, value in pmodel.state_dict().items():
+        assert torch.equal(again[key], value), key
+    # the groups of the trainer put the mix with the encoder, as the JAX trainer does
+    from memvul_tpu_torch.training.optim import label_params
+
+    labels = label_params(pmodel.state_dict())
+    assert labels["bert.scalar_mix.scalar_weights"] == labels["bert.scalar_mix.gamma"] == "embedder"
+
+
+def test_port_scalar_mix_archive_loads_in_jax(mixed, tmp_path):
+    from memvul_tpu import archive as jax_archive_mod
+    from memvul_tpu_torch.archive import load_archive, save_archive
+    from memvul_tpu_torch.models.convert import flax_from_params
+
+    _, _, pmodel = mixed
+    config = {"model": {"type": "model_memory", "header_dim": 32,
+                        "encoder": {"preset": "tiny", "vocab_size": 300, "scan_layers": True,
+                                    "last_layer_only": False}}}
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+                               + [f"w{i}" for i in range(295)]) + "\n")
+    path = save_archive(tmp_path / "model.tar.gz", config,
+                        flax_from_params(pmodel.state_dict(), pmodel.config), tokenizer_file=vocab)
+    jarch = jax_archive_mod.load_archive(path)
+    assert not jarch.model.config.last_layer_only
+    ids, mask = _batch(6)
+    want = np.asarray(jarch.model.apply(jarch.params, {"input_ids": ids, "attention_mask": mask}))
+    with torch.no_grad():
+        got = pmodel.encode(_t(ids), _t(mask)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    reloaded = load_archive(path, device="cpu").model
+    for key, value in pmodel.state_dict().items():
+        assert torch.equal(reloaded.state_dict()[key], value), key

@@ -138,10 +138,17 @@ def test_predictor_ragged_validation(setup):
         setup["predictor"](score_impl="raggedy")
     with pytest.raises(ValueError, match="token_budget"):
         setup["predictor"](score_impl="ragged", token_budget=32)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="int8 tier"):
         setup["predictor"](score_impl="cascade")
-    with pytest.raises(ValueError, match="impl"):
+    with pytest.raises(ValueError, match="not cascadable"):
+        setup["predictor"](score_impl="ragged", encoder_precision="int8", **PACK)
+    with pytest.raises(ValueError, match="cascade band"):
+        setup["predictor"](score_impl="cascade", encoder_precision="int8", cascade_low=0.8,
+                           cascade_high=0.2)
+    with pytest.raises(RuntimeError, match="encoder_precision='int8'"):
         setup["ragged"].score_texts(["x"], impl="int8")
+    with pytest.raises(ValueError, match="impl"):
+        setup["ragged"].score_texts(["x"], impl="int4")
 
 
 # -- service ------------------------------------------------------------------
