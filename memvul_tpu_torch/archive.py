@@ -2,7 +2,9 @@
 
 An archive is a tar.gz holding ``config.json`` (the resolved config),
 ``weights.msgpack`` (the flax param tree, in flax's msgpack format) and
-either ``vocab.txt`` (a bert-style vocabulary) or ``tokenizer.json``.
+either ``vocab.txt`` (a bert-style vocabulary) or ``tokenizer.json`` (a
+wordpiece tokenizer file, or a TextCNN's ``{word: id}`` vocabulary, which
+the ``word`` tokenizer reads through ``vocab_path``).
 :func:`load_archive` deep-merges overrides onto the stored config and
 rebuilds the model (on ``device``), its weights carried across by
 :func:`~memvul_tpu_torch.models.convert.params_from_flax`, and the
@@ -102,11 +104,16 @@ def load_archive(
         elif "tokenizer.json" in members:
             path = Path(tmp) / "tokenizer.json"
             path.write_bytes(members["tokenizer.json"])
-            tok_cfg["tokenizer_path"] = str(path)
-            tok_cfg.pop("vocab_path", None)
+            # a word tokenizer's file is its {word: id} vocabulary, a
+            # wordpiece one's a tokenizers-library file
+            if tok_cfg.get("type") == "word":
+                tok_cfg["vocab_path"] = str(path)
+            else:
+                tok_cfg["tokenizer_path"] = str(path)
+                tok_cfg.pop("vocab_path", None)
         tokenizer = build_tokenizer(tok_cfg)
     model = build_model(config.get("model") or {}, tokenizer.vocab_size)
     params = _msgpack.unpackb(members["weights.msgpack"])
-    model.load_state_dict(params_from_flax(params, model.config))
+    model.load_state_dict(params_from_flax(params, getattr(model, "config", None)))
     model.to(device).eval()
     return Archive(config=config, model=model, params=params, tokenizer=tokenizer)

@@ -1,10 +1,17 @@
 """Config-driven construction, training and the archive flows (the JAX
-package's ``build.py``, memory model only).
+package's ``build.py``).
 
 * :func:`encoder_config` — ``{"preset": "base"|"tiny"|"large", "dtype":
   "bfloat16", ...}`` → :class:`BertConfig`;
 * :func:`build_model` / :func:`init_params` / :func:`build_tokenizer` /
-  :func:`build_reader`;
+  :func:`build_reader`: ``model_memory``, ``model_single`` (MemVul-m) and
+  ``model_cnn`` (TextCNN); the ``wordpiece`` and ``word`` tokenizers; the
+  ``reader_memory`` and ``reader_single`` readers;
+* :func:`pretrain_from_config` — MLM further pretraining into
+  ``encoder.msgpack`` (:func:`save_encoder_checkpoint`), optionally an HF
+  checkpoint (:func:`export_hf_checkpoint`); :func:`load_pretrained_encoder`
+  carries it into a model, refusing a layer layout other than the
+  target's;
 * :func:`train_from_config` — a training run from a reference-shaped
   config into a serialization dir, archiving the best weights as
   ``model.tar.gz`` in the JAX package's format;
@@ -21,6 +28,7 @@ CPU; on a host without CUDA the default raises instead of falling back.
 from __future__ import annotations
 
 import logging
+import time
 from pathlib import Path
 from typing import Any, Dict, Optional, Union
 
@@ -64,55 +72,187 @@ def encoder_config(cfg: Optional[Dict[str, Any]], vocab_size: Optional[int] = No
 
 
 def build_tokenizer(cfg: Optional[Dict[str, Any]]):
-    from .data.tokenizer import WordPieceTokenizer
+    """``type`` "wordpiece" (the default) or "word" (TextCNN's)."""
+    from .data.tokenizer import WordPieceTokenizer, WordTokenizer
 
     cfg = dict(cfg or {})
     kind = cfg.pop("type", "wordpiece")
-    if kind != "wordpiece":
-        raise NotImplementedError(f"tokenizer type {kind!r} is not ported yet")
-    return WordPieceTokenizer(**cfg)
+    tokenizers = {"wordpiece": WordPieceTokenizer, "word": WordTokenizer}
+    if kind not in tokenizers:
+        raise ValueError(f"unknown tokenizer type {kind!r} (want {sorted(tokenizers)})")
+    return tokenizers[kind](**cfg)
 
 
 def build_reader(cfg: Optional[Dict[str, Any]], seed: Optional[int] = None):
-    """The reader; ``seed`` (the config's ``random_seed``) reaches its
-    pair-sampling RNG unless the reader section pins its own."""
-    from .data.readers import MemoryReader
+    """The reader (``reader_memory`` by default, or ``reader_single``);
+    ``seed`` (the config's ``random_seed``) reaches its sampling RNG unless
+    the reader section pins its own."""
+    from .data.readers import MemoryReader, SingleReader
 
     cfg = dict(cfg or {})
     if seed is not None:
         cfg.setdefault("seed", seed)
     kind = cfg.pop("type", "reader_memory")
-    if kind != "reader_memory":
-        raise NotImplementedError(f"reader type {kind!r} is not ported yet")
-    return MemoryReader(**cfg)
+    readers = {"reader_memory": MemoryReader, "reader_single": SingleReader}
+    if kind not in readers:
+        raise ValueError(f"unknown reader type {kind!r} (want {sorted(readers)})")
+    return readers[kind](**cfg)
 
 
 def build_model(model_cfg: Dict[str, Any], vocab_size: int):
-    """The memory model named by ``model_cfg`` (params f32, on the CPU)."""
+    """The model named by ``model_cfg["type"]`` (params f32, on the CPU):
+    ``model_memory``, ``model_single`` or ``model_cnn``."""
     from .models.memory import MemoryModel
+    from .models.single import SingleModel
+    from .models.textcnn import TextCNN
 
     cfg = dict(model_cfg or {})
-    cfg.pop("pretrained_checkpoint", None)
+    cfg.pop("pretrained_checkpoint", None)  # the caller loads it
     model_type = cfg.pop("type", "model_memory")
-    if model_type != "model_memory":
-        raise NotImplementedError(
-            f"model type {model_type!r} belongs to the other-models slice, not ported yet"
-        )
-    return MemoryModel(encoder_config(cfg.pop("encoder", None), vocab_size), **cfg)
+    if model_type == "model_cnn":
+        cfg.pop("encoder", None)
+        return TextCNN(vocab_size=vocab_size, **cfg)
+    models = {"model_memory": MemoryModel, "model_single": SingleModel}
+    if model_type not in models:
+        raise ValueError(f"unknown model type {model_type!r}")
+    return models[model_type](encoder_config(cfg.pop("encoder", None), vocab_size), **cfg)
 
 
 def init_params(model, seed: int = 0):
     """Redraw every weight of a CPU ``model`` (as :func:`build_model`
-    returns it) from ``seed``: N(0, initializer_range) weights, zero
-    biases, unit LayerNorm scales.  Returns the model."""
+    returns it) from ``seed``, from the distributions the JAX package
+    initialises it with.  Returns the model."""
     from .models.bert import init_weights
+    from .models.memory import MemoryModel
 
     gen = torch.Generator().manual_seed(int(seed))
-    std = model.config.initializer_range
-    with torch.no_grad():
-        init_weights(model, std, generator=gen)
-        model.pair_kernel.normal_(0.0, std, generator=gen)
+    if isinstance(model, MemoryModel):
+        std = model.config.initializer_range
+        with torch.no_grad():
+            init_weights(model, std, generator=gen)
+            model.pair_kernel.normal_(0.0, std, generator=gen)
+    else:
+        model.init_weights(gen)
     return model
+
+
+def load_pretrained_encoder(model, checkpoint: Union[str, Path]):
+    """Carry a further-pretrained encoder (``encoder.msgpack``, or a
+    directory holding one, in the JAX package's flax layout) into
+    ``model``'s ``bert``.  The checkpoint's layer layout must be the one
+    ``model.config.scan_layers`` names: the JAX package cannot run a
+    transplant across layouts, so the port refuses it here.  Returns the
+    model."""
+    from . import _msgpack
+    from .models.convert import STACKED, UNSTACKED, encoder_from_flax, encoder_layout
+    from .pretrain.mlm import transplant_encoder
+
+    path = Path(checkpoint)
+    if path.is_dir():
+        path = path / "encoder.msgpack"
+    tree = _msgpack.unpackb(path.read_bytes())
+    have = encoder_layout(tree)
+    want = STACKED if model.config.scan_layers else UNSTACKED
+    if have != want:
+        raise ValueError(
+            f"pretrained encoder {path} has its layers as {have}, but the model's encoder "
+            f"config wants {want}; pretrain with the same encoder.scan_layers as the model "
+            "that loads it"
+        )
+    return transplant_encoder(model, encoder_from_flax(tree, model.config))
+
+
+def save_encoder_checkpoint(encoder_params: Dict[str, torch.Tensor], config,
+                            out_dir: Union[str, Path]) -> Path:
+    """Write a pretrained encoder (:func:`~memvul_tpu_torch.pretrain.mlm.
+    extract_encoder_params`) as ``<out_dir>/encoder.msgpack``: the flax
+    ``bert`` subtree in the layer layout ``config.scan_layers`` names, which
+    the JAX package's ``load_pretrained_encoder`` reads."""
+    from . import _msgpack
+    from .models.convert import flax_encoder
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "encoder.msgpack"
+    path.write_bytes(_msgpack.packb(flax_encoder(encoder_params, config)))
+    return path
+
+
+def export_hf_checkpoint(encoder_params: Dict[str, torch.Tensor], config,
+                         out_dir: Union[str, Path], tokenizer=None) -> Path:
+    """Write an encoder as an HF checkpoint directory (``config.json``,
+    ``pytorch_model.bin`` with ``BertModel`` keys, and ``vocab.txt`` when a
+    wordpiece tokenizer is given), the layout the reference's embedder
+    loads with ``AutoModel.from_pretrained``."""
+    import json
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    weights = {k: v.detach().to(torch.float32).cpu().contiguous() for k, v in encoder_params.items()
+               if not k.startswith("scalar_mix.")}
+    torch.save(weights, out_dir / "pytorch_model.bin")
+    (out_dir / "config.json").write_text(json.dumps({
+        "model_type": "bert",
+        "architectures": ["BertModel"],
+        "vocab_size": config.vocab_size,
+        "hidden_size": config.hidden_size,
+        "num_hidden_layers": config.num_layers,
+        "num_attention_heads": config.num_heads,
+        "intermediate_size": config.intermediate_size,
+        "max_position_embeddings": config.max_position_embeddings,
+        "hidden_act": "gelu",
+        "layer_norm_eps": config.layer_norm_eps,
+        "hidden_dropout_prob": config.hidden_dropout,
+        "attention_probs_dropout_prob": config.attention_dropout,
+        "pad_token_id": 0,
+        "type_vocab_size": config.type_vocab_size,
+    }, indent=2))
+    if tokenizer is not None:
+        if not hasattr(tokenizer, "save_vocab_txt"):
+            raise TypeError(
+                f"{type(tokenizer).__name__} cannot export a bert vocab.txt: HF export needs "
+                "the wordpiece tokenizer"
+            )
+        tokenizer.save_vocab_txt(out_dir / "vocab.txt")
+    return out_dir
+
+
+def pretrain_from_config(
+    config: Dict[str, Any],
+    device: Union[str, torch.device] = "cuda",
+    export_hf: bool = False,
+) -> Dict[str, Any]:
+    """MLM further pretraining as a pretrain config (``configs/
+    further_pretrain.json``) describes it, on ``device``: the encoder goes
+    to ``<output_dir>/encoder.msgpack``, with ``export_hf`` also an HF
+    checkpoint under ``<output_dir>/hf``, and a ``validation_data_path``
+    adds the held-out ``eval_loss`` and ``perplexity``.  Returns the
+    report (``final_loss``, ``checkpoint``[, ``eval_*``, ``perplexity``,
+    ``hf_checkpoint``]) and, under ``"train"``, the trainer's result."""
+    from .config import validate_pretrain_config
+    from .pretrain.mlm import MLMTrainer, MLMTrainerConfig
+
+    device = resolve_device(device)
+    trainer_cfg = validate_pretrain_config(config.get("trainer"))
+    tokenizer = build_tokenizer(config.get("tokenizer"))
+    bert_cfg = encoder_config(config.get("encoder"), tokenizer.vocab_size)
+    trainer = MLMTrainer(bert_cfg, tokenizer, MLMTrainerConfig(**trainer_cfg), device=device)
+    result = trainer.train(config["train_data_path"])
+    out_dir = Path(config.get("output_dir", "further_pretrain/out_wwm"))
+    encoder = trainer.encoder_params()
+    report: Dict[str, Any] = {
+        "final_loss": result["final_loss"],
+        "checkpoint": str(save_encoder_checkpoint(encoder, bert_cfg, out_dir)),
+    }
+    if config.get("validation_data_path"):
+        t0 = time.perf_counter()
+        report.update(trainer.evaluate(config["validation_data_path"]))
+        result["eval_s"] = time.perf_counter() - t0
+    if export_hf:
+        report["hf_checkpoint"] = str(
+            export_hf_checkpoint(encoder, bert_cfg, out_dir / "hf", tokenizer=tokenizer))
+    report["train"] = result
+    return report
 
 
 def _tokenizer_file(tok_cfg: Optional[Dict[str, Any]]) -> Optional[str]:
@@ -131,29 +271,33 @@ def train_from_config(
     device: Union[str, torch.device] = "cuda",
     mesh=None,
 ) -> Dict[str, Any]:
-    """Train the memory model a reference-shaped config describes on
-    ``device``: ``<dir>/config.json``, checkpoints, per-epoch metrics, the
-    best weights archived as ``<dir>/model.tar.gz`` (readable by the JAX
-    package) and ``<dir>/metrics.json``.  Returns the trainer's result
-    with the archive path."""
+    """Train the model a reference-shaped config describes on ``device``
+    (``MemoryTrainer`` for ``model_memory``, ``ClassifierTrainer`` for
+    ``model_single`` and ``model_cnn``): ``<dir>/config.json``,
+    checkpoints, per-epoch metrics, the best weights archived as
+    ``<dir>/model.tar.gz`` (readable by the JAX package) and
+    ``<dir>/metrics.json``.  An existing ``model.pretrained_checkpoint``
+    is loaded into the encoder first (:func:`load_pretrained_encoder`); a
+    missing one warns and trains from scratch.  Returns the trainer's
+    result with the archive path."""
     import json
 
     from .archive import ARCHIVE_NAME, save_archive
-    from .config import check_training_unported, validate_training_config
+    from .config import check_training_unported, validate_classifier_config, validate_training_config
     from .models.convert import flax_from_params
-    from .training.trainer import MemoryTrainer, TrainerConfig
 
     device = resolve_device(device)
     if mesh is not None:
         raise NotImplementedError("training on a mesh (DDP) belongs to the multi-device slice")
     check_training_unported(config)
     model_cfg = config.get("model") or {}
-    if model_cfg.get("type", "model_memory") != "model_memory":
-        raise NotImplementedError(
-            f"model type {model_cfg.get('type')!r}: the single/TextCNN trainers belong to "
-            "the other-models slice, not ported yet"
-        )
-    trainer_cfg = validate_training_config(config.get("trainer"))
+    model_type = model_cfg.get("type", "model_memory")
+    if model_type not in ("model_memory", "model_single", "model_cnn"):
+        raise ValueError(f"unknown model type {model_type!r}")
+    if model_type == "model_memory":
+        trainer_cfg = validate_training_config(config.get("trainer"))
+    else:
+        trainer_cfg = validate_classifier_config(config.get("trainer"))
     serialization_dir = Path(serialization_dir)
     serialization_dir.mkdir(parents=True, exist_ok=True)
     (serialization_dir / "config.json").write_text(json.dumps(config, indent=2))
@@ -165,28 +309,40 @@ def train_from_config(
     ckpt = model_cfg.get("pretrained_checkpoint")
     if ckpt:
         if Path(ckpt).exists():
-            raise NotImplementedError(
-                f"pretrained_checkpoint {ckpt}: loading a further-pretrained encoder "
-                "belongs to the MLM slice, not ported yet"
-            )
-        logger.warning("pretrained_checkpoint %s missing: training from scratch", ckpt)
+            load_pretrained_encoder(model, ckpt)
+            logger.info("loaded further-pretrained encoder from %s", ckpt)
+        else:
+            logger.warning("pretrained_checkpoint %s missing: training from scratch", ckpt)
     trainer_cfg.setdefault("seed", seed)
     trainer_cfg["serialization_dir"] = str(serialization_dir)
-    trainer = MemoryTrainer(
-        model, tokenizer, reader,
-        train_path=config["train_data_path"],
-        validation_path=config.get("validation_data_path"),
-        anchor_path=config.get("anchor_path")
-        or (config.get("dataset_reader") or {}).get("anchor_path"),
-        config=TrainerConfig(**trainer_cfg),
-        device=device,
-    )
+    if model_type == "model_memory":
+        from .training.trainer import MemoryTrainer, TrainerConfig
+
+        trainer = MemoryTrainer(
+            model, tokenizer, reader,
+            train_path=config["train_data_path"],
+            validation_path=config.get("validation_data_path"),
+            anchor_path=config.get("anchor_path")
+            or (config.get("dataset_reader") or {}).get("anchor_path"),
+            config=TrainerConfig(**trainer_cfg),
+            device=device,
+        )
+    else:
+        from .training.single_trainer import ClassifierTrainer, ClassifierTrainerConfig
+
+        trainer = ClassifierTrainer(
+            model, tokenizer, reader,
+            train_path=config["train_data_path"],
+            validation_path=config.get("validation_data_path"),
+            config=ClassifierTrainerConfig(**trainer_cfg),
+            device=device,
+        )
     result = trainer.train()
     archived = dict(config)
     archived["model"] = dict(model_cfg)
     save_archive(
         serialization_dir / ARCHIVE_NAME, archived,
-        flax_from_params(trainer.best_params(), model.config),
+        flax_from_params(trainer.best_params(), getattr(model, "config", None)),
         tokenizer_file=_tokenizer_file(config.get("tokenizer")),
     )
     (serialization_dir / "metrics.json").write_text(json.dumps(result, indent=2, default=float))
@@ -220,27 +376,34 @@ def evaluate_from_archive(
 ) -> Dict[str, float]:
     """Load the archive with overrides, score the test corpus on
     ``device``, write ``{name}_result.json`` + ``{name}_metric_all.json``.
-    Every key of the ``evaluation`` section is honoured
-    (``config.EVALUATION_DEFAULTS``) or raises
-    (``config.EVALUATION_UNPORTED``); ``buckets: "auto"`` derives
-    ``n_buckets`` boundaries from a 2048-report sample of the corpus."""
+    ``buckets: "auto"`` derives ``n_buckets`` boundaries from a
+    2048-report sample of the corpus.  A memory model honours every key of
+    the ``evaluation`` section (``config.EVALUATION_DEFAULTS``) or raises
+    (``config.EVALUATION_UNPORTED``); a single model (MemVul-m, TextCNN)
+    goes through ``test_single``, which takes ``batch_size``,
+    ``max_length``, ``buckets``, ``n_buckets``, ``tokens_per_batch``,
+    ``inflight`` and ``aot_warmup``, and the keys it has no use for raise
+    when set away from their defaults (``config.SINGLE_EVALUATION_UNUSED``),
+    as do an anchor file and a threshold (it predicts the argmax)."""
     from .archive import load_archive
-    from .config import evaluation_config
-    from .evaluate.predict_memory import test_siamese
+    from .config import evaluation_config, refuse_single_evaluation_keys
 
     device = resolve_device(device)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     arch = load_archive(archive_path, overrides=overrides, device=device)
     model_cfg = arch.config.get("model") or {}
-    name = name or model_cfg.get("type", "model_memory")
+    model_type = model_cfg.get("type", "model_memory")
+    name = name or model_type
     reader = build_reader(arch.config.get("dataset_reader"))
     eval_cfg = evaluation_config(arch.config)
+    if model_type != "model_memory":
+        refuse_single_evaluation_keys(eval_cfg, golden_file=golden_file, thres=thres)
     max_length = int(eval_cfg["max_length"])
     # overrides written for a longer geometry must not crash a model with
-    # a smaller position table deep in the encoder: clamp
-    model_positions = arch.model.config.max_position_embeddings
-    if max_length > model_positions:
+    # a smaller position table deep in the encoder: clamp (TextCNN has none)
+    model_positions = getattr(getattr(arch.model, "config", None), "max_position_embeddings", None)
+    if model_positions is not None and max_length > model_positions:
         logger.warning(
             "evaluation max_length %d exceeds the archived model's "
             "max_position_embeddings %d — clamping", max_length, model_positions,
@@ -255,6 +418,21 @@ def evaluate_from_archive(
     elif buckets is not None:
         buckets = [int(b) for b in buckets]
     tokens_per_batch = eval_cfg["tokens_per_batch"]
+    tokens_per_batch = None if tokens_per_batch is None else int(tokens_per_batch)
+    out_results = out_dir / f"{name}_result.json"
+    out_metrics = out_dir / f"{name}_metric_all.json"
+    if model_type != "model_memory":
+        from .evaluate.predict_single import test_single
+
+        return test_single(
+            arch.model, arch.tokenizer, test_file=test_path, out_results=out_results,
+            out_metrics=out_metrics, reader=reader, batch_size=int(eval_cfg["batch_size"]),
+            max_length=max_length, buckets=buckets, tokens_per_batch=tokens_per_batch,
+            inflight=int(eval_cfg["inflight"]), aot_warmup=bool(eval_cfg["aot_warmup"]),
+            device=device,
+        )
+    from .evaluate.predict_memory import test_siamese
+
     golden = golden_file or (arch.config.get("dataset_reader") or {}).get("anchor_path")
     if golden is None:
         raise ValueError("memory-model evaluation needs a golden anchor file")
@@ -263,13 +441,13 @@ def evaluate_from_archive(
         arch.tokenizer,
         test_file=test_path,
         golden_file=golden,
-        out_results=out_dir / f"{name}_result.json",
-        out_metrics=out_dir / f"{name}_metric_all.json",
+        out_results=out_results,
+        out_metrics=out_metrics,
         reader=reader,
         batch_size=int(eval_cfg["batch_size"]),
         max_length=max_length,
         buckets=buckets,
-        tokens_per_batch=None if tokens_per_batch is None else int(tokens_per_batch),
+        tokens_per_batch=tokens_per_batch,
         thres=thres,
         inflight=int(eval_cfg["inflight"]),
         anchor_match_impl=eval_cfg["anchor_match_impl"],

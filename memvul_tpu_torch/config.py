@@ -11,6 +11,7 @@ overrides with dotted keys reaching into nested objects, and
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import logging
 import re
@@ -381,6 +382,75 @@ def serving_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
         {"serving": {k: v for k, v in section.items() if k not in SERVING_UNPORTED}},
         "serving", SERVING_DEFAULTS,
     )
+
+
+# The evaluation keys the single-model path (MemVul-m, TextCNN) has no use
+# for, with their defaults: the JAX package passes them only to the memory
+# model's scorer and ignores them here; the port raises when one is set
+# away from its default, so a setting is never silently ignored.
+SINGLE_EVALUATION_UNUSED = ("resume", "quarantine", "attribute_anchors", "score_retries",
+                            "heartbeat_batches", "anchor_match_impl")
+
+
+def refuse_single_evaluation_keys(eval_cfg: Dict[str, Any], golden_file=None,
+                                  thres: float = 0.5) -> None:
+    """Raise ValueError naming every key of :data:`SINGLE_EVALUATION_UNUSED`
+    that ``eval_cfg`` (merged over :data:`EVALUATION_DEFAULTS`) sets away
+    from its default, and for an anchor file or a threshold other than
+    0.5: a single model predicts the argmax class against no bank."""
+    changed = sorted(k for k in SINGLE_EVALUATION_UNUSED if eval_cfg[k] != EVALUATION_DEFAULTS[k])
+    if changed:
+        raise ValueError(
+            f"evaluation keys {changed} apply to the memory model only; a single model "
+            "(model_single, model_cnn) scores without them: leave them at their defaults"
+        )
+    if golden_file is not None:
+        raise ValueError("a single model scores without an anchor bank: pass no golden file")
+    if thres != 0.5:
+        raise ValueError(f"a single model predicts the argmax class: threshold {thres} has no use")
+
+
+def _refuse_unknown(section: Dict[str, Any], cls, name: str) -> None:
+    known = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(section) - known)
+    if unknown:
+        raise ValueError(f"{name} section: unknown key(s) {unknown} (known: {sorted(known)})")
+
+
+def validate_classifier_config(trainer: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """Check a single-model config's ``trainer`` section early (returns a
+    copy): every key a field of ``ClassifierTrainerConfig``,
+    ``prefetch_depth`` >= 1, ``train_buckets`` "pow2", null or a list
+    covering ``max_length``."""
+    from .data.batching import resolve_train_buckets
+    from .training.single_trainer import ClassifierTrainerConfig
+
+    trainer = dict(trainer or {})
+    _refuse_unknown(trainer, ClassifierTrainerConfig, "trainer")
+    depth = trainer.get("prefetch_depth", 8)
+    if int(depth) < 1:
+        raise ValueError(f"trainer.prefetch_depth must be >= 1, got {depth!r}")
+    resolve_train_buckets(trainer.get("train_buckets", "pow2"), int(trainer.get("max_length", 256)))
+    return trainer
+
+
+def validate_pretrain_config(trainer: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """Check a pretrain config's ``trainer`` section early (returns a
+    copy): every key a field of ``MLMTrainerConfig``, ``batch_size``,
+    ``grad_accum``, ``max_length`` and ``prefetch_depth`` >= 1,
+    ``mask_prob`` in (0, 1]."""
+    from .pretrain.mlm import MLMTrainerConfig
+
+    trainer = dict(trainer or {})
+    _refuse_unknown(trainer, MLMTrainerConfig, "trainer")
+    for key, default in (("batch_size", 16), ("grad_accum", 2), ("max_length", 256),
+                         ("prefetch_depth", 4)):
+        if int(trainer.get(key, default)) < 1:
+            raise ValueError(f"trainer.{key} must be >= 1, got {trainer[key]!r}")
+    mask_prob = float(trainer.get("mask_prob", 0.15))
+    if not 0.0 < mask_prob <= 1.0:
+        raise ValueError(f"trainer.mask_prob must be in (0, 1], got {mask_prob!r}")
+    return trainer
 
 
 def validate_training_config(trainer: Optional[Dict[str, Any]]) -> Dict[str, Any]:

@@ -30,6 +30,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Un
 import numpy as np
 
 LABELS_SIAMESE = {"same": 0, "diff": 1}
+LABELS_BINARY = {"pos": 0, "neg": 1}
 
 
 class CachedEncoder:

@@ -1,5 +1,4 @@
-"""Corpus JSON → instance streams (the JAX package's ``data/readers.py``,
-memory model).
+"""Corpus JSON → instance streams (the JAX package's ``data/readers.py``).
 
 Instance = a plain dict: ``text1`` (the issue report, or an anchor
 description), ``text2`` (the pair partner, training only), ``label``
@@ -19,7 +18,8 @@ file name ("golden"/"test_"/"validation_").  Scoring streams take a
 a record that does not parse, fails to prepare or is over-long is
 dead-lettered with its reason and the stream goes on; without one such a
 record raises, and training keeps that fail-fast rule.  The chaos fault
-points belong to the ops-plane slice.
+points belong to the ops-plane slice.  :class:`SingleReader` streams
+single-text instances for the MemVul-m and TextCNN classifiers.
 """
 
 from __future__ import annotations
@@ -260,3 +260,40 @@ class MemoryReader:
             "label": "diff",
             "meta": {"type": TRAIN, "label": "neg", "Issue_Url": s.get("Issue_Url")},
         }
+
+
+class SingleReader:
+    """The single-text classifiers' reader (MemVul-m, TextCNN): each
+    report as ``text1`` = "title. body" with a "pos"/"neg" label from
+    ``target``.  On the train split a negative survives with probability
+    ``sample_neg`` (None keeps all), drawn from one ``random.Random(seed)``
+    in the JAX reader's order, so re-reading the file re-subsamples the
+    negatives and both readers give the same stream for the same seed."""
+
+    def __init__(
+        self,
+        sample_neg: Optional[float] = None,
+        target: str = "Security_Issue_Full",
+        seed: Optional[int] = None,
+    ) -> None:
+        self._target = target
+        self._sample_neg = sample_neg
+        self._rng = random.Random(seed)
+
+    def read(self, file_path: str, split: Optional[str] = None) -> Iterator[Dict]:
+        split = split or detect_split(file_path)
+        for s in _iter_corpus(file_path):
+            positive = str(s.get(self._target)) in ("1", "1.0", "pos")
+            if (
+                split == TRAIN
+                and not positive
+                and self._sample_neg is not None
+                and self._rng.random() >= self._sample_neg
+            ):
+                continue
+            label = "pos" if positive else "neg"
+            yield {
+                "text1": f"{s.get('Issue_Title') or ''}. {s.get('Issue_Body') or ''}",
+                "label": label,
+                "meta": {"type": split, "label": label, "Issue_Url": s.get("Issue_Url")},
+            }

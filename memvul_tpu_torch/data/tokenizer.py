@@ -28,6 +28,9 @@ the same way.
 A vocabulary comes from a bert-style ``vocab.txt`` (which wins when both
 are given and it exists), a tokenizer.json whose model is WordPiece, or
 :meth:`WordPieceTokenizer.build_deterministic`.
+
+:class:`WordTokenizer` is the TextCNN baseline's word-level tokenizer,
+its vocabulary a JSON ``{word: id}`` built from the training corpus.
 """
 
 from __future__ import annotations
@@ -355,6 +358,17 @@ class WordPieceTokenizer:
     def sep_id(self) -> int:
         return self._sep
 
+    @property
+    def mask_id(self) -> int:
+        return self.token_to_id(MASK)
+
+    def get_vocab(self) -> Dict[str, int]:
+        """Token → id over the model vocabulary and the added tokens, as
+        ``tokenizers``' ``get_vocab()`` gives it."""
+        vocab = dict(self._vocab)
+        vocab.update(self._added_ids)
+        return vocab
+
     def token_to_id(self, token: str) -> Optional[int]:
         if token in self._added_ids:
             return self._added_ids[token]
@@ -404,11 +418,86 @@ class WordPieceTokenizer:
 
     def save_vocab_txt(self, path: Union[str, Path]) -> None:
         """Write the vocabulary as a bert-style ``vocab.txt`` (one token per
-        line, in id order)."""
-        ordered = sorted(self._vocab.items(), key=lambda kv: kv[1])
+        line, in id order, added tokens included)."""
+        ordered = sorted(self.get_vocab().items(), key=lambda kv: kv[1])
         if [i for _, i in ordered] != list(range(len(ordered))):
             raise ValueError(f"vocab ids are not contiguous 0..{len(ordered) - 1}")
         Path(path).write_text("\n".join(t for t, _ in ordered) + "\n", encoding="utf-8")
+
+
+class WordTokenizer:
+    """Word-level tokenizer of the TextCNN baseline, the port's counterpart
+    of ``memvul_tpu.data.tokenizer.WordTokenizer``: lowercased runs of
+    letters, runs of digits and single other non-space characters, looked
+    up in a corpus-built vocabulary (0 = [PAD], 1 = [UNK]); no framing."""
+
+    _WORDS = re.compile(r"[a-zA-Z]+|[0-9]+|[^\sa-zA-Z0-9]")
+
+    def __init__(
+        self,
+        vocab: Optional[Dict[str, int]] = None,
+        vocab_path: Optional[Union[str, Path]] = None,
+        lowercase: bool = True,
+    ) -> None:
+        if vocab is None:
+            if vocab_path is None:
+                raise ValueError("need vocab or vocab_path")
+            vocab = json.loads(Path(vocab_path).read_text())
+        self._vocab = vocab
+        self._lowercase = lowercase
+
+    @classmethod
+    def train_from_corpus(
+        cls,
+        texts: Iterable[str],
+        max_vocab: int = 50_000,
+        min_count: int = 1,
+        lowercase: bool = True,
+        save_path: Optional[Union[str, Path]] = None,
+    ) -> "WordTokenizer":
+        """The ``max_vocab - 2`` most frequent words seen ``min_count``
+        times or more, after [PAD] and [UNK] (ties in first-seen order)."""
+        counts: Counter = Counter()
+        for text in texts:
+            counts.update(cls._split(text, lowercase))
+        vocab = {PAD: 0, UNK: 1}
+        for word, c in counts.most_common(max_vocab - 2):
+            if c < min_count:
+                break
+            vocab[word] = len(vocab)
+        if save_path is not None:
+            Path(save_path).write_text(json.dumps(vocab))
+        return cls(vocab=vocab, lowercase=lowercase)
+
+    @classmethod
+    def _split(cls, text: str, lowercase: bool) -> List[str]:
+        if lowercase:
+            text = text.lower()
+        return cls._WORDS.findall(text)
+
+    def encode(self, text: str, max_length: Optional[int] = None) -> List[int]:
+        unk = self._vocab[UNK]
+        ids = [self._vocab.get(w, unk) for w in self._split(text, self._lowercase)]
+        if max_length is not None:
+            ids = ids[:max_length]
+        return ids or [unk]
+
+    def encode_many(
+        self, texts: Sequence[str], max_length: Optional[int] = None
+    ) -> List[List[int]]:
+        return [self.encode(t, max_length=max_length) for t in texts]
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self._vocab)
+
+    @property
+    def pad_id(self) -> int:
+        return self._vocab[PAD]
+
+    @property
+    def vocab_words(self) -> List[str]:
+        return [w for w, _ in sorted(self._vocab.items(), key=lambda kv: kv[1])]
 
 
 def _read_vocab(vocab_path: str) -> Dict[str, int]:

@@ -96,7 +96,8 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     int8 contraction for a :class:`QuantLinear`)."""
     if isinstance(layer, QuantLinear):
         return layer.quantized(x, dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 def dropout(

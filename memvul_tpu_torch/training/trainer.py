@@ -84,6 +84,32 @@ def _tree_map(fn, *trees):
     return fn(*trees)
 
 
+def to_device(tree, device: torch.device):
+    """Nested dicts of host arrays → the same tree of tensors on ``device``
+    (int32 ids widened to int64); on the card through pinned host memory,
+    ``non_blocking``, so a prefetch thread's copy overlaps the step."""
+    on_card = device.type == "cuda"
+
+    def put(x):
+        t = torch.from_numpy(x.astype(np.int64) if x.dtype == np.int32 else x)
+        if on_card:
+            t = t.pin_memory()
+        return t.to(device, non_blocking=on_card)
+
+    return _tree_map(put, tree)
+
+
+def host_tree(tree):
+    """Nested dicts and lists with the tensors detached onto the host."""
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [host_tree(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    return tree
+
+
 def train_step(
     model: MemoryModel,
     optimizer: GroupedAdamW,
@@ -379,15 +405,7 @@ class MemoryTrainer:
         """The host-to-device copy, on the prefetch worker so stack N+1's
         copy overlaps step N: pinned host memory, ``non_blocking``."""
         stack, info = item
-        on_card = self.device.type == "cuda"
-
-        def put(x):
-            t = torch.from_numpy(x.astype(np.int64) if x.dtype == np.int32 else x)
-            if on_card:
-                t = t.pin_memory()
-            return t.to(self.device, non_blocking=on_card)
-
-        return _tree_map(put, stack), info
+        return to_device(stack, self.device), info
 
     # -- epoch orchestration ---------------------------------------------------
 
@@ -632,20 +650,10 @@ class MemoryTrainer:
 
     # -- state ----------------------------------------------------------------
 
-    @staticmethod
-    def _host(tree):
-        if isinstance(tree, dict):
-            return {k: MemoryTrainer._host(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [MemoryTrainer._host(v) for v in tree]
-        if isinstance(tree, torch.Tensor):
-            return tree.detach().cpu()
-        return tree
-
     def _state_dict(self) -> Dict[str, Any]:
         state = {
-            "params": self._host(self.model.state_dict()),
-            "opt_state": self._host(self.optimizer.state_dict()),
+            "params": host_tree(self.model.state_dict()),
+            "opt_state": host_tree(self.optimizer.state_dict()),
             "rng": self.generator.get_state(),
             "meta": {
                 "step": self.step,
@@ -655,7 +663,7 @@ class MemoryTrainer:
             },
         }
         if self.ema_model is not None:
-            state["ema_params"] = self._host(self.ema_model.state_dict())
+            state["ema_params"] = host_tree(self.ema_model.state_dict())
         return state
 
     def maybe_restore(self) -> bool:
@@ -712,5 +720,5 @@ class MemoryTrainer:
         live = self.ema_model if self.ema_model is not None else self.model
         state = self.checkpointer.restore_best() if self.checkpointer is not None else None
         if state is None:
-            return self._host(live.state_dict())
+            return host_tree(live.state_dict())
         return state.get("ema_params", state["params"])

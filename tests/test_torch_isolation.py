@@ -22,6 +22,9 @@ EXPECTED_MODULES = (
     "memvul_tpu_torch.training.checkpoint", "memvul_tpu_torch.training.trainer",
     "memvul_tpu_torch.models.losses", "memvul_tpu_torch.resilience.io",
     "memvul_tpu_torch.resilience.journal", "memvul_tpu_torch.ops.quant",
+    "memvul_tpu_torch.models.single", "memvul_tpu_torch.models.textcnn",
+    "memvul_tpu_torch.pretrain.mlm", "memvul_tpu_torch.training.single_trainer",
+    "memvul_tpu_torch.evaluate.predict_single",
 )
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_compare.py"]
 
@@ -74,8 +77,12 @@ def test_default_device_refuses_a_host_without_cuda(tmp_path):
         serve_from_archive,
         train_from_config,
     )
-    from memvul_tpu_torch.training.trainer import MemoryTrainer
+    from memvul_tpu_torch.build import pretrain_from_config
     from memvul_tpu_torch.evaluate.predict_memory import test_siamese as port_test_siamese
+    from memvul_tpu_torch.evaluate.predict_single import test_single as port_test_single
+    from memvul_tpu_torch.pretrain.mlm import MLMTrainer
+    from memvul_tpu_torch.training.single_trainer import ClassifierTrainer
+    from memvul_tpu_torch.training.trainer import MemoryTrainer
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         evaluate_from_archive(tmp_path / "missing.tar.gz", tmp_path / "test_x.json", tmp_path)
@@ -87,6 +94,14 @@ def test_default_device_refuses_a_host_without_cuda(tmp_path):
         train_from_config({"train_data_path": "t"}, tmp_path / "run")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MemoryTrainer(None, None, None, "t")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ClassifierTrainer(None, None, None, "t")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MLMTrainer(None, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_from_config({"train_data_path": "t"})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_test_single(None, None, "t", tmp_path / "r.json")
     assert resolve_device("cpu") == torch.device("cpu")
     proc = subprocess.run(
         [sys.executable, "-m", "memvul_tpu_torch", "serve", str(tmp_path / "missing.tar.gz"),

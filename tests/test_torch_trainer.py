@@ -294,8 +294,8 @@ def test_unported_knobs_raise_naming_their_slice(ws, tmp_path):
     cfg = selfcheck_config(ws)
     with pytest.raises(NotImplementedError, match="ops-plane"):
         build.train_from_config(dict(cfg, telemetry={"metrics_port": 9000}), tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="other-models"):
-        build.train_from_config(dict(cfg, model=dict(cfg["model"], type="model_single")),
+    with pytest.raises(ValueError, match="unknown model type"):
+        build.train_from_config(dict(cfg, model=dict(cfg["model"], type="model_folding")),
                                 tmp_path, device="cpu")
     with pytest.raises(NotImplementedError, match="multi-device"):
         build.train_from_config(cfg, tmp_path, device="cpu", mesh=object())
