@@ -94,6 +94,24 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``cnn_path``  TextCNN: ``configs/config_cnn.json`` on a corpus-built word
                  vocabulary, trained, archived, 512 reports scored with
                  ``configs/test_config_cnn.json`` verbatim;
+   ``score_corpus_path`` ``score_corpus`` of the main path's archive and
+                 corpus with ``configs/test_config_memory.json``'s section on
+                 two worker processes sharing the card, one SIGKILLed at its
+                 third row and a transient ``score.batch`` fault retried:
+                 merged records byte-identical to a single-process
+                 ``evaluate_from_archive`` by report, the same metric file,
+                 each worker's K1 and K2 launches (from its telemetry) what
+                 its warmup, batches and anchor chunks need;
+   ``bank_path`` the ``bank`` CLI (build 129 anchors; diff: retire 8,
+                 reweight 4; shadow replay of the merged results; promote),
+                 then a live ragged service serving 256 requests without and
+                 with a ``ShadowScorer`` of the 121-anchor candidate (answers
+                 bitwise the same, every request shadow-scored through K3),
+                 ``promote`` (answers those of the candidate, winners its
+                 weighted argmax) and ``demote``,
+                 and ``evaluate_cascade`` on 128 reports; K1 held at A = 121
+                 and K2 at the replay's shape;
+   ``selfcheck`` ``python -m memvul_tpu_torch selfcheck`` on the card;
 6. ``main_path_profile`` / ``serve_pack_profile``
                  device time by kernel (torch.profiler) for one batch of the
                  main path's 2048 bucket and for one serve pack's round trip
@@ -118,6 +136,7 @@ in full f32.
 
 from __future__ import annotations
 
+import collections
 import json
 import shutil
 import subprocess
@@ -1163,17 +1182,17 @@ def _flash_at_auto_shapes(shapes: list, records: dict) -> list:
     return out
 
 
-def _anchor_match_at_rows(row_counts) -> list:
-    """K1 against its plain version (f64) at each row count, A = 129,
-    D = 512, C = 2, bf16, twice for the same bits; timed as
-    ``phase_anchor_match`` times it (profiler device time), beside the
-    plain version's time and the FP32-instruction bound."""
+def _anchor_match_at_rows(row_counts, a: int = 129) -> list:
+    """K1 against its plain version (f64) at each row count, ``a`` anchors
+    (129: the main path's bank), D = 512, C = 2, bf16, twice for the same
+    bits; timed as ``phase_anchor_match`` times it (profiler device time),
+    beside the plain version's time and the FP32-instruction bound."""
     import torch
 
     from memvul_tpu_torch.ops import anchor_match as am
 
     gen = torch.Generator(device="cuda").manual_seed(8)
-    a, d, c = 129, 512, 2
+    d, c = 512, 2
     out = []
     for b in sorted(set(row_counts)):
         u = torch.randn(b, d, device="cuda", generator=gen).to(torch.bfloat16)
@@ -1183,7 +1202,8 @@ def _anchor_match_at_rows(row_counts) -> list:
         want = am.anchor_match_reference(u.double(), v.double(), w.double())
         torch.cuda.synchronize()
         err, ok = max_err(got, want, 3e-2, 3e-2)
-        row = {"rows": b, "max_abs_err": err, "same_bits_twice": bool(torch.equal(got, again)),
+        row = {"rows": b, "anchors": a, "max_abs_err": err,
+               "same_bits_twice": bool(torch.equal(got, again)),
                "ok": ok and bool(torch.equal(got, again))}
         if not row["ok"]:
             raise SystemExit(f"anchor-match kernel at an auto-bucket row count: {row}")
@@ -3019,6 +3039,346 @@ def phase_ragged_reference() -> None:
          results=results)
 
 
+# -- slice 8: sharded corpus scoring, the anchor-bank lifecycle, selfcheck ------
+
+SCORE_CORPUS_CHAOS = ("shard.kill.shard-1@3=sigkill;"
+                      "score.batch@2=raise:RuntimeError:UNAVAILABLE injected")
+
+
+def _shard_telemetry(shard_dir: Path) -> dict:
+    return json.loads((shard_dir / "telemetry.json").read_text())
+
+
+def phase_score_corpus_path(workdir: Path, records: dict, shards: int = 2) -> dict:
+    """``score_corpus`` of the main path's archive and 512 reports with
+    ``configs/test_config_memory.json``'s evaluation section (auto-8
+    buckets, warmup) on ``shards`` workers sharing the card, under the
+    chaos string (shard-1 SIGKILLed at its third row, a transient
+    ``score.batch`` fault retried), against a single-process
+    ``evaluate_from_archive`` of the same overrides: merged records
+    byte-identical by report, the same metric file.  Each worker's K1 and K2
+    launches (read back from its ``telemetry.json``) must equal what its
+    warmup, batches and anchor chunks need.  Returns the result and the
+    single-process records."""
+    import os
+
+    from memvul_tpu_torch.config import loads_config, merge_overrides
+    from memvul_tpu_torch.distributed import score_corpus
+    from memvul_tpu_torch.resilience import faults
+
+    archive, test_path = workdir / "model.tar.gz", workdir / "test_project.json"
+    overrides = merge_overrides(
+        loads_config((ROOT / "configs" / "test_config_memory.json").read_text()),
+        {"evaluation": {"score_retries": 2, "heartbeat_batches": 1}})
+    single, single_wall, single_peak, single_launches, _ = _evaluate_counted(
+        archive, test_path, workdir / "eval_single", overrides)
+    single_recs = _result_records(workdir / "eval_single" / "model_memory_result.json")
+    faults.configure(None)  # this process arms nothing; the workers read the env
+    os.environ["MEMVUL_FAULTS"] = SCORE_CORPUS_CHAOS
+    try:
+        t0 = time.perf_counter()
+        result = score_corpus(archive, test_path, workdir / "score_corpus", shards=shards,
+                              overrides=overrides, device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("MEMVUL_FAULTS", None)
+    merged = _result_records(Path(result["out_results"]))
+    by_url = {r["Issue_Url"]: r for r in single_recs}
+    mismatched = [r["Issue_Url"] for r in merged
+                  if json.dumps(r) != json.dumps(by_url.get(r["Issue_Url"]))]
+    worst, flips = 0.0, 0
+    for url in mismatched:
+        a, b = by_url.get(url), next(r for r in merged if r["Issue_Url"] == url)
+        if a is None:
+            continue
+        worst = max(worst, max(abs(a["predict"][k] - b["predict"][k]) for k in a["predict"]))
+        flips += (max(a["predict"].values()) >= 0.5) != (max(b["predict"].values()) >= 0.5)
+    workers = {}
+    for sh in result["shards"]:
+        shard_dir = workdir / "score_corpus" / sh["shard"]
+        tel = _shard_telemetry(shard_dir)
+        m = json.loads((shard_dir / "shard_metrics.json").read_text())["metrics"]
+        warm = len(m["stream_shapes"])  # aot_warmup runs each stream shape once
+        want = {"flash_attention": 12 * (warm + int(m["batches"]) + int(m["anchor_chunks"])),
+                "anchor_match": warm + int(m["batches"])}
+        got = {k: int(tel["counters"].get(f"kernels.launches.{k}", -1)) for k in want}
+        workers[sh["shard"]] = {
+            "span": sh["span"], "attempts": sh["attempts"], "failures": sh["failures"],
+            "launches": got, "want_launches": want, "batches": m["batches"],
+            "retries": tel["counters"].get("resilience.retries", 0),
+            "scoring_s": m["elapsed_s"],
+            "peak_memory_gib": tel["gauges"].get("device.peak_bytes", 0.0) / 2**30,
+        }
+    checks = {
+        "restarted": result["restarts"] >= 1 and workers["shard-1"]["attempts"] == 2,
+        "exactly_once": result["verification"]["exactly_once"]
+        and result["corpus_rows"] == len(merged) == len(single_recs),
+        "records_byte_identical": not mismatched,
+        "metrics_byte_identical": Path(result["out_metrics"]).read_bytes()
+        == (workdir / "eval_single" / "model_memory_metric_all.json").read_bytes(),
+        "transient_fault_retried": sum(w["retries"] for w in workers.values()) >= 1,
+        "worker_launches": all(w["launches"] == w["want_launches"] for w in workers.values()),
+        "same_buckets": list(result["buckets"]) == [length for _, length in single["s_stream_shapes"]],
+    }
+    reports = len(merged)
+    line = dict(
+        ok=all(checks.values()), checks=checks, shards=shards, chaos=SCORE_CORPUS_CHAOS,
+        config="configs/test_config_memory.json (+ score_retries 2)", reports=reports,
+        buckets=result["buckets"], restarts=result["restarts"], wall_s=wall,
+        reports_per_s=reports / wall, merge_wall_s=result["merge_wall_s"], workers=workers,
+        single_process={"wall_s": single_wall, "reports_per_s": reports / single_wall,
+                        "scoring_s": single["s_elapsed_s"],
+                        "scoring_reports_per_s": reports / single["s_elapsed_s"],
+                        "peak_memory_gib": single_peak, "launches": single_launches},
+        mismatched_records=len(mismatched), max_abs_diff=worst, decisions_flipped=flips,
+        card=nvidia_smi_line(),
+    )
+    emit("score_corpus_path", **line)
+    if not line["ok"]:
+        raise SystemExit(f"score_corpus_path failed: {checks}")
+    for w in workers.values():
+        records["flash_attention"]["launches"] += w["launches"]["flash_attention"]
+        records["anchor_match"]["launches"] += w["launches"]["anchor_match"]
+    return result
+
+
+def _cli_json(argv: list):
+    """``python -m memvul_tpu_torch`` in this process: (exit code, the JSON
+    it printed)."""
+    import contextlib
+    import io
+
+    from memvul_tpu_torch.__main__ import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    return rc, json.loads(out.getvalue())
+
+
+def _burst(service, texts: list) -> list:
+    """Every text queued while the batcher waits on the queue's lock, then
+    released: the batcher pulls them in order, ``max_batch`` at a time, so
+    two bursts of the same texts pack the same requests the same way."""
+    with service._cond:
+        futures = [service.submit(t) for t in texts]
+    return [f.result(120.0) for f in futures]
+
+
+def phase_bank_path(workdir: Path, records: dict, corpus_result: dict, requests: int = 256,
+                    golden_reports: int = 128) -> None:
+    """The anchor-bank lifecycle on the main path's archive: ``bank build``
+    of its 129 anchors, ``bank diff`` (retire 8, and reweight to 0.5 the 4
+    categories that win most often in ``score_corpus_path``: A = 121),
+    ``bank shadow`` replaying ``score_corpus_path``'s merged results
+    against v2 and ``bank promote`` with the default thresholds (its
+    decision reported as it is); then a live ragged ``ScoringService``
+    serving ``requests`` texts without and with a ``ShadowScorer`` of v2
+    (answers bitwise the same, every request shadow-scored through K3 at the
+    new A), ``promote`` of v2 (served answers equal to v2's offline scores, the
+    winners its weighted ``argmax``),
+    ``demote``; and ``evaluate_cascade`` on ``golden_reports`` labeled
+    reports through the int8 tier.  K1 is held against its plain version at
+    A = 121 at the row counts these paths launch it with, and K2 at the
+    replay's ``[16, 512]``."""
+    import numpy as np
+    import torch
+
+    from memvul_tpu_torch.archive import load_archive
+    from memvul_tpu_torch.bankops import (
+        BankStore, GateThresholds, ShadowConfig, ShadowScorer, demote, evaluate_candidate,
+        evaluate_cascade, promote)
+    from memvul_tpu_torch.build import build_reader
+    from memvul_tpu_torch.data.synthetic import corpus_texts
+    from memvul_tpu_torch.evaluate.predict_memory import SiamesePredictor
+    from memvul_tpu_torch.ops import anchor_match as am
+    from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.ops import ragged_attention as ra
+    from memvul_tpu_torch.serving import ScoringService, ServiceConfig
+
+    archive, test_path = workdir / "model.tar.gz", workdir / "test_project.json"
+    store_dir = workdir / "banks"
+    anchors = json.loads((workdir / "CWE_anchor_golden_project.json").read_text())
+    t0 = time.perf_counter()
+    rc, built = _cli_json(["bank", "build", "--store", str(store_dir), "--anchors",
+                           str(workdir / "CWE_anchor_golden_project.json")])
+    labels = sorted(anchors)
+    # reweight the 4 kept categories that win most often in the sharded
+    # run: halving them changes served winners, so the promoted bank's
+    # weighted selection shows on the card
+    wins = collections.Counter(max(r["predict"], key=r["predict"].get)
+                               for r in _result_records(Path(corpus_result["out_results"])))
+    reweighted = sorted(labels[8:], key=lambda c: (-wins[c], c))[:4]
+    diff = ["bank", "diff", "--store", str(store_dir)]
+    for cat in labels[:8]:
+        diff += ["--retire", cat]
+    for cat in reweighted:
+        diff += ["--reweight", f"{cat}=0.5"]
+    rc_diff, derived = _cli_json(diff)
+    store = BankStore(store_dir)
+    cli_s = {"build_and_diff": time.perf_counter() - t0}
+    common = ["--store", str(store_dir), "--candidate", "v2", "--archive", str(archive),
+              "--device", "cuda"]
+    fa.launches = am.launches = 0
+    t0 = time.perf_counter()
+    rc_shadow, replay = _cli_json(["bank", "shadow", *common, "--corpus", str(test_path),
+                                   "--results", corpus_result["out_results"],
+                                   "-o", str(workdir / "bank_shadow")])
+    cli_s["shadow"] = time.perf_counter() - t0
+    replay_launches = {"flash_attention": fa.launches, "anchor_match": am.launches}
+    t0 = time.perf_counter()
+    rc_promote, cli_decision = _cli_json(["bank", "promote", *common, "--golden-set",
+                                          str(test_path), "--shadow-summary",
+                                          str(workdir / "bank_shadow" / "shadow_summary.json")])
+    cli_s["promote"] = time.perf_counter() - t0
+    cli_ok = (rc == rc_diff == rc_shadow == 0 and rc_promote in (0, 1)
+              and built["n_anchors"] == 129 and derived["n_anchors"] == 121
+              and replay["sampled"] == corpus_result["corpus_rows"]
+              and cli_decision["approved"] == (rc_promote == 0))
+
+    # the live service: ragged packs (K3), the shadow tap, promote, demote
+    arch = load_archive(archive, device="cuda")
+    reader = build_reader(arch.config.get("dataset_reader"))
+    predictor = SiamesePredictor(arch.model, arch.tokenizer, batch_size=16, max_length=512,
+                                 score_impl="ragged", token_budget=2048, max_rows_per_pack=16)
+    predictor.encode_anchors(reader.read_anchors(str(workdir / "CWE_anchor_golden_project.json")))
+    predictor.warmup_compile()
+    service = ScoringService(predictor, config=ServiceConfig(
+        max_batch=16, max_wait_ms=5.0, max_queue=requests, default_deadline_ms=60000.0))
+    texts = corpus_texts(json.loads(test_path.read_text()))[:requests]
+    try:
+        t0 = time.perf_counter()
+        plain = _burst(service, texts)
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scorer = ShadowScorer(service, store.instances("v2"), out_dir=workdir / "bank_live",
+                              config=ShadowConfig(max_queue=4 * requests), candidate_version="v2")
+        attach_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        ra.launches = fa.launches = am.launches = 0
+        served_before = service.registry.counter("serve.batches").value
+        t0 = time.perf_counter()
+        tapped = _burst(service, texts)
+        tapped_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and \
+                service.registry.counter("bank.shadow_sampled").value < len(texts):
+            time.sleep(0.01)
+        live = scorer.stop()
+        torch.cuda.synchronize()
+        packs = service.registry.counter("serve.batches").value - served_before
+        shadow_launches = {"ragged": ra.launches, "anchor_match": am.launches,
+                           "flash": fa.launches}
+        bitwise = all(a["status"] == b["status"] == "ok" and a["predict"] == b["predict"]
+                      and a["anchor"] == b["anchor"] for a, b in zip(plain, tapped))
+
+        decision = evaluate_candidate(
+            predictor, store, "v2", list(reader.read(str(test_path)))[:golden_reports],
+            shadow_summary=live,
+            # the smoke drives the install path whatever random weights score
+            thresholds=GateThresholds(max_auc_drop=1.0, max_f1_drop=1.0, max_flip_rate=1.0,
+                                      min_shadow_samples=1))
+        serving_version = promote(service, store, decision)
+        promoted = _burst(service, texts[:64])
+        v2_bank, v2_labels, n = predictor.encode_bank(store.instances("v2"))
+        offline = predictor.score_texts(texts[:64], v2_bank, n)
+        got = np.array([[r["predict"][a] for a in v2_labels] for r in promoted], np.float64)
+        promoted_err = float(np.abs(got - offline).max())
+        # v2 reweights 4 categories: the served winner is the weighted argmax
+        # of the raw probabilities, and agrees with the offline weighted
+        # winner wherever the weighted top two are apart by more than the
+        # tolerance
+        weights = np.array([float((inst.get("meta") or {}).get("weight", 1.0))
+                            for inst in store.instances("v2")])
+        weighted_bank = service.bank_snapshot().weights is not None
+        winners = (got * weights).argmax(axis=1)
+        offline_w = offline * weights
+        top2 = np.sort(offline_w, axis=1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > 2 * BF16_SERVE_PROBS_ABS
+        weighted_winners = (
+            [r["anchor"] for r in promoted] == [v2_labels[i] for i in winners]
+            and [r["score"] for r in promoted] == [float(got[i, w]) for i, w in enumerate(winners)]
+            and bool((winners == offline_w.argmax(axis=1))[clear].all()))
+        reweight_changes = int((winners != got.argmax(axis=1)).sum())
+        demoted = demote(service, store)
+        after = _burst(service, texts[:16])
+    finally:
+        service.drain()
+    checks = {
+        "cli": cli_ok,
+        "served_bitwise_with_tap": bitwise,
+        "every_request_shadowed": live["sampled"] == len(texts) and live["errors"] == 0,
+        "shadow_through_k3": shadow_launches["ragged"] > 12 * packs
+        and shadow_launches["anchor_match"] > packs,
+        "promoted": serving_version == 2 and all(r["bank_version"] == 2 for r in promoted)
+        and promoted_err <= BF16_SERVE_PROBS_ABS,
+        "promoted_weighted_winners": weighted_bank and weighted_winners and reweight_changes > 0,
+        "demoted": demoted == {"version": "v1", "serving_version": 3}
+        and all(r["bank_version"] == 3 and len(r["predict"]) == 129 for r in after),
+        "active_pointer": store.active()["version"] == "v1",
+    }
+
+    # evaluate_cascade: the int8 tier over the golden reports
+    cascade_pred = SiamesePredictor(arch.model, arch.tokenizer, batch_size=16, max_length=512,
+                                    encoder_precision="int8", score_impl="cascade")
+    cascade_pred.encode_anchors(reader.read_anchors(str(workdir / "CWE_anchor_golden_project.json")))
+    t0 = time.perf_counter()
+    cascade = evaluate_cascade(cascade_pred, list(reader.read(str(test_path)))[:golden_reports])
+    cascade_s = time.perf_counter() - t0
+    checks["cascade_decided"] = cascade.metrics["shadow"]["sampled"] == golden_reports
+    del cascade_pred, predictor, service, arch
+    torch.cuda.empty_cache()
+
+    # K1 at the candidate's A = 121, at every row count these paths used
+    k1 = _anchor_match_at_rows([16], a=121)
+    k2 = _flash_at_auto_shapes([(16, 512)], records)
+    line = dict(
+        ok=all(checks.values()), checks=checks,
+        anchors={"v1": 129, "v2": 121, "reweighted_to_0.5": reweighted},
+        cli={"exit_codes": {"build": rc, "diff": rc_diff, "shadow": rc_shadow,
+                            "promote": rc_promote}, "seconds": cli_s,
+             "replay": replay, "replay_launches": replay_launches,
+             "promote_decision": {k: cli_decision[k] for k in ("approved", "reasons")}},
+        live={"requests": len(texts), "plain_s": plain_s, "tapped_s": tapped_s,
+              "plain_requests_per_s": len(texts) / plain_s,
+              "tapped_requests_per_s": len(texts) / tapped_s, "attach_and_warm_s": attach_s,
+              "packs": packs, "shadow": live, "launches": shadow_launches,
+              "promoted_max_abs_err": promoted_err, "tol": BF16_SERVE_PROBS_ABS,
+              "promoted_clear_winners": int(clear.sum()),
+              "promoted_reweight_winner_changes": reweight_changes,
+              "gate_approved": decision.approved},
+        cascade={"reports": golden_reports, "approved": cascade.approved,
+                 "reasons": cascade.reasons, "flip_rate": cascade.metrics["shadow"]["flip_rate"],
+                 "max_abs_delta": cascade.metrics["shadow"]["max_abs_delta"],
+                 "seconds": cascade_s},
+        kernel_anchor_match_a121=k1, kernel_flash_replay_shape=k2, card=nvidia_smi_line(),
+    )
+    emit("bank_path", **line)
+    if not line["ok"]:
+        raise SystemExit(f"bank_path failed: {checks}")
+    records["ragged_flash_attention"]["launches"] += shadow_launches["ragged"]
+    records["anchor_match"]["launches"] += shadow_launches["anchor_match"] \
+        + replay_launches["anchor_match"]
+    records["flash_attention"]["launches"] += replay_launches["flash_attention"]
+
+
+def phase_selfcheck(workdir: Path) -> None:
+    """``python -m memvul_tpu_torch selfcheck`` on the card, as a user runs
+    it: a synthetic workspace, a tiny train, the archive, ``evaluate``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "memvul_tpu_torch", "selfcheck", "--dir", str(workdir / "sc")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    report = json.loads(lines[-1]) if lines else {}
+    ok = proc.returncode == 0 and report.get("selfcheck") == "ok" and report.get("device") == "cuda"
+    emit("selfcheck", ok=ok, wall_s=wall, report=report, card=nvidia_smi_line())
+    if not ok:
+        raise SystemExit(f"selfcheck failed ({proc.returncode}): {proc.stderr[-2000:]}")
+
+
 def main() -> int:
     import torch
 
@@ -3069,6 +3429,10 @@ def main() -> int:
         phase_pretrain_path(Path(tmp), other, records)
         phase_single_path(Path(tmp), other, records)
         phase_cnn_path(Path(tmp), other, records)
+        # slice 8: sharded scoring on the card, the bank lifecycle, selfcheck
+        corpus_result = phase_score_corpus_path(Path(tmp), records)
+        phase_bank_path(Path(tmp), records, corpus_result)
+        phase_selfcheck(Path(tmp))
     phase_main_path_reference()
     phase_ragged_reference()
     phase_train_reference()

@@ -72,17 +72,10 @@ def _read_members(archive_path: Path) -> Dict[str, bytes]:
     return out
 
 
-def load_archive(
-    archive_path: Union[str, Path],
-    overrides: Optional[Union[str, Dict[str, Any]]] = None,
-    device: Union[str, "torch.device"] = "cuda",  # noqa: F821
-) -> Archive:
-    """Load an archive (or a serialization dir holding one), merging
-    config ``overrides``; the model lands on ``device``."""
-    from .build import build_model, build_tokenizer, resolve_device
-    from .models.convert import params_from_flax
+def _config_and_tokenizer(archive_path: Union[str, Path], overrides):
+    """(members, the config with ``overrides`` merged, the tokenizer)."""
+    from .build import build_tokenizer
 
-    device = resolve_device(device)
     archive_path = Path(archive_path)
     if archive_path.is_dir():
         archive_path = archive_path / ARCHIVE_NAME
@@ -112,6 +105,31 @@ def load_archive(
                 tok_cfg["tokenizer_path"] = str(path)
                 tok_cfg.pop("vocab_path", None)
         tokenizer = build_tokenizer(tok_cfg)
+    return members, config, tokenizer
+
+
+def load_archive_config(
+    archive_path: Union[str, Path],
+    overrides: Optional[Union[str, Dict[str, Any]]] = None,
+):
+    """(config with ``overrides`` merged, tokenizer) of an archive, without
+    building its model: what a supervisor that scores nothing itself needs."""
+    _, config, tokenizer = _config_and_tokenizer(archive_path, overrides)
+    return config, tokenizer
+
+
+def load_archive(
+    archive_path: Union[str, Path],
+    overrides: Optional[Union[str, Dict[str, Any]]] = None,
+    device: Union[str, "torch.device"] = "cuda",  # noqa: F821
+) -> Archive:
+    """Load an archive (or a serialization dir holding one), merging
+    config ``overrides``; the model lands on ``device``."""
+    from .build import build_model, resolve_device
+    from .models.convert import params_from_flax
+
+    device = resolve_device(device)
+    members, config, tokenizer = _config_and_tokenizer(archive_path, overrides)
     model = build_model(config.get("model") or {}, tokenizer.vocab_size)
     params = _msgpack.unpackb(members["weights.msgpack"])
     model.load_state_dict(params_from_flax(params, getattr(model, "config", None)))

@@ -378,8 +378,8 @@ def evaluate_from_archive(
     ``device``, write ``{name}_result.json`` + ``{name}_metric_all.json``.
     ``buckets: "auto"`` derives ``n_buckets`` boundaries from a
     2048-report sample of the corpus.  A memory model honours every key of
-    the ``evaluation`` section (``config.EVALUATION_DEFAULTS``) or raises
-    (``config.EVALUATION_UNPORTED``); a single model (MemVul-m, TextCNN)
+    the ``evaluation`` section (``config.EVALUATION_DEFAULTS``; the
+    ``shards*`` keys are ``score-corpus``'s); a single model (MemVul-m, TextCNN)
     goes through ``test_single``, which takes ``batch_size``,
     ``max_length``, ``buckets``, ``n_buckets``, ``tokens_per_batch``,
     ``inflight`` and ``aot_warmup``, and the keys it has no use for raise
@@ -399,6 +399,9 @@ def evaluate_from_archive(
     eval_cfg = evaluation_config(arch.config)
     if model_type != "model_memory":
         refuse_single_evaluation_keys(eval_cfg, golden_file=golden_file, thres=thres)
+    if int(eval_cfg["shards"]) != 1:
+        logger.info("evaluation.shards=%s is read by score-corpus; evaluate scores in one process",
+                    eval_cfg["shards"])
     max_length = int(eval_cfg["max_length"])
     # overrides written for a longer geometry must not crash a model with
     # a smaller position table deep in the encoder: clamp (TextCNN has none)
@@ -475,7 +478,7 @@ def serve_from_archive(
     returned, so the first request pays no build.  With ``out_dir`` the
     service writes ``telemetry.json`` there when it drains."""
     from .archive import load_archive
-    from .config import serving_config
+    from .config import bankops_config, serving_config
     from .data.batching import validate_buckets
     from .evaluate.predict_memory import SiamesePredictor
     from .resilience.retry import RetryPolicy
@@ -534,7 +537,8 @@ def serve_from_archive(
     predictor.encode_anchors(reader.read_anchors(str(golden)))
     shapes = predictor.warmup_compile()
     logger.info("serving warmed %d shape(s) on %s (score_impl=%s)", shapes, device, score_impl)
-    return ScoringService(
+    bank_cfg = bankops_config(arch.config)
+    service = ScoringService(
         predictor,
         config=ServiceConfig(
             max_batch=int(serve_cfg["max_batch"]),
@@ -542,7 +546,21 @@ def serve_from_archive(
             max_queue=int(serve_cfg["max_queue"]),
             default_deadline_ms=float(serve_cfg["default_deadline_ms"]),
             prefix_share=bool(serve_cfg["prefix_share"]),
+            anchor_stats=bool(bank_cfg["anchor_stats"]),
         ),
         retry_policy=RetryPolicy(attempts=retries) if retries > 0 else None,
         out_dir=out_dir,
     )
+    if bank_cfg["baseline"]:
+        # a pinned win-share distribution: republish bank.anchor_drift from
+        # the serving counters in the background (stopped at drain)
+        from .bankops.drift import DriftMonitor, load_baseline
+
+        baseline = load_baseline(bank_cfg["baseline"])
+        if baseline:
+            service.drift_monitor = DriftMonitor(service.registry, baseline,
+                                                 interval_s=float(bank_cfg["drift_interval_s"]))
+        else:
+            logger.warning("bankops.baseline %s is missing or unreadable: no drift gauge",
+                           bank_cfg["baseline"])
+    return service

@@ -239,20 +239,14 @@ EVALUATION_DEFAULTS: Dict[str, Any] = {
     # (docs/anchor_bank.md) — off so the default output format stays
     # byte-stable with the reference's
     "attribute_anchors": False,
-}
-
-# The JAX package's evaluation keys for sharded corpus scoring (its
-# ``score-corpus`` CLI, the multi-device slice), with their defaults.
-# Leaving one at its default is fine; setting it to anything else raises,
-# so a setting is never silently ignored.
-EVALUATION_UNPORTED: Dict[str, Any] = {
+    # sharded corpus scoring: the score-corpus CLI reads these
+    # (distributed/coordinator.py); evaluate scores in one process
     "shards": 1,               # supervised worker subprocesses
     "max_shard_attempts": 3,   # launches per shard before quarantine
     "shard_stall_timeout_s": 120.0,  # heartbeat age that counts as wedged
     "shard_poll_interval_s": 1.0,    # supervisor poll cadence
     "shard_backoff_s": 2.0,    # restart backoff base (exponential)
 }
-
 
 def _section_over_defaults(
     cfg: Optional[Dict[str, Any]], key: str, defaults: Dict[str, Any]
@@ -294,15 +288,46 @@ def _refuse_unported(section: Dict[str, Any], unported: Dict[str, Any], name: st
 
 
 def evaluation_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
-    """``cfg["evaluation"]`` merged over :data:`EVALUATION_DEFAULTS`.
-    Raises ValueError when a key of :data:`EVALUATION_UNPORTED` is set to
-    anything but its default."""
-    section = dict((cfg or {}).get("evaluation") or {})
-    _refuse_unported(section, EVALUATION_UNPORTED, "evaluation")
-    return _section_over_defaults(
-        {"evaluation": {k: v for k, v in section.items() if k not in EVALUATION_UNPORTED}},
-        "evaluation", EVALUATION_DEFAULTS,
-    )
+    """``cfg["evaluation"]`` merged over :data:`EVALUATION_DEFAULTS` (every
+    key of the JAX package's evaluation section is honoured)."""
+    return _section_over_defaults(cfg, "evaluation", EVALUATION_DEFAULTS)
+
+
+# The ``telemetry`` section's keys that the sharded corpus scorer honours
+# (the coordinator's and the workers' run sinks), with the JAX package's
+# defaults.
+TELEMETRY_DEFAULTS: Dict[str, Any] = {
+    "enabled": True,         # the coordinator's events.jsonl, heartbeat, summary
+    "events": True,          # the append-only events.jsonl stream
+    "heartbeat_every_s": 30.0,  # HEARTBEAT.json's most frequent rewrite
+}
+
+# The ``telemetry`` keys of the ops-plane slice (ROADMAP.md), with their
+# defaults: set away from the default, each raises naming that slice.
+TELEMETRY_UNPORTED: Dict[str, Any] = {
+    "metrics_port": (0, "the live /metrics server"),
+    "step_events": (True, "switching the per-step trainer events"),
+    "hbm_gauges": (True, "switching the device-memory gauges"),
+    "trace_dir": (None, "the profiler trace"),
+    "tsdb_cadence_s": (0.0, "the metrics history"),
+    "tsdb_resolution_s": (1.0, "the metrics history"),
+    "tsdb_retention_s": (600.0, "the metrics history"),
+}
+
+
+def telemetry_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """``cfg["telemetry"]`` merged over :data:`TELEMETRY_DEFAULTS`; a key of
+    :data:`TELEMETRY_UNPORTED` set away from its default raises
+    NotImplementedError naming the ops-plane slice."""
+    section = dict((cfg or {}).get("telemetry") or {})
+    for key, (default, what) in TELEMETRY_UNPORTED.items():
+        value = section.pop(key, None)
+        if value is not None and value != default:
+            raise NotImplementedError(
+                f"telemetry.{key}={value!r}: {what} belongs to the ops-plane slice, which is "
+                "not ported yet (ROADMAP.md)"
+            )
+    return _section_over_defaults({"telemetry": section}, "telemetry", TELEMETRY_DEFAULTS)
 
 
 # The ``serving`` section's keys that the port honours, with the JAX
@@ -382,6 +407,49 @@ def serving_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
         {"serving": {k: v for k, v in section.items() if k not in SERVING_UNPORTED}},
         "serving", SERVING_DEFAULTS,
     )
+
+
+# The ``bankops`` section (the anchor-bank lifecycle), with the JAX
+# package's defaults.  ``build.serve_from_archive`` honours ``anchor_stats``,
+# ``baseline`` and ``drift_interval_s``; ``bank shadow`` and ``bank promote``
+# take ``shadow_threshold`` and the gate's four limits where their flags are
+# not given.
+BANKOPS_DEFAULTS: Dict[str, Any] = {
+    "anchor_stats": True,      # per-anchor win/score counts in serving
+    "baseline": None,          # a pinned anchor_baseline.json (drift)
+    "drift_interval_s": 30.0,  # DriftMonitor gauge refresh cadence
+    "shadow_threshold": 0.5,   # the shadow's decision threshold (flips)
+    "max_auc_drop": 0.01,      # the gate's golden-set AUC tolerance
+    "max_f1_drop": 0.01,       # the gate's golden-set F1 tolerance
+    "max_flip_rate": 0.02,     # the gate's shadow flip-rate ceiling
+    "min_shadow_samples": 100,  # the gate's shadow evidence volume
+}
+
+# The JAX package's ``bankops`` keys that no entry point of either package
+# reads (the store is ``--store``; a ``ShadowScorer`` samples every served
+# request and takes its queue bound from ``ShadowConfig``), with their
+# defaults: set away from the default, each raises rather than being ignored.
+BANKOPS_UNREAD: Dict[str, Any] = {
+    "store_dir": None,
+    "shadow_sample_stride": 1,
+    "shadow_max_queue": 512,
+}
+
+
+def bankops_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """``cfg["bankops"]`` merged over :data:`BANKOPS_DEFAULTS`; a key of
+    :data:`BANKOPS_UNREAD` set away from its default raises ValueError."""
+    section = dict((cfg or {}).get("bankops") or {})
+    changed = sorted(k for k, default in BANKOPS_UNREAD.items()
+                     if section.get(k) is not None and section[k] != default)
+    if changed:
+        raise ValueError(
+            f"bankops keys {changed} are read by no entry point: the store is the bank "
+            "CLI's --store, a ShadowScorer samples every served request"
+        )
+    return _section_over_defaults(
+        {"bankops": {k: v for k, v in section.items() if k not in BANKOPS_UNREAD}},
+        "bankops", BANKOPS_DEFAULTS)
 
 
 # The evaluation keys the single-model path (MemVul-m, TextCNN) has no use

@@ -91,3 +91,16 @@ def write_json(samples: Sequence[Dict], path: Union[str, Path]) -> None:
 
 def load_json(path: Union[str, Path]) -> List[Dict]:
     return json.loads(Path(path).read_text())
+
+
+def write_mlm_corpus(samples: Iterable[Dict], path: Union[str, Path]) -> int:
+    """One report a line ("title. body") for MLM further pretraining;
+    returns the line count."""
+    n = 0
+    with open(path, "w", encoding="utf-8") as f:
+        for s in samples:
+            line = f"{s.get('Issue_Title') or ''}. {s.get('Issue_Body') or ''}".strip()
+            if line != ".":
+                f.write(line.replace("\n", " ") + "\n")
+                n += 1
+    return n

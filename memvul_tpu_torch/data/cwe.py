@@ -13,6 +13,7 @@ CanPrecede/Requires → relate.
 
 from __future__ import annotations
 
+import csv
 import json
 import random
 from pathlib import Path
@@ -23,6 +24,12 @@ from .normalize import normalize_text
 
 # ordering used to put high-level categories before specific ones
 ABSTRACTION_RANK = {"Pillar": 1, "Class": 2, "Base": 2.5, "Variant": 3, "Compound": 3}
+
+
+def load_research_view_csv(path: Union[str, Path]) -> List[Dict[str, str]]:
+    """The CWE Research View export (1000.csv) as record dicts."""
+    with open(path, newline="", encoding="utf-8") as f:
+        return list(csv.DictReader(f))
 
 
 def build_cwe_tree(records: Iterable[Dict[str, str]]) -> Dict[str, Dict]:
@@ -192,6 +199,47 @@ def build_anchors(
         anchors[category] = _category_description(
             tree, bare_id, member_cves, cve_dict, rng, level, num_cve_per_anchor
         )
+    return anchors
+
+
+def build_full_view_anchors(
+    tree: Dict[str, Dict],
+    cve_dict: Dict[str, Dict],
+    distribution: Optional[Dict[str, Dict]] = None,
+    level: int = 1,
+    num_cve_per_anchor: int = 5,
+    seed: Optional[int] = None,
+) -> Dict[str, str]:
+    """One anchor per node of the whole Research View (not only the CWEs
+    seen in training) plus every train-seen out-of-view category (through
+    :func:`build_anchors`'s CVE-description fallback), so a strict
+    superset of the train-seen bank's categories.  Nodes with no training
+    CVEs get the subtree description alone."""
+    rng = random.Random(seed)
+    distribution = distribution or {}
+    cves_by_category = {
+        cat: list(info["CVE_distribution"].keys())
+        for cat, info in distribution.items()
+        if cat != "null"
+    }
+    categories = {f"CWE-{bare_id}": bare_id for bare_id in tree}
+    for cat in cves_by_category:  # train-seen out-of-view categories
+        categories.setdefault(
+            cat, cat.split("-", 1)[1] if "-" in cat else cat
+        )
+    anchors: Dict[str, str] = {}
+    for category, bare_id in categories.items():
+        description = _category_description(
+            tree,
+            bare_id,
+            cves_by_category.get(category, []),
+            cve_dict,
+            rng,
+            level,
+            num_cve_per_anchor,
+        )
+        if description:
+            anchors[category] = description
     return anchors
 
 

@@ -28,7 +28,10 @@ uninterrupted run; ``quarantine`` dead-letters records the stream cannot
 score; ``retry_policy`` retries a batch's transient failures (never
 rerouting it to a plain version); ``heartbeat_batches`` logs progress;
 ``attribute_anchors`` adds the winning anchor to every output record.
-The counters go to the predictor's ``telemetry`` registry.
+The counters go to the predictor's ``telemetry`` registry (and, when it has
+a run directory, the heartbeat to its ``HEARTBEAT.json``: the sharded
+scorer's workers); each batch passes the ``score.batch`` fault point inside
+its retried window.
 
 PyTorch runs eagerly, so the JAX package's AOT compile, its trace
 counter and its program registry have no counterpart here;
@@ -65,6 +68,7 @@ from ..data.batching import (
 )
 from ..data.readers import MemoryReader
 from ..models.memory import MemoryModel, anchor_probs
+from ..resilience import faults
 from ..resilience.journal import DeadLetter, ScoreJournal
 from ..resilience.retry import RetryPolicy, exception_text
 from ..telemetry import Registry
@@ -165,18 +169,20 @@ class SiamesePredictor:
         """Encode anchors in chunks of ``anchor_chunk`` rows padded to
         ``max_length`` and keep the bank on the device."""
         start = time.perf_counter()
-        bank, labels, n_anchors, chunks = self.encode_bank(anchor_instances)
+        bank, labels, n_anchors = self.encode_bank(anchor_instances)
         _sync(self.device)
         self.anchor_bank, self.anchor_labels, self.n_anchors = bank, labels, n_anchors
         self.stats["anchor_encode_s"] = time.perf_counter() - start
-        self.stats["anchor_chunks"] = chunks
+        self.stats["anchor_chunks"] = -(-n_anchors // self.anchor_chunk)
         logger.info("anchor bank: %d anchors, dim %d", n_anchors, bank.shape[1])
 
     @torch.no_grad()
     def encode_bank(
         self, anchor_instances: Iterable[Dict]
-    ) -> Tuple[torch.Tensor, List[str], int, int]:
-        """(bank [A, D] on the device, labels, A, chunks encoded)."""
+    ) -> Tuple[torch.Tensor, List[str], int]:
+        """(bank [A, D] on the device, labels, A), encoded in chunks of
+        ``anchor_chunk`` rows padded to ``max_length``: any bank, the
+        predictor's own or a candidate's (``bankops``, ``swap_bank``)."""
         instances = list(anchor_instances)
         labels = [inst["meta"]["label"] for inst in instances]
         parts: List[torch.Tensor] = []
@@ -186,7 +192,7 @@ class SiamesePredictor:
             block = _pad_block(seqs, self.anchor_chunk, self.encoder.pad_id, self.encoder.max_length)
             parts.append(self.model.encode(*self._to_device(block))[: len(chunk)])
         bank = torch.cat(parts, dim=0)
-        return bank, labels, bank.shape[0], len(parts)
+        return bank, labels, bank.shape[0]
 
     # -- phase 2: streaming scoring ------------------------------------------
 
@@ -280,19 +286,28 @@ class SiamesePredictor:
             raise RuntimeError("call encode_anchors() first")
         return self.warmup_bank_shapes(self.anchor_bank)
 
-    def score_texts(self, texts: Sequence[str], impl: Optional[str] = None) -> np.ndarray:
-        """Score raw texts against the anchor bank the way the service
-        would: packed into ``[1, token_budget]`` rows on the packed path,
-        else grouped into bucket blocks (``impl="bucketed"`` forces those,
-        on the full-precision model even for ``score_impl="cascade"``).
+    def score_texts(
+        self,
+        texts: Sequence[str],
+        bank_array: Optional[torch.Tensor] = None,
+        n_anchors: Optional[int] = None,
+        impl: Optional[str] = None,
+    ) -> np.ndarray:
+        """Score raw texts against a bank the way the service would: packed
+        into ``[1, token_budget]`` rows on the packed path, else grouped
+        into bucket blocks (``impl="bucketed"`` forces those, on the
+        full-precision model even for ``score_impl="cascade"``).
         ``impl="int8"`` scores the blocks on the int8 tier; ``"cascade"``
         applies the serving rule offline: int8 everywhere, then the rows
         whose best probability lies in ``cascade_band`` (inclusive) rescored
-        at full precision.  Returns ``[len(texts), n_anchors]``
-        probabilities."""
+        at full precision.  ``bank_array`` and ``n_anchors`` default to the
+        predictor's own bank; the shadow scorer and the promotion gates pass
+        a candidate's (warm its shapes first with :meth:`warmup_bank_shapes`).
+        Returns ``[len(texts), n_anchors]`` probabilities."""
         if impl not in (None, "bucketed", "int8", "cascade"):
             raise ValueError(f"impl must be None, 'bucketed', 'int8' or 'cascade', got {impl!r}")
-        bank, n = self.anchor_bank, self.n_anchors
+        bank = self.anchor_bank if bank_array is None else bank_array
+        n = self.n_anchors if n_anchors is None else int(n_anchors)
         if bank is None:
             raise RuntimeError("call encode_anchors() first")
         int8 = self._require_int8() if impl in ("int8", "cascade") else None
@@ -389,6 +404,8 @@ class SiamesePredictor:
             # each batch's device time, by CUDA events around its launches
             # (host time on the CPU, where the forward is synchronous)
             def once():
+                # chaos hook: once per batch, inside the retried window
+                faults.fault_point("score.batch")
                 return self._score(batch["sample1"])
 
             def score():
@@ -484,6 +501,7 @@ class SiamesePredictor:
         heartbeat_batches: int = 0,
         retry_policy: Optional[RetryPolicy] = None,
         attribute_anchors: bool = False,
+        expected_reports: Optional[int] = None,
     ) -> Dict[str, float]:
         """Stream a corpus file, write the reference-format result lines
         (one JSON list of records per batch, serialised on a writer
@@ -498,7 +516,9 @@ class SiamesePredictor:
         * ``quarantine`` (True for ``<out>.deadletter``, or a path)
           dead-letters malformed and over-long records with their reasons.
         * ``heartbeat_batches=N`` logs progress every N batches (rows/s,
-          the journal's total, the quarantine count).
+          the ETA when ``expected_reports`` is given, the journal's total,
+          the quarantine count) and writes it to :attr:`telemetry`'s
+          ``HEARTBEAT.json`` when that registry has a run directory.
         * ``retry_policy`` retries transient batch failures
           (:meth:`score_instances`).
         * ``attribute_anchors`` adds the winning anchor's id and bank index
@@ -606,12 +626,18 @@ class SiamesePredictor:
                 batches_done += 1
                 if heartbeat_batches and batches_done % heartbeat_batches == 0:
                     rate = (n - n_resumed) / max(time.perf_counter() - start, 1e-9)
+                    eta_s = (max(0.0, (expected_reports - n) / rate)
+                             if expected_reports and rate > 0 else None)
                     logger.info(
                         "scoring heartbeat: %d batches this run (journal total %s), "
-                        "%d/%d reports, %.0f rows/s, %d quarantined",
+                        "%d/%d reports, %.0f rows/s, ETA %s, %d quarantined",
                         batches_done, journal.entries_written if journal is not None else "-",
-                        n - n_resumed, n, rate, dead.count if dead is not None else 0,
+                        n - n_resumed, n, rate,
+                        "unknown" if eta_s is None else f"{eta_s:.0f}s",
+                        dead.count if dead is not None else 0,
                     )
+                    tel.heartbeat(force=True, rows_scored=n, rows_per_sec=round(rate, 1),
+                                  eta_s=None if eta_s is None else round(eta_s, 1))
         finally:
             _put(None)
             writer.join()
@@ -619,6 +645,8 @@ class SiamesePredictor:
                 journal.close()
             if dead is not None:
                 dead.close()
+            # after the writer drained: the counters match what is on disk
+            tel.heartbeat(force=True, rows_scored=n)
         if writer_error:
             raise writer_error[0]
         elapsed = time.perf_counter() - start

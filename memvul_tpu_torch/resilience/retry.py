@@ -4,7 +4,7 @@ package's ``resilience/retry.py``).
 A failure is transient when its text carries one of the markers below;
 anything else is a bug and propagates at once.  The serving path wraps each
 device call in :meth:`RetryPolicy.call` and dead-letters the batch when the
-retries run out.  The chaos ``faults`` hooks wait for a later slice.
+retries run out.  The chaos hooks that drive it in tests are in :mod:`.faults`.
 """
 
 from __future__ import annotations

@@ -200,14 +200,25 @@ class Dispatcher:
 
     def _resolve_scored(self, chunk: Chunk, probs: np.ndarray, bank: _BankVersion) -> None:
         """Resolve scored rows to their clients (each request passes here
-        exactly once on the success path)."""
-        tel = self.service._tel
+        exactly once on the success path), then hand them to the shadow tap
+        if one is installed."""
+        svc = self.service
+        tel = svc._tel
         tel.counter("serve.served").inc(len(chunk))
         now = time.monotonic()
+        anchor_stats = svc.config.anchor_stats
+        weights = bank.weights
         for (request, _), row in zip(chunk, probs):
-            best = int(np.argmax(row))
+            # a reweighted bank picks its winner by the weighted scores and
+            # reports the raw probabilities; an all-1.0 bank (weights None)
+            # takes the plain argmax, bitwise as before
+            best = int(np.argmax(row * weights if weights is not None else row))
             latency = now - request.enqueued_monotonic
             tel.histogram("serve.latency_s").observe(latency)
+            if anchor_stats:
+                label = bank.labels[best]
+                tel.counter(f"bank.anchor_wins.{label}").inc()
+                tel.histogram(f"bank.anchor_score.{label}").observe(float(row[best]))
             request.future.resolve({
                 "status": STATUS_OK,
                 "predict": {label: float(p) for label, p in zip(bank.labels, row)},
@@ -216,6 +227,16 @@ class Dispatcher:
                 "bank_version": bank.version,
                 "latency_ms": round(latency * 1e3, 3),
             })
+        tap = svc._shadow_tap
+        if tap is not None:
+            # after resolution, so shadow sampling adds nothing to a client's
+            # latency; the tap only enqueues copies, and a raising tap is
+            # counted, never seen by a client (bankops/shadow.py)
+            try:
+                tap([request.text for request, _ in chunk], probs, bank)
+            except Exception:
+                tel.counter("bank.shadow_errors").inc()
+                logger.exception("shadow tap failed (active path unaffected)")
 
 
 class BucketedDispatcher(Dispatcher):

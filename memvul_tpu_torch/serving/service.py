@@ -23,8 +23,16 @@ micro-batch captures ONE anchor-bank snapshot, so no response mixes two
 banks.  The counters keep ``serve.served + serve.shed + serve.errors ==
 serve.requests``.
 
-Not ported yet (ROADMAP.md): request tracing, ``swap_bank``, the shadow
-tap, the admission cache, tenants, HBM gauges and the bank manifest.
+:meth:`ScoringService.swap_bank` installs a new bank (encoded, and its
+shapes warmed when its geometry is new, before the install), with its
+provenance (``source``, ``store_version``), the next version number and
+the per-anchor weights of a reweighted bank (the winner is the weighted
+``argmax``; the served probabilities stay raw);
+:meth:`ScoringService.set_shadow_tap` hands every served chunk to a shadow
+scorer (``bankops/shadow.py``) after its futures resolve.
+
+Not ported yet (ROADMAP.md, the serving-plane slice): request tracing, the
+admission cache, named tenants, HBM gauges and the bank manifest.
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
 
 from ..resilience.retry import RetryPolicy
 from ..telemetry import Registry
@@ -66,6 +76,9 @@ class ServiceConfig:
     # continuous packs: an exact duplicate of a request already in the
     # open pack shares its segment instead of paying tokens
     prefix_share: bool = False
+    # count each served decision's winning anchor (bank.anchor_wins.<id>,
+    # bank.anchor_score.<id>): the raw data of bankops/drift.py
+    anchor_stats: bool = True
 
 
 class ScoreFuture:
@@ -110,12 +123,37 @@ class _Request:
 class _BankVersion:
     """One immutable anchor-bank snapshot: the device bank [A, D], its
     labels and real row count.  A micro-batch captures one and labels its
-    whole response from it."""
+    whole response from it.  ``source``, ``parent_version`` and
+    ``store_version`` are provenance: how it was installed ("startup",
+    "manual", "promotion", "demotion"), which serving version it replaced,
+    and its bank-store version id when it came out of one."""
 
     version: int
     array: Any
     labels: Tuple[str, ...]
     n_anchors: int
+    source: str = "startup"
+    parent_version: Optional[int] = None
+    store_version: Optional[str] = None
+    # per-anchor weights (``meta["weight"]`` of each instance) for the
+    # weighted winner selection; ``None`` for an all-1.0 bank, which then
+    # selects by the plain ``argmax``, bitwise as an unweighted bank
+    weights: Any = None
+
+
+def _bank_weights(instances: List[Dict], n_anchors: int):
+    """The per-anchor weight vector from the instances' meta, in encode
+    order (``encode_bank`` keeps the instances' order); ``None`` for the
+    all-1.0 bank, or when the counts differ and the weights cannot be
+    aligned with the anchors (logged)."""
+    if len(instances) != int(n_anchors):
+        logger.warning("bank weights dropped: %d instances vs %d anchors",
+                       len(instances), n_anchors)
+        return None
+    raw = [float((inst.get("meta") or {}).get("weight", 1.0)) for inst in instances]
+    if all(w == 1.0 for w in raw):
+        return None
+    return np.asarray(raw, dtype=np.float32)
 
 
 class ScoringService:
@@ -157,6 +195,15 @@ class ScoringService:
             labels=tuple(predictor.anchor_labels),
             n_anchors=predictor.n_anchors,
         )
+        self._bank_lock = threading.Lock()
+        # serializes swaps (the control plane); the request path never takes it
+        self._swap_lock = threading.Lock()
+        self._warmed_bank_shapes = {tuple(predictor.anchor_bank.shape)}
+        # bankops/shadow.py's tap: called on the batcher after each served
+        # chunk's futures resolve; it only enqueues
+        self._shadow_tap: Optional[Any] = None
+        # bankops.baseline's DriftMonitor (build.serve_from_archive); stopped at drain
+        self.drift_monitor: Optional[Any] = None
         self._queue: "collections.deque[_Request]" = collections.deque()
         self._cond = threading.Condition()
         # drain is a bare Event (no lock), so a signal handler can set it
@@ -224,7 +271,80 @@ class ScoringService:
             return len(self._queue)
 
     def bank_snapshot(self) -> _BankVersion:
-        return self._bank
+        """The current immutable bank snapshot (version and provenance)."""
+        with self._bank_lock:
+            return self._bank
+
+    @property
+    def bank_version(self) -> int:
+        return self.bank_snapshot().version
+
+    # -- shadow tap (bankops/shadow.py) ---------------------------------------
+
+    def set_shadow_tap(self, tap) -> None:
+        """Install ``tap(texts, probs, bank_snapshot)``, called on the
+        batcher thread after each served chunk's futures resolve.  The tap
+        must only enqueue (the shadow scorer works on its own thread); an
+        exception from it is counted (``bank.shadow_errors``), never seen
+        by a client."""
+        self._shadow_tap = tap
+
+    def clear_shadow_tap(self) -> None:
+        self._shadow_tap = None
+
+    # -- hot anchor-bank swap --------------------------------------------------
+
+    def swap_bank(
+        self,
+        anchor_instances,
+        source: str = "manual",
+        store_version: Optional[str] = None,
+        tenant: Optional[str] = None,
+    ) -> int:
+        """Encode a new anchor set and install it atomically, in the
+        caller's thread: the encode, and a warmup of every serving shape
+        when the bank's geometry is new, happen before the install, so the
+        batcher never meets a shape it has not run.  Micro-batches in
+        flight keep the snapshot they captured.  The new snapshot is the
+        current version + 1, with the instances' ``meta["weight"]`` as its
+        per-anchor weights; ``source`` and ``store_version`` are its
+        provenance.  Returns the new version.
+        A named ``tenant`` raises: tenants belong to the serving-plane
+        slice (ROADMAP.md)."""
+        if tenant not in (None, "", DEFAULT_TENANT):
+            raise NotImplementedError(
+                f"swap_bank(tenant={tenant!r}): named tenants belong to the serving-plane "
+                "slice, which is not ported yet (ROADMAP.md)"
+            )
+        instances = list(anchor_instances)
+        with self._swap_lock:
+            bank, labels, n_anchors = self.predictor.encode_bank(instances)
+            weights = _bank_weights(instances, n_anchors)
+            shape = tuple(bank.shape)
+            if shape not in self._warmed_bank_shapes:
+                logger.info("bank swap introduces shape %s: warming the serving shapes first",
+                            shape)
+                self.predictor.warmup_bank_shapes(bank)
+                self._warmed_bank_shapes.add(shape)
+            with self._bank_lock:
+                current = self._bank
+                new = _BankVersion(
+                    version=current.version + 1,
+                    array=bank,
+                    labels=tuple(labels),
+                    n_anchors=n_anchors,
+                    source=source,
+                    parent_version=current.version,
+                    store_version=store_version,
+                    weights=weights,
+                )
+                self._bank = new
+        self._tel.counter("serve.bank_swaps").inc()
+        self._tel.gauge("serve.bank_version").set(new.version)
+        logger.info("anchor bank v%d installed (%s%s): %d anchors%s", new.version, source,
+                    f", store {store_version}" if store_version else "", new.n_anchors,
+                    "" if weights is None else " (weighted)")
+        return new.version
 
     @property
     def default_deadline_ms(self) -> float:
@@ -234,7 +354,7 @@ class ScoringService:
         """The ``/healthz`` body: drain state, queue depth, the dispatch
         strategy and the active bank."""
         draining = self._draining.is_set()
-        bank = self._bank
+        bank = self.bank_snapshot()
         return {
             "status": "draining" if draining else "ok",
             "draining": draining,
@@ -242,6 +362,10 @@ class ScoringService:
             "score_impl": self._score_impl,
             "bank_version": bank.version,
             "n_anchors": bank.n_anchors,
+            "bank": {"version": bank.version, "source": bank.source,
+                     "parent_version": bank.parent_version,
+                     "store_version": bank.store_version,
+                     "weighted": bank.weights is not None},
         }
 
     # -- shutdown --------------------------------------------------------------
@@ -256,6 +380,8 @@ class ScoringService:
         """Graceful shutdown; waits for the batcher.  Idempotent."""
         self.request_drain()
         self._thread.join(timeout)
+        if self.drift_monitor is not None:
+            self.drift_monitor.stop()
         if self._thread.is_alive():  # pragma: no cover - defensive
             logger.warning("serve batcher did not exit within %ss", timeout)
         if self.out_dir is not None:

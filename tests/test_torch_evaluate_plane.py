@@ -28,7 +28,7 @@ from memvul_tpu.resilience import journal as jax_journal
 from memvul_tpu_torch import __main__ as cli
 from memvul_tpu_torch.archive import load_archive
 from memvul_tpu_torch.build import _auto_buckets_for_corpus, evaluate_from_archive
-from memvul_tpu_torch.config import EVALUATION_DEFAULTS, EVALUATION_UNPORTED, evaluation_config
+from memvul_tpu_torch.config import EVALUATION_DEFAULTS, evaluation_config
 from memvul_tpu_torch.data.batching import auto_buckets
 from memvul_tpu_torch.data.readers import MemoryReader
 from memvul_tpu_torch.evaluate.measure import read_result_lines
@@ -359,18 +359,18 @@ def test_anchor_stamps_match_jax(setup):
 
 
 def test_evaluation_keys_honoured_or_refused():
-    assert set(EVALUATION_DEFAULTS) | set(EVALUATION_UNPORTED) == {
+    assert set(EVALUATION_DEFAULTS) == {
         "batch_size", "max_length", "buckets", "n_buckets", "tokens_per_batch", "inflight",
         "anchor_match_impl", "aot_warmup", "resume", "quarantine", "heartbeat_batches",
         "score_retries", "attribute_anchors", "shards", "max_shard_attempts",
         "shard_stall_timeout_s", "shard_poll_interval_s", "shard_backoff_s"}
     from memvul_tpu.config import EVALUATION_DEFAULTS as JAX_EVALUATION_DEFAULTS
 
-    assert dict(EVALUATION_DEFAULTS, **EVALUATION_UNPORTED) == JAX_EVALUATION_DEFAULTS
+    assert EVALUATION_DEFAULTS == JAX_EVALUATION_DEFAULTS
     assert evaluation_config({"evaluation": {"shards": 1, "resume": True}})["resume"] is True
+    # the shard keys are score-corpus's, honoured since the sharded scorer
     for key, value in (("shards", 2), ("max_shard_attempts", 5), ("shard_backoff_s", 0.5)):
-        with pytest.raises(ValueError, match=key):
-            evaluation_config({"evaluation": {key: value}})
+        assert evaluation_config({"evaluation": {key: value}})[key] == value
 
 
 def test_cli_takes_the_reference_flags(setup, tmp_path, monkeypatch, capsys):

@@ -25,6 +25,12 @@ EXPECTED_MODULES = (
     "memvul_tpu_torch.models.single", "memvul_tpu_torch.models.textcnn",
     "memvul_tpu_torch.pretrain.mlm", "memvul_tpu_torch.training.single_trainer",
     "memvul_tpu_torch.evaluate.predict_single",
+    "memvul_tpu_torch.resilience.faults", "memvul_tpu_torch.telemetry.sinks",
+    "memvul_tpu_torch.distributed.partition", "memvul_tpu_torch.distributed.worker",
+    "memvul_tpu_torch.distributed.coordinator", "memvul_tpu_torch.bankops.store",
+    "memvul_tpu_torch.bankops.drift", "memvul_tpu_torch.bankops.shadow",
+    "memvul_tpu_torch.bankops.promote", "memvul_tpu_torch.models.folding",
+    "memvul_tpu_torch.data.analysis",
 )
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_compare.py"]
 
