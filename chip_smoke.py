@@ -112,6 +112,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  and ``evaluate_cascade`` on 128 reports; K1 held at A = 121
                  and K2 at the replay's shape;
    ``selfcheck`` ``python -m memvul_tpu_torch selfcheck`` on the card;
+   ``fleet_path`` the serving plane's fleet on the same archive:
+                 ``serve_from_archive`` with 2 "ragged" replicas on the card
+                 (a CUDA stream each) behind the router, tracing on; 256
+                 closed-loop requests from 16 clients through ``loadgen``
+                 (requests/s beside one replica's and beside a fleet whose
+                 replicas share the default stream, in turns); the same
+                 with ``replica.kill`` armed on replica-1 (one kill, one
+                 restart, no hang, the fleet invariant); ``rolling_swap`` to
+                 ``bank_path``'s candidate under load with replica-1 killed
+                 mid-rollout (one bank version per response, the killed
+                 replica back on version 2); a second fleet with a named
+                 tenant and the admission cache under ``dedup`` traffic
+                 (each tenant's own bank, hits bitwise their misses and no
+                 pack); ``/healthz``, ``/metrics``, ``/tracez`` and a
+                 tenant-header ``POST /score`` over HTTP;
 6. ``main_path_profile`` / ``serve_pack_profile``
                  device time by kernel (torch.profiler) for one batch of the
                  main path's 2048 bucket and for one serve pack's round trip
@@ -142,6 +157,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1761,7 +1777,7 @@ BF16_SERVE_PROBS_ABS = 1e-2
 
 
 def phase_serve_path(workdir: Path, records: dict, requests: int = 256, threads: int = 16,
-                     http_requests: int = 8) -> None:
+                     http_requests: int = 8) -> dict:
     """``serve_from_archive`` on the main path's archive with
     ``score_impl`` "ragged" and then "continuous" (the serving section's
     defaults otherwise: max_length 512, a pack of 2048 tokens and 16 rows):
@@ -1885,6 +1901,7 @@ def phase_serve_path(workdir: Path, records: dict, requests: int = 256, threads:
     served = sum(r["launches"]["anchor_match"] for r in runs.values())
     anchor["launches"] += served
     anchor["launches_by_rows"][rows] = anchor["launches_by_rows"].get(rows, 0) + served
+    return runs
 
 
 # the small f32 model served on the card against its plain bucketed path on
@@ -3362,6 +3379,426 @@ def phase_bank_path(workdir: Path, records: dict, corpus_result: dict, requests:
     records["flash_attention"]["launches"] += replay_launches["flash_attention"]
 
 
+class _TenantSplit:
+    """A load target that sends every other request to ``tenant``."""
+
+    def __init__(self, router, tenant: str) -> None:
+        self.router, self.tenant = router, tenant
+        self.replicas, self._tel = router.replicas, router.registry
+        self._n = 0
+        self._lock = threading.Lock()
+        self.sent = []  # (tenant or None, text, future), in submit order
+
+    def submit(self, text, deadline_ms=None):
+        with self._lock:
+            tenant = self.tenant if self._n % 2 else None
+            self._n += 1
+        future = self.router.submit(text, deadline_ms=deadline_ms, tenant=tenant)
+        with self._lock:
+            self.sent.append((tenant, text, future))
+        return future
+
+
+def phase_fleet_path(workdir: Path, records: dict, serve_runs: dict, requests: int = 256,
+                     clients: int = 16, kill_at: int = 64, swap_at: int = 128,
+                     ab_rounds: int = 3) -> None:
+    """The serving plane's fleet on the main path's archive:
+    ``serve_from_archive`` with ``score_impl`` "ragged", ``replicas`` 2 (both
+    on this card, each on a CUDA stream of its own), tracing on; packs of
+    2048 tokens and 16 rows.  Five steps, each on ``requests`` texts of the
+    main path's corpus through ``loadgen``:
+
+    1. a closed loop of ``clients`` clients (``run_slo_harness``): requests/s,
+       latency, per-replica served, packs, token utilization, the SLO block;
+       then ``ab_rounds`` rounds, in turns, of the same loop on the fleet, on
+       a fleet whose two replicas share the default stream, and on one
+       replica, beside ``serve_path``'s single-service ragged rate;
+    2. the same loop with ``replica.kill`` armed on replica-1 at its
+       ``kill_at``-th submit: one kill, one restart, no hang, nothing past
+       its deadline, the fleet invariant, answers within
+       ``BF16_SERVE_PROBS_ABS`` of the bucketed ``score_texts``;
+    3. ``rolling_swap`` to ``bank_path``'s candidate (A = 121) started at
+       about the ``swap_at``-th request, replica-1 killed while replica-0's
+       install is done: one bank version per response, the fleet version 2
+       only once the live replicas serve it, the killed replica back on
+       version 2, answers under version 2 the weighted winners of the
+       candidate's offline scores;
+    4. a second fleet with tenants (``default``: 129 anchors, ``acme``: the
+       candidate) and ``cache_capacity`` 256 under ``dedup`` traffic, half per
+       tenant: each tenant's answers from its own bank, a swap of ``acme``
+       leaving ``default``'s alone, cache hits bitwise their misses and adding
+       no pack (K3 == 12 × packs, K1 == packs);
+    5. the front end over both fleets: ``/healthz`` (both replicas),
+       ``/metrics`` (per-replica labels, ``router.*``), ``/tracez`` (step 2's
+       rerouted request with its hops), ``POST /score`` with
+       ``X-MemVul-Tenant: acme``.
+
+    The kernels' counts are set to 0 at the start and read at the end; the
+    oracle's launches (bucketed ``score_texts``) are taken out.  K2 is then
+    held against its plain version at the bank encode's ``[128, 512]``."""
+    import statistics
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from memvul_tpu_torch.archive import load_archive
+    from memvul_tpu_torch.bankops import BankStore
+    from memvul_tpu_torch.build import build_reader, serve_from_archive
+    from memvul_tpu_torch.data.synthetic import corpus_texts
+    from memvul_tpu_torch.evaluate.predict_memory import SiamesePredictor
+    from memvul_tpu_torch.ops import anchor_match as am
+    from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.ops import ragged_attention as ra
+    from memvul_tpu_torch.resilience import faults
+    from memvul_tpu_torch.serving import (
+        REPLICA_DEAD, REPLICA_HEALTHY, HTTPClient, LoadConfig, Replica, ReplicaRouter,
+        RouterConfig, ScoringService, ServiceConfig, fleet_snapshot, rolling_swap,
+        run_slo_harness)
+    from memvul_tpu_torch.serving.frontend import run_http_server
+    from memvul_tpu_torch.telemetry.exposition import parse_exposition
+
+    layers = 12
+    archive = workdir / "model.tar.gz"
+    golden = workdir / "CWE_anchor_golden_project.json"
+    texts = corpus_texts(json.loads((workdir / "test_project.json").read_text()))[:requests]
+    store = BankStore(workdir / "banks")  # bank_path's: v1 (129), v2 (retire 8, reweight 4)
+    v2 = store.instances("v2")
+    overrides = {"serving": {"score_impl": "ragged", "replicas": 2, "trace_sample_rate": 1.0,
+                             "trace_ring": 4096, "default_deadline_ms": 30000}}
+
+    def counts():
+        return {"ragged": ra.launches, "flash": fa.launches, "anchor_match": am.launches}
+
+    oracle_launches = collections.Counter()
+
+    def oracle(fn):
+        before = counts()
+        out = fn()
+        oracle_launches.update({k: v - before[k] for k, v in counts().items()})
+        return out
+
+    def batches(router):
+        return sum(r.registry.counter("serve.batches").value for r in router.replicas)
+
+    def probs(r, labels):
+        return np.array([r["predict"][a] for a in labels], np.float64)
+
+    checks, out = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ra.launches = fa.launches = am.launches = 0
+    t0 = time.perf_counter()
+    fleet = serve_from_archive(archive, device="cuda", overrides=overrides)
+    out["build_s"] = time.perf_counter() - t0
+    r0, r1 = fleet.replicas
+    pred0 = r0.service.predictor
+    labels = list(pred0.anchor_labels)
+    checks["one_card_shared_weights"] = (pred0.model is r1.service.predictor.model
+                                        and pred0.stream is not None
+                                        and pred0.stream != r1.service.predictor.stream)
+    want = oracle(lambda: pred0.score_texts(texts, impl="bucketed"))
+    want_by_text = {t: row for t, row in zip(texts, want)}
+    load = LoadConfig(pattern="closed", requests=requests, clients=clients,
+                      result_timeout_s=120.0)
+
+    # -- 1. the closed loop ----------------------------------------------------
+    before, packs_before = counts(), batches(fleet)
+    record = run_slo_harness(fleet, texts, load)
+    after, packs = counts(), batches(fleet) - packs_before
+    snaps = [r.registry.snapshot()["counters"] for r in fleet.replicas]
+    real = sum(c["serve.tokens_real"] for c in snaps)
+    padded = sum(c["serve.tokens_padded"] for c in snaps)
+    step1 = {
+        "requests_per_s": record["load"]["achieved_rps"],
+        "latency_ms": record["load"]["latency_ms"], "outcomes": record["load"]["outcomes"],
+        "served_by_replica": {m["name"]: m["served"] for m in record["fleet"]["replicas"]},
+        "packs": packs, "token_utilization": real / padded, "slo": record.get("slo"),
+        "router": record["router"],
+        "serve_path_single_ragged_requests_per_s": serve_runs["ragged"]["requests_per_s"],
+    }
+    checks["closed_loop_all_ok"] = record["load"]["outcomes"]["ok"] == requests
+    checks["closed_loop_both_replicas"] = min(step1["served_by_replica"].values()) > 0
+    checks["closed_loop_k3_eq_12x_packs"] = after["ragged"] - before["ragged"] == layers * packs
+    checks["closed_loop_k1_eq_packs"] = after["anchor_match"] - before["anchor_match"] == packs
+    out["closed_loop"] = step1
+
+    # the stream A/B, in turns: this fleet (a stream per replica), a fleet
+    # whose two replicas launch on the default stream, one replica alone
+    arch = load_archive(archive, device="cuda")
+    anchors = list(build_reader(arch.config.get("dataset_reader")).read_anchors(str(golden)))
+
+    def default_stream_factory(registry):
+        predictor = SiamesePredictor(arch.model, arch.tokenizer, batch_size=16, max_length=512,
+                                     score_impl="ragged", token_budget=2048, max_rows_per_pack=16)
+        predictor.encode_anchors(anchors)
+        predictor.warmup_compile()
+        return ScoringService(predictor, config=ServiceConfig(
+            max_batch=16, max_wait_ms=5.0, max_queue=256, default_deadline_ms=30000.0),
+            registry=registry)
+
+    shared = ReplicaRouter([Replica(i, default_stream_factory) for i in range(2)])
+    rates = {"fleet_stream_per_replica": [], "fleet_default_stream": [], "one_replica": []}
+    ab_packs = {name: [] for name in rates}
+    ab_before = counts()
+
+    def packs_of(target):
+        registries = [r.registry for r in target.replicas] if hasattr(target, "replicas") \
+            else [target.registry]
+        return sum(reg.counter("serve.batches").value for reg in registries)
+
+    for _ in range(ab_rounds):
+        for name, target in (("fleet_stream_per_replica", fleet),
+                             ("fleet_default_stream", shared), ("one_replica", r0.service)):
+            packs_before = packs_of(target)
+            rates[name].append(run_slo_harness(target, texts, load)["load"]["achieved_rps"])
+            ab_packs[name].append(packs_of(target) - packs_before)
+    shared.drain()
+    del shared
+    ab_launches = {k: v - ab_before[k] for k, v in counts().items()}
+    out["stream_ab"] = {"rounds": ab_rounds, "requests_per_s": rates, "packs": ab_packs,
+                        "median_requests_per_s": {k: statistics.median(v)
+                                                  for k, v in rates.items()},
+                        "launches": ab_launches}
+
+    # -- 2. chaos: replica-1 killed at its kill_at-th submit --------------------
+    state = {"dead_at": None, "back_at": None}
+    stop = threading.Event()
+
+    def watch(replica):
+        while not stop.is_set():
+            if state["dead_at"] is None and replica.state == REPLICA_DEAD:
+                state["dead_at"] = time.monotonic()
+            if state["dead_at"] is not None and replica.state == REPLICA_HEALTHY \
+                    and replica.restart_count >= 1:
+                state["back_at"] = time.monotonic()
+                return
+            time.sleep(0.002)
+
+    watcher = threading.Thread(target=watch, args=(r1,), daemon=True)
+    watcher.start()
+    kills_before = r1.registry.counter("replica.kills").value
+    faults.configure(f"replica.kill.replica-1@{kill_at}=raise:RuntimeError:chaos kill")
+    sent = []
+    gen_submit = fleet.submit
+
+    def tracking_submit(text, deadline_ms=None):
+        future = gen_submit(text, deadline_ms=deadline_ms)
+        sent.append((text, future))
+        return future
+
+    from memvul_tpu_torch.serving import LoadGenerator
+
+    chaos = LoadGenerator(tracking_submit, load).run(texts)
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline and state["back_at"] is None:
+        time.sleep(0.01)
+    stop.set()
+    faults.reset()
+    responses = [f.result(1.0) for _, f in sent]
+    ok = [(t, r) for (t, _), r in zip(sent, responses) if r["status"] == "ok"]
+    chaos_err = max((float(np.abs(probs(r, labels) - want_by_text[t]).max()) for t, r in ok),
+                    default=0.0)
+    rerouted = [r for r in responses if r.get("reroutes")]
+    snap = fleet_snapshot(fleet.replicas)
+    out["chaos"] = {
+        "outcomes": chaos["outcomes"], "requests_per_s": chaos["achieved_rps"],
+        "latency_ms": chaos["latency_ms"], "rerouted": len(rerouted),
+        "kills": r1.registry.counter("replica.kills").value - kills_before,
+        "restarts": r1.restart_count,
+        "recovery_s": (state["back_at"] - state["dead_at"]) if state["back_at"] else None,
+        "max_abs_err": chaos_err, "tol": BF16_SERVE_PROBS_ABS, "fleet": snap,
+    }
+    checks["chaos_one_kill_one_restart"] = out["chaos"]["kills"] == 1 and r1.restart_count == 1
+    checks["chaos_no_hang_no_deadline"] = (chaos["outcomes"]["hang"] == 0
+                                           and chaos["outcomes"]["deadline"] == 0
+                                           and chaos["outcomes"]["ok"] == requests)
+    checks["chaos_invariant"] = snap["invariant_ok"]
+    checks["chaos_answers"] = len(ok) == requests and chaos_err <= BF16_SERVE_PROBS_ABS
+    checks["chaos_rerouted"] = len(rerouted) >= 1
+
+    # -- 3. rolling swap to the candidate under load ----------------------------
+    v2_weights = np.array([float((i.get("meta") or {}).get("weight", 1.0)) for i in v2])
+    seen = {}
+    sent.clear()
+    requests_before = fleet.registry.counter("router.requests").value
+    swap = {}
+
+    def swap_when_due():
+        while fleet.registry.counter("router.requests").value - requests_before < swap_at:
+            time.sleep(0.001)
+        t1 = time.perf_counter()
+        swap["version"] = rolling_swap(fleet, v2, source="rolling_swap", store_version="v2")
+        swap["wall_s"] = time.perf_counter() - t1
+
+    def kill_mid_rollout():
+        # replica-1 dies once replica-0 serves v2 again, while the rollout runs
+        while not (r0.bank_version == 2 and r0.accepting.is_set()):
+            time.sleep(0.0005)
+        seen["fleet_version_at_kill"] = fleet.bank_version
+        seen["rollout_running_at_kill"] = "version" not in swap
+        r1.kill(reason="killed during the rollout")
+
+    killer = threading.Thread(target=kill_mid_rollout, daemon=True)
+    killer.start()
+    swapper = threading.Thread(target=swap_when_due, daemon=True)
+    swapper.start()
+    roll = LoadGenerator(tracking_submit, load).run(texts)
+    swapper.join(300)
+    killer.join(300)
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline and not (r1.state == REPLICA_HEALTHY
+                                               and r1.bank_version == 2):
+        time.sleep(0.01)
+    v2_labels = [i["meta"]["label"] for i in v2]
+    during = [r.result(1.0) for _, r in sent]
+    torn = [r for r in during if r["status"] == "ok" and not (
+        (r["bank_version"] == 1 and sorted(r["predict"]) == sorted(labels))
+        or (r["bank_version"] == 2 and sorted(r["predict"]) == sorted(v2_labels)))]
+    after_texts = texts[:64]
+    followed = [fleet.submit(t).result(120.0) for t in after_texts]
+    v2_bank, _, n_v2 = oracle(lambda: pred0.encode_bank(v2))
+    offline = oracle(lambda: pred0.score_texts(after_texts, v2_bank, n_v2, impl="bucketed"))
+    got = np.array([probs(r, v2_labels) for r in followed])
+    v2_err = float(np.abs(got - offline).max())
+    winners = (got * v2_weights).argmax(axis=1)
+    out["rolling_swap"] = {
+        "wall_s": swap.get("wall_s"), "outcomes": roll["outcomes"],
+        "requests_per_s": roll["achieved_rps"],
+        "versions_during": dict(collections.Counter(r.get("bank_version") for r in during)),
+        "fleet_version_at_kill": seen.get("fleet_version_at_kill"),
+        "rollout_running_at_kill": seen.get("rollout_running_at_kill"),
+        "replica_versions": [r.bank_version for r in fleet.replicas],
+        "restarts_replica_1": r1.restart_count, "v2_max_abs_err": v2_err,
+    }
+    checks["swap_one_version_per_response"] = not torn and roll["outcomes"]["hang"] == 0
+    checks["swap_version_after_live_replicas"] = (swap.get("version") == 2
+                                                  and seen.get("fleet_version_at_kill") == 1
+                                                  and seen.get("rollout_running_at_kill") is True
+                                                  and fleet.bank_version == 2)
+    checks["swap_killed_replica_back_on_v2"] = (r1.restart_count == 2
+                                                and [r.bank_version for r in fleet.replicas]
+                                                == [2, 2])
+    checks["swap_v2_answers"] = (all(r["status"] == "ok" and r["bank_version"] == 2
+                                     for r in followed) and v2_err <= BF16_SERVE_PROBS_ABS
+                                 and [r["anchor"] for r in followed]
+                                 == [v2_labels[i] for i in winners])
+
+    # -- 4. tenants and the admission cache ---------------------------------------
+    acme_dir = workdir / "tenant_banks" / "acme"
+    shutil.copytree(workdir / "banks", acme_dir)
+    acme = BankStore(acme_dir)
+    acme.set_active("v2")
+    tenants = serve_from_archive(archive, device="cuda", tenants=f"acme={acme_dir}", overrides={
+        "serving": {"score_impl": "ragged", "replicas": 2, "cache_capacity": 256,
+                    "default_deadline_ms": 30000}})
+    t_pred = tenants.replicas[0].service.predictor
+    acme_bank, _, n_acme = oracle(lambda: t_pred.encode_bank(v2))
+    dedup = LoadConfig(pattern="dedup", requests=requests, rps=400.0, seed=7,
+                       result_timeout_s=120.0)
+    split = _TenantSplit(tenants, "acme")
+    before, packs_before = counts(), batches(tenants)
+    t_record = run_slo_harness(split, texts, dedup)
+    after, t_packs = counts(), batches(tenants) - packs_before
+    unique = sorted({t for _, t, _ in split.sent})
+    want_default = oracle(lambda: t_pred.score_texts(unique, impl="bucketed"))
+    want_acme = oracle(lambda: t_pred.score_texts(unique, acme_bank, n_acme, impl="bucketed"))
+    expect = {(None, t): (labels, row) for t, row in zip(unique, want_default)}
+    expect.update({("acme", t): (v2_labels, row) for t, row in zip(unique, want_acme)})
+    # each replica caches its own answers: a hit is bitwise one of the
+    # misses that replica served for the same tenant and text
+    misses, tenant_err, hit_equal, hits = collections.defaultdict(list), 0.0, True, 0
+    for tenant, text, future in split.sent:
+        r = future.result(1.0)
+        want_labels, row = expect[(tenant, text)]
+        tenant_err = max(tenant_err, float(np.abs(probs(r, want_labels) - row).max()))
+        key = (r["replica"], tenant, text)
+        payload = {k: r[k] for k in ("predict", "score", "anchor", "bank_version")}
+        if r.get("cached"):
+            hits += 1
+            hit_equal &= payload in misses[key]
+        else:
+            misses[key].append(payload)
+    # a swap of acme (back to the 129-anchor v1) leaves default alone
+    default_version = tenants.bank_version
+    acme_swap = rolling_swap(tenants, acme.instances("v1"), tenant="acme", store_version="v1")
+    fresh = texts[requests - 16:]
+    after_swap = [tenants.submit(t).result(120.0) for t in fresh]
+    fresh_want = oracle(lambda: t_pred.score_texts(fresh, impl="bucketed"))
+    default_err = float(max(np.abs(probs(r, labels) - w).max()
+                            for r, w in zip(after_swap, fresh_want)))
+    acme_after = tenants.submit(texts[0], tenant="acme").result(120.0)
+    out["tenants"] = {
+        "requests": requests, "outcomes": t_record["load"]["outcomes"],
+        "requests_per_s": t_record["load"]["achieved_rps"], "cache": t_record.get("cache"),
+        "packs": t_packs, "launches": {k: after[k] - before[k] for k in after},
+        "max_abs_err": tenant_err, "cache_hits_seen": hits,
+        "acme_swap_version": acme_swap, "default_after_swap_max_abs_err": default_err,
+    }
+    checks["tenants_own_banks"] = (t_record["load"]["outcomes"]["ok"] == requests
+                                   and tenant_err <= BF16_SERVE_PROBS_ABS)
+    checks["tenant_swap_leaves_default"] = (acme_swap == 2 and tenants.bank_version
+                                            == default_version == 1
+                                            and default_err <= BF16_SERVE_PROBS_ABS
+                                            and all(r["bank_version"] == 1 for r in after_swap)
+                                            and acme_after["bank_version"] == 2
+                                            and len(acme_after["predict"]) == 129)
+    checks["cache_hits_bitwise"] = hits > 0 and hit_equal \
+        and hits == (t_record.get("cache") or {}).get("hits")
+    checks["cache_hits_add_no_pack"] = (after["ragged"] - before["ragged"] == layers * t_packs
+                                        and after["anchor_match"] - before["anchor_match"]
+                                        == t_packs)
+
+    # -- 5. the front end ------------------------------------------------------------
+    servers = [run_http_server(fleet, port=0), run_http_server(tenants, port=0)]
+    try:
+        base = "http://%s:%d" % servers[0].server_address[:2]
+        health = HTTPClient(base).health()
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as resp:
+            metrics = parse_exposition(resp.read().decode("utf-8"))
+        with urllib.request.urlopen(base + "/tracez", timeout=30) as resp:
+            traces = json.loads(resp.read().decode("utf-8"))["traces"]
+        hopped = [t for t in traces if t["hops"] > 0]
+        tbase = "http://%s:%d" % servers[1].server_address[:2]
+        req = urllib.request.Request(tbase + "/score", method="POST",
+                                     data=json.dumps({"text": texts[1]}).encode("utf-8"),
+                                     headers={"Content-Type": "application/json",
+                                              "X-MemVul-Tenant": "acme"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            acme_http = json.loads(resp.read().decode("utf-8"))
+    finally:
+        for server in servers:
+            server.shutdown()
+    out["http"] = {"health_status": health["status"], "replicas": health["replicas"]["total"],
+                   "traces": len(traces), "rerouted_traces": len(hopped),
+                   "acme_bank_version": acme_http.get("bank_version")}
+    checks["http_healthz_both_replicas"] = (health["replicas"]["total"] == 2
+                                            and health["replicas"]["healthy"] == 2
+                                            and "slo" in health)
+    checks["http_metrics_labels"] = (set(metrics.get("serve_served", {})) == {
+        '{replica="replica-0"}', '{replica="replica-1"}'} and "router_routed" in metrics)
+    checks["http_tracez_rerouted"] = bool(hopped) and all(
+        t["trace_id"].startswith("r-") for t in hopped)
+    checks["http_tenant_header"] = (acme_http.get("status") == "ok"
+                                    and acme_http.get("bank_version") == 2
+                                    and len(acme_http.get("predict", {})) == 129)
+    fleet.drain()
+    tenants.drain()
+    out["peak_memory_gib"] = _peak_gib()
+    launches = {k: v - oracle_launches[k] for k, v in counts().items()}
+    out["launches"] = launches
+    del fleet, tenants, arch, pred0, t_pred
+    torch.cuda.empty_cache()
+    # K2 at the serving bank encode's shape, the fleet's every K2 launch
+    out["kernel_flash_bank_shape"] = _flash_at_auto_shapes([(128, 512)], records)
+    emit("fleet_path", ok=all(checks.values()), checks=checks, **out, card=nvidia_smi_line())
+    if not all(checks.values()):
+        raise SystemExit(f"fleet_path failed: {checks}")
+    records["ragged_flash_attention"]["launches"] += launches["ragged"]
+    records["flash_attention"]["launches"] += launches["flash"]
+    records["anchor_match"]["launches"] += launches["anchor_match"]
+
+
 def phase_selfcheck(workdir: Path) -> None:
     """``python -m memvul_tpu_torch selfcheck`` on the card, as a user runs
     it: a synthetic workspace, a tiny train, the archive, ``evaluate``."""
@@ -3411,7 +3848,7 @@ def main() -> int:
     phase_ragged(records)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         phase_main_path(Path(tmp), records)
-        phase_serve_path(Path(tmp), records)
+        serve_runs = phase_serve_path(Path(tmp), records)
         emit_anchor_shapes(records)
         # the evaluate paths of the reference's override files, the int8
         # tier, restartable scoring and the cascade (their launches add to
@@ -3433,6 +3870,8 @@ def main() -> int:
         corpus_result = phase_score_corpus_path(Path(tmp), records)
         phase_bank_path(Path(tmp), records, corpus_result)
         phase_selfcheck(Path(tmp))
+        # slice 9: the serving plane's fleet on one card
+        phase_fleet_path(Path(tmp), records, serve_runs)
     phase_main_path_reference()
     phase_ragged_reference()
     phase_train_reference()

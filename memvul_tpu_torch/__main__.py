@@ -9,12 +9,15 @@
     python -m memvul_tpu_torch score-corpus out/model.tar.gz data/test_project.json -o eval/ --shards 2
     python -m memvul_tpu_torch serve out/model.tar.gz --port 8341 \\
         --overrides '{"serving": {"score_impl": "continuous"}}'
+    python -m memvul_tpu_torch serve out/model.tar.gz --replicas 2 \\
+        --tenants acme=banks/acme,globex=banks/globex
     python -m memvul_tpu_torch bank build --store banks/ --anchors data/CWE_anchor_golden_project.json
     python -m memvul_tpu_torch bank diff --store banks/ --retire CWE-79 --reweight CWE-89=0.5
     python -m memvul_tpu_torch bank shadow --store banks/ --candidate v2 --archive out/ \\
         --corpus data/test_project.json --results eval/model_memory_result.json -o shadow/
     python -m memvul_tpu_torch bank promote --store banks/ --candidate v2 --archive out/ \\
         --golden-set data/validation_project.json --shadow-summary shadow/shadow_summary.json
+    python -m memvul_tpu_torch bank build --store banks/ --tenant acme --anchors acme.json
     python -m memvul_tpu_torch build-data --csv all_samples.csv --cwe-csv 1000.csv \\
         --cve-dict CVE_dict.json --out data/
     python -m memvul_tpu_torch analyze data/train_project.json --cve-dict CVE_dict.json
@@ -33,10 +36,14 @@ scores a corpus across supervised worker subprocesses and merges their
 outputs exactly once (exit 0 done, 1 the merge verification failed, 2 a
 usage error, 3 partial: a shard was quarantined, the refusal printed as
 JSON).  ``serve`` puts the HTTP front end (``POST /score``, ``GET
-/healthz``) over ``build.serve_from_archive``, prints one JSON line with
-the bound ``"serving"`` URL once it listens, and drains on SIGTERM/SIGINT.
+/healthz``, ``GET /metrics``, ``GET /tracez``) over
+``build.serve_from_archive`` (``--replicas N``: a router over N replicas;
+``--tenants name=store_dir,...``: one anchor bank per named tenant),
+prints one JSON line with the bound ``"serving"`` URL and the replica
+count once it listens, and drains on SIGTERM/SIGINT.
 ``bank`` keeps the versioned anchor-bank store (``build``, ``diff``,
-``log``), replays a recorded run against a candidate bank (``shadow``) and
+``log``; ``--tenant NAME`` scopes each subcommand to ``<store>/<NAME>``,
+the layout ``serve --tenants`` points at), replays a recorded run against a candidate bank (``shadow``) and
 runs the promotion gate (``promote``: exit 0 approved, 1 refused, 2 a
 usage error).  ``build-data`` runs the offline corpus pipeline (splits,
 CWE anchors, the MLM corpus), ``analyze`` the paper's corpus analyses, and
@@ -101,13 +108,15 @@ def cmd_evaluate(args) -> int:
 
 
 def cmd_serve(args) -> int:
+    from . import telemetry
     from .build import serve_from_archive
     from .serving.frontend import run_http_server
 
     try:
         service = serve_from_archive(
             args.archive, out_dir=args.out_dir, overrides=args.overrides,
-            golden_file=args.golden_file, device=args.device,
+            golden_file=args.golden_file, device=args.device, replicas=args.replicas,
+            tenants=args.tenants,
         )
     except ValueError as e:
         print(f"serve: {e}", file=sys.stderr)
@@ -121,15 +130,17 @@ def cmd_serve(args) -> int:
 
     previous = [(sig, signal.signal(sig, _stop_handler)) for sig in (signal.SIGTERM, signal.SIGINT)]
     host, port = server.server_address[:2]
-    print(json.dumps({"serving": f"http://{host}:{port}", "pid": os.getpid(), "replicas": 1}), flush=True)
+    print(json.dumps({"serving": f"http://{host}:{port}", "pid": os.getpid(),
+                      "replicas": len(getattr(service, "replicas", ())) or 1}), flush=True)
     try:
         while not stop.is_set():
             stop.wait(0.5)
     finally:
         server.shutdown()
-        service.drain()
+        service.drain()  # stops the attached monitors too
         for sig, handler in previous:
             signal.signal(sig, handler)
+        telemetry.get_registry().close()
     return 0
 
 
@@ -162,16 +173,18 @@ def cmd_score_corpus(args) -> int:
 
 
 def _bank_store(args):
-    """The subcommand's bank store.  ``--tenant`` (a per-tenant store
-    layout) belongs to the serving-plane slice and raises."""
-    from .bankops import BankStore
+    """The subcommand's bank store; ``--tenant NAME`` scopes it to
+    ``<store>/<NAME>``, the per-tenant layout ``serve --tenants`` points
+    at."""
+    from pathlib import Path
 
-    if getattr(args, "tenant", None):
-        raise NotImplementedError(
-            f"--tenant {args.tenant!r}: named tenants belong to the serving-plane slice, which "
-            "is not ported yet (ROADMAP.md)"
-        )
-    return BankStore(args.store)
+    from .bankops import BankStore
+    from .serving.tenancy import validate_tenant_name
+
+    tenant = getattr(args, "tenant", None)
+    if not tenant:
+        return BankStore(args.store)
+    return BankStore(Path(args.store) / validate_tenant_name(tenant))
 
 
 def _bank_predictor(args):
@@ -293,7 +306,7 @@ def cmd_bank_promote(args) -> int:
         predictor, store, args.candidate, reader.read(str(args.golden_set), split=args.split),
         active=args.active, shadow_summary=shadow_summary, thresholds=thresholds,
     )
-    store.record_promotion(kind="gate_decision", tenant=None, **decision.to_json())
+    store.record_promotion(kind="gate_decision", tenant=args.tenant, **decision.to_json())
     if decision.approved and args.apply:
         store.set_active(args.candidate, source="promotion")
     print(json.dumps(decision.to_json(), indent=2))
@@ -425,7 +438,7 @@ def _add_bank_parsers(sub) -> None:
     bank = sub.add_parser("bank", help="anchor-bank lifecycle: versioned store (build/diff/log), "
                           "offline shadow scoring of a candidate, the promotion gate")
     bank_sub = bank.add_subparsers(dest="bank_command", required=True)
-    tenant_help = "a per-tenant store (serving-plane slice; raises)"
+    tenant_help = "scope the store to <store>/<tenant>, the layout serve --tenants points at"
     b = bank_sub.add_parser("build", help="commit an anchor JSON as a root store version")
     b.add_argument("--store", required=True, help="bank store root dir")
     b.add_argument("--anchors", required=True,
@@ -528,6 +541,13 @@ def main(argv=None) -> int:
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8341, help="0 binds an ephemeral port")
     sv.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    sv.add_argument("--replicas", type=int, default=None,
+                    help="scoring services behind a load-balancing router, on "
+                    "cuda:{i %% cards} (default: the config's serving.replicas)")
+    sv.add_argument("--tenants", default=None, metavar="SPEC",
+                    help="named tenants, 'name=store_dir,...': each tenant's active bank "
+                    "from its store; requests carry a 'tenant' field or an X-MemVul-Tenant "
+                    "header (default: the config's serving.tenants)")
     sv.set_defaults(fn=cmd_serve)
     sc = sub.add_parser("score-corpus", help="sharded corpus scoring: supervised worker "
                         "subprocesses, exactly-once merge (exit 3: partial)")
@@ -573,10 +593,11 @@ def main(argv=None) -> int:
     if args.command != "bank":
         return args.fn(args)
     from .bankops import BankStoreError
+    from .serving.tenancy import TenantSpecError
 
     try:
         return args.fn(args)
-    except (BankStoreError, NotImplementedError) as e:  # a usage error: exit 2
+    except (BankStoreError, TenantSpecError, NotImplementedError) as e:  # a usage error: exit 2
         print(f"bank {args.bank_command}: {e}", file=sys.stderr)
         return 2
 

@@ -15,12 +15,12 @@ A candidate must pass both checks before :func:`promote` installs it:
 Refusals are machine-readable: a :class:`PromotionDecision` carries one
 ``{"code", "observed", "limit"}`` record per violated gate.
 
-:func:`promote` installs an approved candidate on one service through
-``ScoringService.swap_bank`` (``source="promotion"``, the store version
-id), then advances the store's ``ACTIVE`` pointer and appends the audit
-record; :func:`demote` re-installs the active version's parent.  A replica
-fleet (``rolling_swap``) and named tenants belong to the serving-plane
-slice and raise.
+:func:`promote` installs an approved candidate (``source="promotion"``,
+the store version id) on one service through ``ScoringService.swap_bank``
+or across a fleet through ``router.rolling_swap``, then advances the
+store's ``ACTIVE`` pointer and appends the audit record; :func:`demote`
+re-installs the active version's parent.  ``tenant=`` scopes the install
+and the audit record to one named tenant's bank.
 """
 
 from __future__ import annotations
@@ -366,26 +366,17 @@ def evaluate_candidate(
     )
 
 
-def _refuse_unported_target(target, tenant: Optional[str]) -> None:
-    """A replica fleet (``rolling_swap``) and named tenants belong to the
-    serving-plane slice (ROADMAP.md): raise, naming it."""
-    if hasattr(target, "replicas"):
-        raise NotImplementedError(
-            "promotion on a replica fleet (rolling_swap) belongs to the serving-plane slice, "
-            "which is not ported yet (ROADMAP.md); promote on one ScoringService"
-        )
-    if tenant is not None:
-        raise NotImplementedError(
-            f"tenant={tenant!r}: named tenants belong to the serving-plane slice, which is not "
-            "ported yet (ROADMAP.md)"
-        )
-
-
 def _install(target, instances: List[Dict], source: str, store_version: str,
              tenant: Optional[str] = None) -> int:
-    """Install a bank on one service through ``swap_bank``."""
-    _refuse_unported_target(target, tenant)
-    return target.swap_bank(instances, source=source, store_version=store_version)
+    """Install a bank on one service (``swap_bank``) or roll it across a
+    fleet (``rolling_swap``), in ``tenant``'s slot when one is named."""
+    if hasattr(target, "replicas"):
+        from ..serving.router import rolling_swap
+
+        return rolling_swap(target, instances, source=source, store_version=store_version,
+                            tenant=tenant)
+    return target.swap_bank(instances, source=source, store_version=store_version,
+                            tenant=tenant)
 
 
 def promote(
@@ -398,8 +389,9 @@ def promote(
     """Install an approved candidate on ``target`` and advance the store's
     ``ACTIVE`` pointer and audit trail.  Raises :class:`PromotionRefused`
     (carrying the decision) when the gate did not approve.  Returns the new
-    serving bank version.  ``registry`` defaults to the service's."""
-    _refuse_unported_target(target, tenant)
+    serving bank version.  ``registry`` defaults to the target's (a
+    router's is the process-wide one).  ``tenant`` scopes the install and
+    the audit record to one named tenant."""
     tel = registry if registry is not None else target.registry
     if not decision.approved:
         store.record_promotion(kind="promotion_refused", tenant=tenant, **decision.to_json())
@@ -408,7 +400,7 @@ def promote(
     if decision.candidate is None:
         raise BankStoreError("decision names no candidate version")
     serving_version = _install(target, store.instances(decision.candidate), source="promotion",
-                               store_version=decision.candidate)
+                               store_version=decision.candidate, tenant=tenant)
     store.set_active(decision.candidate, source="promotion")
     store.record_promotion(kind="promotion", candidate=decision.candidate,
                            parent=decision.parent, serving_version=serving_version,
@@ -425,7 +417,6 @@ def demote(target, store: BankStore, registry: Optional[Registry] = None,
     """Roll serving back to the active store version's parent: install the
     parent bank, repoint ``ACTIVE``, append the audit record.  Returns
     ``{"version": parent_id, "serving_version": int}``."""
-    _refuse_unported_target(target, tenant)
     tel = registry if registry is not None else target.registry
     pointer = store.active()
     if pointer is None:
@@ -435,7 +426,7 @@ def demote(target, store: BankStore, registry: Optional[Registry] = None,
     if parent is None:
         raise BankStoreError(f"active bank {current} is a root version — no parent to demote to")
     serving_version = _install(target, store.instances(parent), source="demotion",
-                               store_version=parent)
+                               store_version=parent, tenant=tenant)
     store.set_active(parent, source="demotion")
     store.record_promotion(kind="demotion", demoted=current, restored=parent,
                            serving_version=serving_version, tenant=tenant)

@@ -6,17 +6,17 @@ anchor instances) must prove itself on the traffic the active bank serves
 before promotion (``bankops/promote.py``).  Two modes, one delta-row
 format:
 
-* **online** (:class:`ShadowScorer`) — attached to one live
-  :class:`~memvul_tpu_torch.serving.service.ScoringService`.  The
-  service's shadow tap fires on the batcher thread but only enqueues
-  copies of sampled served requests into a bounded queue; this module's
-  own worker thread scores them through the predictor's serving impl
-  against the candidate.  The active path is untouched: answers with the
-  tap on are bitwise the answers without it; a candidate of new geometry
-  is warmed when the scorer attaches, before the tap exists; a failing
-  shadow worker only counts ``bank.shadow_errors`` (the ``bank.shadow``
-  fault point).  A replica fleet belongs to the serving-plane slice and
-  raises.
+* **online** (:class:`ShadowScorer`) — attached to a live
+  :class:`~memvul_tpu_torch.serving.service.ScoringService` or a
+  :class:`~memvul_tpu_torch.serving.router.ReplicaRouter` (which fans the
+  tap out to every replica).  The shadow tap fires on a batcher thread but
+  only enqueues copies of every ``sample_stride``-th served request into a
+  bounded queue; this module's own worker thread scores them through the
+  predictor's serving impl against the candidate.  The active path is
+  untouched: answers with the tap on are bitwise the answers without it; a
+  candidate of new geometry is warmed when the scorer attaches, before the
+  tap exists; a failing shadow worker only counts ``bank.shadow_errors``
+  (the ``bank.shadow`` fault point).
 * **offline** (:func:`replay_results`) — replays a recorded
   ``predict_file`` output against the candidate: the same corpus scored
   with the candidate bank and diffed row by row against the recorded
@@ -53,13 +53,20 @@ SHADOW_DELTAS_NAME = "shadow_deltas.jsonl"
 
 @dataclasses.dataclass(frozen=True)
 class ShadowConfig:
-    """Shadow knobs (the JAX package's defaults).  Every served request is
-    sampled: the JAX package's ``sample_stride``, which no entry point of
-    either package sets, is left out."""
+    """Shadow knobs (the JAX package's defaults)."""
 
+    sample_stride: int = 1     # shadow-score every Nth served request
     max_queue: int = 512       # bounded sample queue; overflow drops and counts
     threshold: float = 0.5     # serving decision threshold (flip detection)
     drift_every: int = 50      # update the drift gauge every N samples
+
+    @classmethod
+    def from_bankops(cls, bank_cfg: Dict[str, Any]) -> "ShadowConfig":
+        """The ``bankops`` section's ``shadow_sample_stride``,
+        ``shadow_max_queue`` and ``shadow_threshold``."""
+        return cls(sample_stride=int(bank_cfg["shadow_sample_stride"]),
+                   max_queue=int(bank_cfg["shadow_max_queue"]),
+                   threshold=float(bank_cfg["shadow_threshold"]))
 
 
 def score_texts(predictor, texts: Sequence[str], bank_array, n_anchors: int) -> np.ndarray:
@@ -124,10 +131,12 @@ class _DeltaStats:
 
 class ShadowScorer:
     """Online shadow: score sampled served requests against a candidate
-    bank, off the active path.  ``target`` is one ``ScoringService``; the
-    candidate is encoded, and warmed if its geometry differs from the
-    active bank's, before the tap is installed.  ``registry`` defaults to
-    the service's."""
+    bank, off the active path.  ``target`` is a ``ScoringService`` or a
+    ``ReplicaRouter``; the candidate is encoded, and warmed if its geometry
+    differs from the active bank's, before the tap is installed.
+    ``config`` defaults to the target's ``shadow_config`` (what
+    ``build.serve_from_archive`` reads from the ``bankops`` section), else
+    :class:`ShadowConfig`'s defaults; ``registry`` to the target's."""
 
     def __init__(
         self,
@@ -139,19 +148,19 @@ class ShadowScorer:
         candidate_version: Optional[str] = None,
         baseline: Optional[Dict[str, float]] = None,
     ) -> None:
-        if hasattr(target, "replicas"):
-            raise NotImplementedError(
-                "ShadowScorer on a replica fleet: the router belongs to the serving-plane "
-                "slice, which is not ported yet (ROADMAP.md); attach to one ScoringService"
-            )
-        self.config = config or ShadowConfig()
+        self.config = config or getattr(target, "shadow_config", None) or ShadowConfig()
+        if self.config.sample_stride < 1:
+            raise ValueError("sample_stride must be >= 1")
         self._tel = registry if registry is not None else target.registry
         self._target = target
         self._baseline = baseline
-        self.predictor = target.predictor
+        # a fleet's replicas share one model: the first one's predictor
+        # scores the shadow (on its own stream on the card)
+        service = target.replicas[0].service if hasattr(target, "replicas") else target
+        self.predictor = service.predictor
         self.candidate_version = candidate_version
         bank, labels, n_anchors = self.predictor.encode_bank(list(candidate_instances))
-        if tuple(bank.shape) != tuple(target.bank_snapshot().array.shape):
+        if tuple(bank.shape) != tuple(service.bank_snapshot().array.shape):
             # a new geometry: run its shapes now, before the tap exists, so
             # the batcher never pays a first launch on our account
             self.predictor.warmup_bank_shapes(bank)
@@ -163,6 +172,7 @@ class ShadowScorer:
         self._queue: "collections.deque" = collections.deque()
         self._cond = threading.Condition()
         self._stop = threading.Event()
+        self._seen = 0  # served requests the tap has seen (stride sampling)
         self._thread = threading.Thread(target=self._worker, name="memvul-bank-shadow",
                                         daemon=True)
         self._thread.start()
@@ -171,9 +181,15 @@ class ShadowScorer:
     # -- tap (batcher thread: enqueue only, never score) -----------------------
 
     def _tap(self, texts: List[str], probs: np.ndarray, bank) -> None:
+        # behind a router N batcher threads call this: the counter and the
+        # queue are guarded together
+        stride = self.config.sample_stride
         with self._cond:
             appended = False
             for text, row in zip(texts, probs):
+                self._seen += 1
+                if (self._seen - 1) % stride:
+                    continue
                 if len(self._queue) >= self.config.max_queue:
                     self._tel.counter("bank.shadow_dropped").inc()
                     continue

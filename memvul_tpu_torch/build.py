@@ -27,6 +27,7 @@ CPU; on a host without CUDA the default raises instead of falling back.
 
 from __future__ import annotations
 
+import copy
 import logging
 import time
 from pathlib import Path
@@ -470,19 +471,36 @@ def serve_from_archive(
     overrides: Optional[Union[str, Dict[str, Any]]] = None,
     golden_file: Optional[Union[str, Path]] = None,
     device: Union[str, torch.device] = "cuda",
+    replicas: Optional[int] = None,
+    tenants: Optional[str] = None,
 ):
-    """The archive's online scoring service on ``device``: the ``serving``
-    section (``config.SERVING_DEFAULTS``) sizes the predictor and the
-    admission envelope, the anchor bank is encoded, and every serving
-    shape runs once (building the kernel library) before the service is
-    returned, so the first request pays no build.  With ``out_dir`` the
-    service writes ``telemetry.json`` there when it drains."""
+    """The archive's online scoring service on ``device``, or, with
+    ``replicas > 1`` (the argument, else ``serving.replicas``), a
+    :class:`~memvul_tpu_torch.serving.router.ReplicaRouter` over that many
+    services.  The ``serving`` section (``config.SERVING_DEFAULTS``) sizes
+    the predictor and the admission envelope; the anchor bank is encoded
+    and every serving shape runs once (building the kernel library) before
+    a service starts, so the first request pays no build.
+
+    The archive is read once.  Replica ``i`` runs on ``cuda:{i % cards}``
+    (every replica on the CPU with ``device="cpu"``); replicas on one card
+    share its weight tensors, and each has its own predictor on a CUDA
+    stream of its own, anchor bank, warmup and registry.  A replica's
+    factory, which its restarts call too, builds a predictor over the
+    loaded weights.  With ``out_dir`` a single service writes
+    ``telemetry.json`` and the bank manifest there; a fleet configures the
+    process-wide registry's sinks there and each replica's in
+    ``replica-<i>/``.  ``bankops.baseline`` attaches a drift monitor,
+    ``serving.slo_enabled`` an SLO monitor, and ``tenants`` (else
+    ``serving.tenants``) installs each named tenant's active bank."""
+    from . import telemetry
     from .archive import load_archive
-    from .config import bankops_config, serving_config
+    from .bankops.shadow import ShadowConfig
+    from .config import bankops_config, serving_config, telemetry_config
     from .data.batching import validate_buckets
     from .evaluate.predict_memory import SiamesePredictor
     from .resilience.retry import RetryPolicy
-    from .serving.service import ScoringService, ServiceConfig
+    from .serving import Replica, ReplicaRouter, RouterConfig, ScoringService, ServiceConfig
 
     device = resolve_device(device)
     arch = load_archive(archive_path, overrides=overrides, device=device)
@@ -492,6 +510,7 @@ def serve_from_archive(
             f"serving wraps the Siamese memory model; archive has model type {model_type!r}"
         )
     serve_cfg = serving_config(arch.config)
+    tel_cfg = telemetry_config(arch.config)
     max_length = int(serve_cfg["max_length"])
     model_positions = arch.model.config.max_position_embeddings
     if max_length > model_positions:
@@ -514,53 +533,144 @@ def serve_from_archive(
             "serving.score_impl must be 'bucketed', 'ragged', 'continuous' "
             f"or 'cascade', got {score_impl!r}"
         )
+    trace_sample_rate = float(serve_cfg["trace_sample_rate"])
+    if not 0.0 <= trace_sample_rate <= 1.0:
+        raise ValueError(f"serving.trace_sample_rate must be in [0, 1], got {trace_sample_rate!r}")
+    n_replicas = int(serve_cfg["replicas"] if replicas is None else replicas)
+    if n_replicas < 1:
+        raise ValueError(f"serving.replicas must be >= 1, got {n_replicas}")
     token_budget = serve_cfg["token_budget"]
     max_rows = serve_cfg["max_rows_per_pack"]
     golden = golden_file or (arch.config.get("dataset_reader") or {}).get("anchor_path")
     if golden is None:
         raise ValueError("serving needs a golden anchor file")
     reader = build_reader(arch.config.get("dataset_reader"))
+    anchors = list(reader.read_anchors(str(golden)))
     retries = int(serve_cfg["retries"])
-    predictor = SiamesePredictor(
-        arch.model, arch.tokenizer,
-        batch_size=int(serve_cfg["max_batch"]),
-        max_length=max_length,
-        buckets=buckets,
-        score_impl=score_impl,
-        token_budget=None if token_budget is None else int(token_budget),
-        max_rows_per_pack=int(serve_cfg["max_batch"] if max_rows is None else max_rows),
-        # the cascade's first tier is the int8 twin
-        encoder_precision="int8" if score_impl == "cascade" else "fp32",
-        cascade_low=float(serve_cfg["cascade_low"]),
-        cascade_high=float(serve_cfg["cascade_high"]),
-    )
-    predictor.encode_anchors(reader.read_anchors(str(golden)))
-    shapes = predictor.warmup_compile()
-    logger.info("serving warmed %d shape(s) on %s (score_impl=%s)", shapes, device, score_impl)
+    retry_policy = RetryPolicy(attempts=retries) if retries > 0 else None
     bank_cfg = bankops_config(arch.config)
-    service = ScoringService(
-        predictor,
-        config=ServiceConfig(
-            max_batch=int(serve_cfg["max_batch"]),
-            max_wait_ms=float(serve_cfg["max_wait_ms"]),
-            max_queue=int(serve_cfg["max_queue"]),
-            default_deadline_ms=float(serve_cfg["default_deadline_ms"]),
-            prefix_share=bool(serve_cfg["prefix_share"]),
-            anchor_stats=bool(bank_cfg["anchor_stats"]),
-        ),
-        retry_policy=RetryPolicy(attempts=retries) if retries > 0 else None,
-        out_dir=out_dir,
+    service_config = ServiceConfig(
+        max_batch=int(serve_cfg["max_batch"]),
+        max_wait_ms=float(serve_cfg["max_wait_ms"]),
+        max_queue=int(serve_cfg["max_queue"]),
+        default_deadline_ms=float(serve_cfg["default_deadline_ms"]),
+        prefix_share=bool(serve_cfg["prefix_share"]),
+        anchor_stats=bool(bank_cfg["anchor_stats"]),
+        trace_sample_rate=trace_sample_rate,
+        trace_ring=int(serve_cfg["trace_ring"]),
+        cache_capacity=int(serve_cfg["cache_capacity"] or 0),
     )
-    if bank_cfg["baseline"]:
+
+    def make_predictor(model, stream=None):
+        predictor = SiamesePredictor(
+            model, arch.tokenizer,
+            batch_size=int(serve_cfg["max_batch"]),
+            max_length=max_length,
+            buckets=buckets,
+            score_impl=score_impl,
+            token_budget=None if token_budget is None else int(token_budget),
+            max_rows_per_pack=int(serve_cfg["max_batch"] if max_rows is None else max_rows),
+            # the cascade's first tier is the int8 twin
+            encoder_precision="int8" if score_impl == "cascade" else "fp32",
+            cascade_low=float(serve_cfg["cascade_low"]),
+            cascade_high=float(serve_cfg["cascade_high"]),
+            stream=stream,
+        )
+        predictor.encode_anchors(anchors)
+        shapes = predictor.warmup_compile()
+        logger.info("serving warmed %d shape(s) on %s (score_impl=%s)", shapes, predictor.device,
+                    score_impl)
+        return predictor
+
+    def _with_drift_monitor(target):
         # a pinned win-share distribution: republish bank.anchor_drift from
         # the serving counters in the background (stopped at drain)
-        from .bankops.drift import DriftMonitor, load_baseline
+        if bank_cfg["baseline"]:
+            from .bankops.drift import DriftMonitor, load_baseline
 
-        baseline = load_baseline(bank_cfg["baseline"])
-        if baseline:
-            service.drift_monitor = DriftMonitor(service.registry, baseline,
-                                                 interval_s=float(bank_cfg["drift_interval_s"]))
-        else:
-            logger.warning("bankops.baseline %s is missing or unreadable: no drift gauge",
-                           bank_cfg["baseline"])
-    return service
+            baseline = load_baseline(bank_cfg["baseline"])
+            if baseline:
+                target.drift_monitor = DriftMonitor(target.registry, baseline,
+                                                    interval_s=float(bank_cfg["drift_interval_s"]))
+            else:
+                logger.warning("bankops.baseline %s is missing or unreadable: no drift gauge",
+                               bank_cfg["baseline"])
+        return target
+
+    def _with_slo_monitor(target):
+        # slo.* gauges, the /healthz slo block and the scale hint (stopped at drain)
+        if bool(serve_cfg["slo_enabled"]):
+            from .serving.slo import SLOConfig, SLOMonitor
+
+            target.slo_monitor = SLOMonitor(target, registry=target.registry, config=SLOConfig(
+                availability_objective=float(serve_cfg["slo_availability_objective"]),
+                latency_p95_ms=float(serve_cfg["slo_latency_p95_ms"]),
+                fast_window_s=float(serve_cfg["slo_fast_window_s"]),
+                window_s=float(serve_cfg["slo_window_s"]),
+                interval_s=float(serve_cfg["slo_interval_s"]),
+            ))
+        return target
+
+    def _with_tenants(target):
+        # last, so the installs roll through the assembled target
+        target.shadow_config = ShadowConfig.from_bankops(bank_cfg)
+        spec = tenants if tenants is not None else serve_cfg["tenants"]
+        if spec:
+            from .serving.tenancy import configure_tenants
+
+            configure_tenants(target, spec, registry=target.registry)
+        return target
+
+    if n_replicas == 1:
+        service = ScoringService(
+            make_predictor(arch.model), config=service_config, retry_policy=retry_policy,
+            out_dir=out_dir, manifest_dir=out_dir,
+        )
+        return _with_tenants(_with_slo_monitor(_with_drift_monitor(service)))
+
+    # -- the fleet: replica i on cuda:{i % cards}, the weights shared per card
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    devices = [torch.device("cuda", i % cards) if device.type == "cuda" else device
+               for i in range(n_replicas)]
+    models = {next(arch.model.parameters()).device: arch.model}
+    for dev in devices:
+        if dev not in models:
+            models[dev] = copy.deepcopy(arch.model).to(dev)
+    if device.type == "cuda":
+        # the weights are read from every replica's stream: make them ready first
+        torch.cuda.synchronize()
+    if out_dir is not None and bool(tel_cfg["enabled"]):
+        telemetry.configure(run_dir=out_dir, events=bool(tel_cfg["events"]),
+                            heartbeat_every_s=float(tel_cfg["heartbeat_every_s"]))
+
+    def make_factory(index: int):
+        dev = devices[index]
+
+        def factory(registry):
+            stream = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
+            return ScoringService(
+                make_predictor(models[dev], stream), config=service_config,
+                retry_policy=retry_policy, registry=registry,
+                manifest_dir=Path(out_dir) / f"replica-{index}" if out_dir is not None else None,
+            )
+
+        return factory
+
+    replica_list = [
+        Replica(i, make_factory(i), run_dir=out_dir, device=devices[i],
+                telemetry_enabled=bool(tel_cfg["enabled"]),
+                heartbeat_every_s=float(tel_cfg["heartbeat_every_s"]))
+        for i in range(n_replicas)
+    ]
+    logger.info("replica fleet: %d service(s) over %d device(s)", n_replicas, len(models))
+    router = ReplicaRouter(
+        replica_list,
+        config=RouterConfig(
+            heartbeat_timeout_s=float(serve_cfg["heartbeat_timeout_s"]),
+            max_batch_errors=int(serve_cfg["max_batch_errors"]),
+            monitor_interval_s=float(serve_cfg["monitor_interval_s"]),
+            max_reroutes=int(serve_cfg["max_reroutes"]),
+        ),
+        retry_policy=retry_policy,
+    )
+    return _with_tenants(_with_slo_monitor(_with_drift_monitor(router)))

@@ -271,22 +271,6 @@ def _section_over_defaults(
     return out
 
 
-def _refuse_unported(section: Dict[str, Any], unported: Dict[str, Any], name: str,
-                     exempt: tuple = ()) -> None:
-    """Raise ValueError naming every key of ``unported`` that ``section``
-    sets to anything but its default."""
-    changed = sorted(
-        key for key, default in unported.items()
-        if key in section and section[key] is not None and section[key] != default
-        and key not in exempt
-    )
-    if changed:
-        raise ValueError(
-            f"{name} keys {changed} name features the port does not have yet "
-            "(ROADMAP.md); leave them at their defaults"
-        )
-
-
 def evaluation_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     """``cfg["evaluation"]`` merged over :data:`EVALUATION_DEFAULTS` (every
     key of the JAX package's evaluation section is honoured)."""
@@ -331,8 +315,9 @@ def telemetry_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 # The ``serving`` section's keys that the port honours, with the JAX
-# package's defaults.  ``build.serve_from_archive`` sizes the predictor
-# and the service's admission-control envelope from them.
+# package's defaults.  ``build.serve_from_archive`` sizes the predictor,
+# the service's admission-control envelope, the replica fleet, tracing,
+# the SLO monitor, the tenants and the admission cache from them.
 SERVING_DEFAULTS: Dict[str, Any] = {
     "max_batch": 16,         # requests coalesced per micro-batch flush
     "max_wait_ms": 5.0,      # oldest-request coalescing window
@@ -351,25 +336,34 @@ SERVING_DEFAULTS: Dict[str, Any] = {
     "prefix_share": False,   # continuous packs share exact-duplicate segments
     "host": "127.0.0.1",     # HTTP front-end bind address
     "port": 8341,            # HTTP front-end port
-}
-
-# The JAX package's serving keys for features this port does not have yet,
-# with their defaults.  Leaving one at its default is fine; setting it to
-# anything else raises, so a setting is never silently ignored.
-SERVING_UNPORTED: Dict[str, Any] = {
+    # the replica fleet: > 1 puts that many services, on cuda:{i % cards},
+    # behind a ReplicaRouter with this health and eviction policy
     "replicas": 1,
-    "heartbeat_timeout_s": 10.0,
-    "max_batch_errors": 3,
-    "monitor_interval_s": 0.25,
-    "max_reroutes": 2,
+    "heartbeat_timeout_s": 10.0,  # missed-heartbeat eviction threshold
+    "max_batch_errors": 3,   # consecutive dead-lettered batches before eviction
+    "monitor_interval_s": 0.25,  # router health-check cadence
+    "max_reroutes": 2,       # re-enqueue attempts after replica failures
+    # request tracing: 0.0 = off; > 0 stamps every request's waypoints
     "trace_sample_rate": 0.0,
-    "trace_ring": 256,
+    "trace_ring": 256,       # completed traces kept for GET /tracez
+    # the SLO monitor: windowed availability and p95 attainment, burn
+    # rates and the scale hint (slo.* gauges, /healthz's slo block)
     "slo_enabled": True,
     "slo_availability_objective": 0.999,
     "slo_latency_p95_ms": 1000.0,
-    "slo_fast_window_s": 60.0,
-    "slo_window_s": 300.0,
-    "slo_interval_s": 5.0,
+    "slo_fast_window_s": 60.0,   # spike-catcher burn window
+    "slo_window_s": 300.0,       # confirmation (slow) burn window
+    "slo_interval_s": 5.0,       # sampling cadence
+    # named tenants, "name=store_dir,...": one bank per tenant from its store
+    "tenants": None,
+    "cache_capacity": 0,     # admission-cache entries (0: no cache)
+}
+
+# The JAX package's serving keys for the ops-plane slice (ROADMAP.md), with
+# their defaults.  Leaving one at its default is fine; setting it to
+# anything else raises, naming the slice, so a setting is never silently
+# ignored.
+SERVING_UNPORTED: Dict[str, Any] = {
     "hosts": None,
     "fleet_heartbeat_timeout_s": 10.0,
     "fleet_monitor_interval_s": 0.25,
@@ -388,21 +382,23 @@ SERVING_UNPORTED: Dict[str, Any] = {
     "incident_min_interval_s": 30.0,
     "incident_max_bundles": 8,
     "incident_window_s": 120.0,
-    "tenants": None,
-    "cache_capacity": 0,
 }
 
 
 def serving_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     """``cfg["serving"]`` merged over :data:`SERVING_DEFAULTS`.  Raises
-    ValueError when a key of :data:`SERVING_UNPORTED` is set to anything
-    but its default.  ``slo_enabled`` is on by default in the JAX package:
-    left on, it only logs that the SLO monitor is not ported; set off, it
-    asks for what the port does."""
+    ValueError, naming the ops-plane slice, when a key of
+    :data:`SERVING_UNPORTED` (the cross-host fleet, the autoscaler, alerts
+    and incident bundles) is set to anything but its default."""
     section = dict((cfg or {}).get("serving") or {})
-    _refuse_unported(section, SERVING_UNPORTED, "serving", exempt=("slo_enabled",))
-    if section.get("slo_enabled", True):
-        logging.getLogger(__name__).info("serving.slo_enabled: the SLO monitor is not ported; no SLO gauges")
+    changed = sorted(key for key, default in SERVING_UNPORTED.items()
+                     if section.get(key) is not None and section[key] != default)
+    if changed:
+        raise ValueError(
+            f"serving keys {changed} belong to the ops-plane slice (the cross-host fleet, "
+            "the autoscaler, alerts and incident bundles), which is not ported yet "
+            "(ROADMAP.md); leave them at their defaults"
+        )
     return _section_over_defaults(
         {"serving": {k: v for k, v in section.items() if k not in SERVING_UNPORTED}},
         "serving", SERVING_DEFAULTS,
@@ -413,11 +409,14 @@ def serving_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
 # package's defaults.  ``build.serve_from_archive`` honours ``anchor_stats``,
 # ``baseline`` and ``drift_interval_s``; ``bank shadow`` and ``bank promote``
 # take ``shadow_threshold`` and the gate's four limits where their flags are
-# not given.
+# not given; ``ShadowConfig.from_bankops`` reads the two ``shadow_*`` knobs
+# of a live shadow scorer.
 BANKOPS_DEFAULTS: Dict[str, Any] = {
     "anchor_stats": True,      # per-anchor win/score counts in serving
     "baseline": None,          # a pinned anchor_baseline.json (drift)
     "drift_interval_s": 30.0,  # DriftMonitor gauge refresh cadence
+    "shadow_sample_stride": 1,   # a live shadow scores every Nth served request
+    "shadow_max_queue": 512,     # its bounded sample queue; overflow drops
     "shadow_threshold": 0.5,   # the shadow's decision threshold (flips)
     "max_auc_drop": 0.01,      # the gate's golden-set AUC tolerance
     "max_f1_drop": 0.01,       # the gate's golden-set F1 tolerance
@@ -425,14 +424,11 @@ BANKOPS_DEFAULTS: Dict[str, Any] = {
     "min_shadow_samples": 100,  # the gate's shadow evidence volume
 }
 
-# The JAX package's ``bankops`` keys that no entry point of either package
-# reads (the store is ``--store``; a ``ShadowScorer`` samples every served
-# request and takes its queue bound from ``ShadowConfig``), with their
-# defaults: set away from the default, each raises rather than being ignored.
+# The JAX package's ``bankops`` key that no entry point of either package
+# reads (the store is ``--store``), with its default: set away from the
+# default, it raises rather than being ignored.
 BANKOPS_UNREAD: Dict[str, Any] = {
     "store_dir": None,
-    "shadow_sample_stride": 1,
-    "shadow_max_queue": 512,
 }
 
 
@@ -445,7 +441,7 @@ def bankops_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     if changed:
         raise ValueError(
             f"bankops keys {changed} are read by no entry point: the store is the bank "
-            "CLI's --store, a ShadowScorer samples every served request"
+            "CLI's --store"
         )
     return _section_over_defaults(
         {"bankops": {k: v for k, v in section.items() if k not in BANKOPS_UNREAD}},

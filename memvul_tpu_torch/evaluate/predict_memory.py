@@ -14,6 +14,12 @@ score_block`), ``"ragged"`` and ``"continuous"`` pack them into one
 ``[1, token_budget]`` row scored through the segment-masked attention
 kernel (:meth:`SiamesePredictor.score_ragged_sample`).
 
+``stream`` (a ``torch.cuda.Stream``) runs the predictor's bank encodes
+and serving calls under that stream: the replicas of a fleet that share a
+card each get one, so their packs can overlap on the card.  Every tensor
+such a call makes is made, read and freed on its stream, and the shared
+weights are only read.
+
 ``encoder_precision="int8"`` adds an int8 twin of the model that shares
 its weights (``BertConfig.quant="int8"``, the projections' int8 codes
 cached once); ``score_impl="cascade"`` serves through it first and
@@ -42,6 +48,7 @@ first request (``aot_warmup``).  Meshes belong to a later slice.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import queue
@@ -100,6 +107,7 @@ class SiamesePredictor:
         encoder_precision: str = "fp32",
         cascade_low: float = 0.3,
         cascade_high: float = 0.7,
+        stream: Optional["torch.cuda.Stream"] = None,
     ) -> None:
         if score_impl not in ("bucketed", "ragged", "continuous", "cascade"):
             raise ValueError(
@@ -138,6 +146,9 @@ class SiamesePredictor:
             raise ValueError("max_rows_per_pack must be >= 1")
         self.model = model.eval()
         self.device = next(model.parameters()).device
+        if stream is not None and self.device.type != "cuda":
+            raise ValueError("a CUDA stream needs a model on the card")
+        self.stream = stream
         self.batch_size = batch_size
         self.anchor_chunk = anchor_chunk
         self.anchor_match_impl = anchor_match_impl
@@ -157,6 +168,10 @@ class SiamesePredictor:
         self.telemetry = Registry()
         self.int8_model = _int8_twin(self.model) if encoder_precision == "int8" else None
 
+    def _on_stream(self):
+        """The context the predictor's device calls run in: its stream."""
+        return torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
+
     def _to_device(self, block: Dict[str, np.ndarray]):
         return (
             torch.from_numpy(block["input_ids"]).to(self.device).long(),
@@ -170,7 +185,8 @@ class SiamesePredictor:
         ``max_length`` and keep the bank on the device."""
         start = time.perf_counter()
         bank, labels, n_anchors = self.encode_bank(anchor_instances)
-        _sync(self.device)
+        with self._on_stream():
+            _sync(self.device)
         self.anchor_bank, self.anchor_labels, self.n_anchors = bank, labels, n_anchors
         self.stats["anchor_encode_s"] = time.perf_counter() - start
         self.stats["anchor_chunks"] = -(-n_anchors // self.anchor_chunk)
@@ -186,12 +202,14 @@ class SiamesePredictor:
         instances = list(anchor_instances)
         labels = [inst["meta"]["label"] for inst in instances]
         parts: List[torch.Tensor] = []
-        for start in range(0, len(instances), self.anchor_chunk):
-            chunk = instances[start : start + self.anchor_chunk]
-            seqs = self.encoder.encode_many([inst["text1"] for inst in chunk])
-            block = _pad_block(seqs, self.anchor_chunk, self.encoder.pad_id, self.encoder.max_length)
-            parts.append(self.model.encode(*self._to_device(block))[: len(chunk)])
-        bank = torch.cat(parts, dim=0)
+        with self._on_stream():
+            for start in range(0, len(instances), self.anchor_chunk):
+                chunk = instances[start : start + self.anchor_chunk]
+                seqs = self.encoder.encode_many([inst["text1"] for inst in chunk])
+                block = _pad_block(seqs, self.anchor_chunk, self.encoder.pad_id,
+                                   self.encoder.max_length)
+                parts.append(self.model.encode(*self._to_device(block))[: len(chunk)])
+            bank = torch.cat(parts, dim=0)
         return bank, labels, bank.shape[0]
 
     # -- phase 2: streaming scoring ------------------------------------------
@@ -200,13 +218,14 @@ class SiamesePredictor:
     def _score(
         self, block: Dict[str, np.ndarray], bank: Optional[torch.Tensor] = None, model=None
     ) -> torch.Tensor:
-        ids, mask = self._to_device(block)
-        bank = self.anchor_bank if bank is None else bank
-        logits = (model or self.model)(
-            {"input_ids": ids, "attention_mask": mask}, anchors=bank,
-            anchor_impl=self.anchor_match_impl,
-        )
-        return anchor_probs(logits)
+        with self._on_stream():
+            ids, mask = self._to_device(block)
+            bank = self.anchor_bank if bank is None else bank
+            logits = (model or self.model)(
+                {"input_ids": ids, "attention_mask": mask}, anchors=bank,
+                anchor_impl=self.anchor_match_impl,
+            )
+            return anchor_probs(logits)
 
     # -- serving: one block or one pack per call -----------------------------
     #
@@ -216,11 +235,16 @@ class SiamesePredictor:
 
     def score_block(self, block: Dict[str, np.ndarray], bank: torch.Tensor) -> np.ndarray:
         """One padded (rows, length) block × bank → probabilities [rows, A]."""
-        return self._score(block, bank).cpu().numpy()
+        return self._host(self._score(block, bank))
 
     def score_block_int8(self, block: Dict[str, np.ndarray], bank: torch.Tensor) -> np.ndarray:
         """:meth:`score_block` on the int8 tier (``encoder_precision="int8"``)."""
-        return self._score(block, bank, self._require_int8()).cpu().numpy()
+        return self._host(self._score(block, bank, self._require_int8()))
+
+    def _host(self, probs: torch.Tensor) -> np.ndarray:
+        """The copy to the host, on the predictor's stream, which it waits for."""
+        with self._on_stream():
+            return probs.cpu().numpy()
 
     def _require_int8(self) -> MemoryModel:
         if self.int8_model is None:
@@ -233,11 +257,12 @@ class SiamesePredictor:
     def score_ragged_sample(self, sample: Dict[str, np.ndarray], bank: torch.Tensor) -> np.ndarray:
         """One :func:`~memvul_tpu_torch.data.batching.collate_ragged` pack
         × bank → probabilities [max_rows, A] (dead rows included)."""
-        dev = {k: torch.from_numpy(v).to(self.device) for k, v in sample.items()}
-        for key in ("input_ids", "position_ids", "row_starts"):
-            dev[key] = dev[key].long()
-        logits = self.model.score_ragged(dev, bank, impl=self.anchor_match_impl)
-        return anchor_probs(logits).cpu().numpy()
+        with self._on_stream():
+            dev = {k: torch.from_numpy(v).to(self.device) for k, v in sample.items()}
+            for key in ("input_ids", "position_ids", "row_starts"):
+                dev[key] = dev[key].long()
+            logits = self.model.score_ragged(dev, bank, impl=self.anchor_match_impl)
+            return anchor_probs(logits).cpu().numpy()
 
     def stream_shapes(self) -> List[Tuple[int, int]]:
         """The closed (rows, length) set bucketed scoring produces: one per
@@ -350,7 +375,7 @@ class SiamesePredictor:
             for start in range(0, len(indices), rows):
                 chunk = indices[start : start + rows]
                 block = _pad_block([seqs[i] for i in chunk], rows, self.encoder.pad_id, length)
-                out[chunk] = self._score(block, bank, model).cpu().numpy()[: len(chunk), :n]
+                out[chunk] = self._host(self._score(block, bank, model))[: len(chunk), :n]
         return out
 
     def score_instances(
@@ -479,8 +504,8 @@ class SiamesePredictor:
         seq = self.encoder.encode_many([text])[0]
         lengths = sorted(self.buckets) if self.buckets else [self.encoder.max_length]
         length = next((b for b in lengths if b >= len(seq)), lengths[-1])
-        row = self._score(_pad_block([seq], 1, self.encoder.pad_id, length))
-        row = row.cpu().numpy()[0, : self.n_anchors]
+        row = self._host(self._score(_pad_block([seq], 1, self.encoder.pad_id, length)))
+        row = row[0, : self.n_anchors]
         best = int(np.argmax(row))
         return {
             "predict": {label: float(p) for label, p in zip(self.anchor_labels, row)},

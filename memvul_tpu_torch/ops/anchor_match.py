@@ -21,14 +21,18 @@ for ``u [B, D]``, ``anchors [A, D]`` and the bias-free pair kernel
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
 
 from . import _kernels
 
-# kernel launches since the last reset (a caller sets it back to 0)
+# kernel launches since the last reset (a caller sets it back to 0);
+# incremented under the lock, since a fleet's replicas launch from
+# several threads
 launches = 0
+_launches_lock = threading.Lock()
 
 MAX_CLASSES = 4
 
@@ -93,7 +97,8 @@ def fused_anchor_match(
         b, a, d, c, _kernels.DTYPE_CODES[u.dtype], _kernels.stream_handle(u),
     )
     _kernels.check("memvul_anchor_match", code)
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out
 
 

@@ -31,14 +31,18 @@ key-only bias (the encoder's padding mask, broadcastable to
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional
 
 import torch
 
 from . import _kernels
 
-# kernel launches since the last reset (a caller sets it back to 0)
+# kernel launches since the last reset (a caller sets it back to 0);
+# incremented under the lock, since a fleet's replicas launch from
+# several threads
 launches = 0
+_launches_lock = threading.Lock()
 
 HEAD_DIMS = (16, 32, 64)
 
@@ -147,7 +151,8 @@ def flash_attention_cuda(
         _kernels.stream_handle(query),
     )
     _kernels.check("memvul_flash_fwd", code)
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out
 
 

@@ -30,6 +30,7 @@ gather drops.
 from __future__ import annotations
 
 import math
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -37,8 +38,11 @@ import torch
 from . import _kernels
 from .flash_attention import HEAD_DIMS, _strides
 
-# kernel launches since the last reset (a caller sets it back to 0)
+# kernel launches since the last reset (a caller sets it back to 0);
+# incremented under the lock, since a fleet's replicas launch from
+# several threads
 launches = 0
+_launches_lock = threading.Lock()
 
 # the kernel's range table has 64-position tiles and a visit mask of 2048
 TILE = 64
@@ -206,7 +210,8 @@ def ragged_flash_attention_cuda(
         _kernels.stream_handle(query),
     )
     _kernels.check("memvul_ragged_fwd", code)
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out
 
 

@@ -23,12 +23,25 @@ point              fires
 ``bank.shadow``    once per shadow-scored sample batch, on the shadow
                    worker's thread (``bankops/shadow.py``): a firing lands
                    in ``bank.shadow_errors`` and never reaches a client
+``serve.batch``    once per serving device call, inside its retried window
+                   (``serving/dispatch.py``); retries exhausted dead-letter
+                   the batch: its requests resolve ``"error"``
+``serve.cascade``  the same, for the cascade's full-precision rescore
+``replica.kill``   once per submit a replica takes (``serving/replica.py``);
+                   a firing hard-kills the replica, which the router's
+                   monitor sweeps and restarts; ``replica.kill.replica-<i>``
+                   targets one replica
+``cache.lookup``   once per admission-cache lookup: a firing degrades the
+                   lookup to a miss (``cache.errors``)
+``bank.resolve``   once per submit, at its tenant's bank resolution: a
+                   firing errors that request only
 =================  ==========================================================
 
 The JAX package's other points (``data.read``, ``ckpt.write``,
-``serve.batch``, ``step.N``, the fleet's and the serving plane's) are not
-wired here yet (ROADMAP.md); ``kernel.lower`` exercises the JAX package's
-fall-back to XLA, which the port does not have.
+``step.N``, the cross-host fleet's ``host.kill`` and ``host.stall``, the
+autoscaler's ``scaler.spawn``, ``incident.dump``) are not wired here yet
+(ROADMAP.md); ``kernel.lower`` exercises the JAX package's fall-back to
+XLA, which the port does not have.
 
 With no configuration every point is a near-zero-cost no-op.  Arming is by
 the ``MEMVUL_FAULTS`` environment variable (read once, at the first

@@ -1,7 +1,62 @@
 """Online scoring: the micro-batching service, its dispatch strategies
-(bucketed, ragged, continuous), the clients and the HTTP front end."""
+(bucketed, ragged, continuous, cascade), the clients and the HTTP front
+end; and the fleet on one host: replicas behind a health-gated router
+with rolling bank swaps, named tenants, the admission cache, the SLO
+monitor and the load generator.
 
-from .client import HTTPClient, InprocessClient
-from .service import ScoreFuture, ScoringService, ServiceConfig
+``build.serve_from_archive`` builds a :class:`ScoringService`, or with
+``serving.replicas > 1`` a :class:`ReplicaRouter` over that many;
+``python -m memvul_tpu_torch serve [--replicas N] [--tenants SPEC]`` puts
+the front end over either.  The cross-host fleet and the autoscaler
+belong to the ops-plane slice (ROADMAP.md).
+"""
 
-__all__ = ["HTTPClient", "InprocessClient", "ScoreFuture", "ScoringService", "ServiceConfig"]
+from .service import (  # noqa: F401
+    MANIFEST_NAME,
+    STATUS_DEADLINE,
+    STATUS_DRAIN,
+    STATUS_ERROR,
+    STATUS_OK,
+    STATUS_SHED,
+    ScoreFuture,
+    ScoringService,
+    ServiceConfig,
+)
+from .client import HTTPClient, InprocessClient  # noqa: F401
+from .replica import (  # noqa: F401
+    REPLICA_DEAD,
+    REPLICA_HEALTHY,
+    REPLICA_SWAPPING,
+    REPLICA_UNHEALTHY,
+    Replica,
+    ReplicaDead,
+)
+from .router import ReplicaRouter, RouterConfig, rolling_swap  # noqa: F401
+from .admission_cache import AdmissionCache, text_digest  # noqa: F401
+from .tenancy import (  # noqa: F401
+    DEFAULT_TENANT,
+    TenantManager,
+    TenantSpecError,
+    configure_tenants,
+    demote_tenant,
+    install_tenant_bank,
+    parse_tenant_spec,
+    promote_tenant,
+    validate_tenant_name,
+)
+from .loadgen import (  # noqa: F401
+    LoadConfig,
+    LoadGenerator,
+    arrival_offsets,
+    fleet_snapshot,
+    request_deadlines,
+    request_texts,
+    run_slo_harness,
+)
+from .slo import (  # noqa: F401
+    SCALE_DOWN,
+    SCALE_HOLD,
+    SCALE_UP,
+    SLOConfig,
+    SLOMonitor,
+)

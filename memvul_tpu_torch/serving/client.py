@@ -28,8 +28,10 @@ class InprocessClient:
         text: str,
         deadline_ms: Optional[float] = None,
         timeout_s: Optional[float] = 60.0,
+        tenant: Optional[str] = None,
     ) -> Dict[str, Any]:
-        return self.service.submit(text, deadline_ms=deadline_ms).result(timeout=timeout_s)
+        return self.service.submit(text, deadline_ms=deadline_ms, tenant=tenant).result(
+            timeout=timeout_s)
 
 
 class HTTPClient:
@@ -60,10 +62,13 @@ class HTTPClient:
                 return {"status": "error", "reason": f"client_timeout after {timeout:.3f}s: {e.reason}"}
             raise
 
-    def score(self, text: str, deadline_ms: Optional[float] = None) -> Dict[str, Any]:
+    def score(self, text: str, deadline_ms: Optional[float] = None,
+              tenant: Optional[str] = None) -> Dict[str, Any]:
         payload: Dict[str, Any] = {"text": text}
         if deadline_ms is not None:
             payload["deadline_ms"] = deadline_ms
+        if tenant is not None:
+            payload["tenant"] = tenant
         req = urllib.request.Request(
             self.base_url + "/score",
             data=json.dumps(payload).encode("utf-8"),

@@ -21,6 +21,14 @@ strategy decides only how accepted requests become device calls:
 * :class:`CascadeDispatcher` routes like the bucketed strategy but scores
   each block on the int8 tier first and rescores, at the same (rows,
   length), only the rows whose best probability lies in the cascade band.
+
+A pull is grouped by tenant and each group scored against that tenant's
+ONE bank snapshot (a continuous pack seals when the tenant changes), so
+K1 runs once per tenant group of a pull.  The ``serve.batch`` fault point
+fires inside each device call's retried window (``serve.cascade`` inside
+the cascade's rescore).  A served response is stored in the admission
+cache before it resolves, and traced requests get their ``coalesced``,
+``dispatched`` and ``device_done`` waypoints here.
 """
 
 from __future__ import annotations
@@ -34,8 +42,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..data.batching import PackSlotAllocator, _pad_block, collate_ragged, pack_token_budget
+from ..resilience import faults
 from ..resilience.retry import exception_text
 from .service import STATUS_DEADLINE, STATUS_DRAIN, STATUS_ERROR, STATUS_OK, _BankVersion, _Request
+from .tenancy import DEFAULT_TENANT
 
 logger = logging.getLogger(__name__)
 
@@ -51,6 +61,12 @@ class Dispatcher:
     def __init__(self, service) -> None:
         self.service = service
 
+    @property
+    def alive(self) -> bool:
+        """Liveness beyond the batcher thread (the service watches that
+        itself); the continuous strategy adds its device worker."""
+        return True
+
     # -- the batcher loop (service thread) -------------------------------------
 
     def run(self) -> None:
@@ -59,6 +75,13 @@ class Dispatcher:
             pulled = self._pull_batch()
             if not pulled:
                 continue
+            if svc._trace_enabled:
+                coalesced = time.monotonic()
+                batch = next(svc._batch_seq)
+                for request in pulled:
+                    if request.trace is not None:
+                        request.trace.coalesced = coalesced
+                        request.trace.batch = batch
             # the pull is the in-flight work: a hard kill's sweep finds it
             with svc._cond:
                 svc._inflight = list(pulled)
@@ -71,9 +94,11 @@ class Dispatcher:
                 return  # keep _inflight visible for take_unresolved
             with svc._cond:
                 svc._inflight = []
+            svc._tel.heartbeat()
         if svc._killed.is_set():
             return
         svc._shed_queue(STATUS_DRAIN)
+        svc._tel.heartbeat(force=True)
 
     def _pull_batch(self) -> List[_Request]:
         """Wait for the first request, then pull until ``max_batch`` are
@@ -90,6 +115,9 @@ class Dispatcher:
                 if svc._draining.is_set():
                     return pulled
                 svc._cond.wait(0.05)
+            # idle liveness tick, outside the queue lock: an idle batcher
+            # keeps its heartbeat age near zero, so only a wedged one ages
+            svc._tel.heartbeat()
         flush_at = time.monotonic() + cfg.max_wait_ms / 1000.0
         while len(pulled) < cfg.max_batch and not svc._draining.is_set():
             remaining = flush_at - time.monotonic()
@@ -105,8 +133,8 @@ class Dispatcher:
         return pulled
 
     def _dispatch(self, pulled: List[_Request]) -> None:
-        """Expire stale requests, encode the rest, snapshot the bank once,
-        and hand the live set to the strategy."""
+        """Expire stale requests, encode the rest, group them by tenant and
+        hand each group to the strategy with ONE snapshot of its bank."""
         svc = self.service
         now = time.monotonic()
         live: List[_Request] = []
@@ -119,7 +147,22 @@ class Dispatcher:
             return
         seqs = svc.predictor.encoder.encode_many([r.text for r in live])
         svc._count_truncated(live, seqs)
-        self._dispatch_live(live, seqs, svc.bank_snapshot())
+        groups: Dict[str, List[Tuple[_Request, List[int]]]] = {}
+        for request, seq in zip(live, seqs):
+            request.n_tokens = len(seq)  # the cache's tokens-saved ledger
+            groups.setdefault(request.tenant, []).append((request, seq))
+        for tenant, grouped in groups.items():
+            try:
+                bank = svc._bank_for(tenant)
+            except KeyError as e:  # pragma: no cover - submit() resolves tenants
+                reason = exception_text(e)
+                svc._tel.counter("serve.errors").inc(len(grouped))
+                svc._tenant_count(tenant, "errors", len(grouped))
+                for request, _ in grouped:
+                    request.future.resolve({"status": STATUS_ERROR, "reason": reason})
+                    svc._finish_trace(request, STATUS_ERROR)
+                continue
+            self._dispatch_live([r for r, _ in grouped], [q for _, q in grouped], bank)
 
     def _dispatch_live(self, live: List[_Request], seqs: List[List[int]], bank: _BankVersion) -> None:
         raise NotImplementedError
@@ -136,9 +179,10 @@ class Dispatcher:
         padded_tokens: int,
         real_tokens: int,
         score_fn: Callable[[Dict[str, np.ndarray], Any], np.ndarray],
+        shape: str,
     ) -> None:
         """One retried device round trip, booked and resolved to clients."""
-        probs = self._device_call(chunk, bank, sample=sample, score_fn=score_fn)
+        probs = self._device_call(chunk, bank, sample=sample, score_fn=score_fn, shape=shape)
         if probs is None:
             return  # dead-lettered or killed: nothing left to resolve
         self._finalize_batch(len(chunk), occupancy_rows=occupancy_rows,
@@ -152,20 +196,30 @@ class Dispatcher:
         *,
         sample: Dict[str, np.ndarray],
         score_fn: Callable[[Dict[str, np.ndarray], Any], np.ndarray],
+        shape: str,
+        fault_name: str = "serve.batch",
     ) -> Optional[np.ndarray]:
         """One retried device round trip: the ``[len(chunk), n_anchors]``
         probabilities, or None when the worker was killed or the chunk was
         dead-lettered (retries exhausted or a non-transient failure: every
-        request resolves ``"error"`` with the reason)."""
+        request resolves ``"error"`` with the reason).  ``fault_name``
+        fires inside the retried window; ``shape`` labels the traces."""
         svc = self.service
         tel = svc._tel
 
         def once():
+            faults.fault_point(fault_name)
             return score_fn(sample, bank.array)
 
         def count_retry(exc, attempt):
             tel.counter("resilience.retries").inc()
 
+        if svc._trace_enabled:
+            dispatched = time.monotonic()
+            for request, _ in chunk:
+                if request.trace is not None:
+                    request.trace.dispatched = dispatched
+                    request.trace.shape = shape
         start = time.perf_counter()
         try:
             if svc.retry_policy is None:
@@ -181,10 +235,17 @@ class Dispatcher:
             tel.counter("serve.dead_letters").inc()
             tel.counter("serve.errors").inc(len(chunk))
             for request, _ in chunk:
+                svc._tenant_count(request.tenant, "errors")
                 request.future.resolve({"status": STATUS_ERROR, "reason": reason})
+                svc._finish_trace(request, STATUS_ERROR)
             return None
         if svc._killed.is_set():
             return None  # killed mid-dispatch: the sweep accounts this chunk
+        if svc._trace_enabled:
+            device_done = time.monotonic()
+            for request, _ in chunk:
+                if request.trace is not None:
+                    request.trace.device_done = device_done
         tel.histogram("serve.batch_latency_s").observe(time.perf_counter() - start)
         return probs
 
@@ -205,8 +266,10 @@ class Dispatcher:
         svc = self.service
         tel = svc._tel
         tel.counter("serve.served").inc(len(chunk))
+        tel.progress()
         now = time.monotonic()
         anchor_stats = svc.config.anchor_stats
+        cache = svc.admission_cache
         weights = bank.weights
         for (request, _), row in zip(chunk, probs):
             # a reweighted bank picks its winner by the weighted scores and
@@ -219,14 +282,31 @@ class Dispatcher:
                 label = bank.labels[best]
                 tel.counter(f"bank.anchor_wins.{label}").inc()
                 tel.histogram(f"bank.anchor_score.{label}").observe(float(row[best]))
-            request.future.resolve({
+            response = {
                 "status": STATUS_OK,
                 "predict": {label: float(p) for label, p in zip(bank.labels, row)},
                 "score": float(row[best]),
                 "anchor": bank.labels[best],
                 "bank_version": bank.version,
                 "latency_ms": round(latency * 1e3, 3),
-            })
+            }
+            if cache is not None:
+                # before resolve: the client owns the resolved dict
+                cache.store(request.tenant, request.text, bank.version, svc._score_impl,
+                            svc._precision, response, n_tokens=request.n_tokens)
+            svc._tenant_count(request.tenant, "served")
+            request.future.resolve(response)
+            trace = request.trace
+            if trace is not None:
+                # the four stage histograms partition enqueued → resolved
+                trace.resolved = now
+                for stage, begin, end in (("queue_wait_s", trace.enqueued, trace.coalesced),
+                                          ("pack_s", trace.coalesced, trace.dispatched),
+                                          ("device_s", trace.dispatched, trace.device_done),
+                                          ("resolve_s", trace.device_done, now)):
+                    if begin is not None and end is not None:
+                        tel.histogram(f"serve.{stage}").observe(end - begin)
+                svc._finish_trace(request, STATUS_OK)
         tap = svc._shadow_tap
         if tap is not None:
             # after resolution, so shadow sampling adds nothing to a client's
@@ -268,6 +348,7 @@ class BucketedDispatcher(Dispatcher):
             padded_tokens=rows * length,
             real_tokens=sum(min(len(seq), length) for _, seq in chunk),
             score_fn=self.service.predictor.score_block,
+            shape=f"bucket:{rows}x{length} fill={len(chunk)}/{rows}",
         )
 
     def _bucket_for(self, n_tokens: int) -> int:
@@ -293,8 +374,10 @@ class CascadeDispatcher(BucketedDispatcher):
     def _score_bucket_chunk(self, chunk: Chunk, bank: _BankVersion, rows: int, length: int) -> None:
         predictor = self.service.predictor
         tel = self.service._tel
-        probs = self._device_call(chunk, bank, sample=self._pad_bucket(chunk, rows, length),
-                                  score_fn=predictor.score_block_int8)
+        probs = self._device_call(
+            chunk, bank, sample=self._pad_bucket(chunk, rows, length),
+            score_fn=predictor.score_block_int8,
+            shape=f"bucket:{rows}x{length} fill={len(chunk)}/{rows} tier=int8")
         if probs is None:
             return
         self._finalize_batch(len(chunk), occupancy_rows=rows, padded_tokens=rows * length,
@@ -309,14 +392,16 @@ class CascadeDispatcher(BucketedDispatcher):
         if not in_band:
             return
         tel.counter("serve.cascade_rescored").inc(len(in_band))
-        self._score_chunk(
-            [chunk[i] for i in in_band], bank,
-            sample=self._pad_bucket([chunk[i] for i in in_band], rows, length),
-            occupancy_rows=rows,
-            padded_tokens=rows * length,
-            real_tokens=sum(min(len(chunk[i][1]), length) for i in in_band),
-            score_fn=predictor.score_block,
-        )
+        sub = [chunk[i] for i in in_band]
+        rescored = self._device_call(
+            sub, bank, sample=self._pad_bucket(sub, rows, length), score_fn=predictor.score_block,
+            shape=f"bucket:{rows}x{length} fill={len(sub)}/{rows} tier=fp32",
+            fault_name="serve.cascade")
+        if rescored is None:
+            return  # the in-band rows dead-lettered (or the worker was killed)
+        self._finalize_batch(len(sub), occupancy_rows=rows, padded_tokens=rows * length,
+                             real_tokens=sum(min(len(seq), length) for _, seq in sub))
+        self._resolve_scored(sub, rescored, bank)
 
 
 class RaggedDispatcher(Dispatcher):
@@ -330,14 +415,16 @@ class RaggedDispatcher(Dispatcher):
             if svc._killed.is_set():
                 return
             chunk = [(live[i], seqs[i]) for i in pack]
+            real_tokens = sum(min(len(seq), budget) for _, seq in chunk)
             self._score_chunk(
                 chunk, bank,
                 sample=collate_ragged([seq for _, seq in chunk], budget, max_rows,
                                       svc.predictor.encoder.pad_id),
                 occupancy_rows=max_rows,
                 padded_tokens=budget,
-                real_tokens=sum(min(len(seq), budget) for _, seq in chunk),
+                real_tokens=real_tokens,
                 score_fn=svc.predictor.score_ragged_sample,
+                shape=f"pack:{real_tokens}/{budget}",
             )
 
 
@@ -383,16 +470,27 @@ class ContinuousDispatcher(Dispatcher):
         )
         # admission-thread-only state
         self._open: List[Tuple[_Request, List[int]]] = []
+        self._open_tenant: str = DEFAULT_TENANT
         self._flush_at: Optional[float] = None
         self._reported = {"slots_reused": 0, "rows_aliased": 0, "tokens_aliased": 0}
         # cross-thread state, each with its own synchronization
         self._handoff: "queue.Queue[Optional[_SealedPack]]" = queue.Queue(maxsize=1)
         self._device_busy = threading.Event()
+        self._worker: Optional[threading.Thread] = None
+
+    @property
+    def alive(self) -> bool:
+        worker = self._worker
+        if worker is None:
+            return True  # not started yet
+        # a worker that exited outside a drain or a kill is a dead replica
+        return worker.is_alive() or self.service._draining.is_set()
 
     def run(self) -> None:
         svc = self.service
         worker = threading.Thread(target=self._device_loop, name="memvul-serve-device", daemon=True)
-        worker.start()
+        worker.start()  # start, then publish: a published thread is a live one
+        self._worker = worker
         while not svc._draining.is_set():
             request = None
             with svc._cond:
@@ -409,6 +507,8 @@ class ContinuousDispatcher(Dispatcher):
                 self._admit(request)
                 if svc._killed.is_set():
                     return
+            else:
+                svc._tel.heartbeat()  # idle liveness tick, outside the lock
             if self._open and self._flush_at is not None and time.monotonic() >= self._flush_at:
                 self._seal_and_submit()
                 if svc._killed.is_set():
@@ -420,20 +520,30 @@ class ContinuousDispatcher(Dispatcher):
         if svc._killed.is_set():
             return
         svc._shed_queue(STATUS_DRAIN)
+        svc._tel.heartbeat(force=True)
 
     # -- admission loop (service batcher thread) -------------------------------
 
     def _admit(self, request: _Request) -> None:
         """One pop → one page-table write (or a deadline resolution)."""
         svc = self.service
-        if request.deadline_monotonic is not None and time.monotonic() > request.deadline_monotonic:
+        now = time.monotonic()
+        if request.deadline_monotonic is not None and now > request.deadline_monotonic:
             svc._finish_unserved(request, STATUS_DEADLINE)
             return
         seq = svc.predictor.encoder.encode_many([request.text])[0]
         svc._count_truncated([request], [seq])
+        request.n_tokens = len(seq)
         # in flight from the moment it leaves the queue
         with svc._cond:
             svc._inflight.append(request)
+        if request.trace is not None:
+            request.trace.coalesced = now  # admission into the pack
+        if self._open and request.tenant != self._open_tenant:
+            # a pack serves ONE tenant's snapshot: a tenant switch seals it
+            self._seal_and_submit()
+            if svc._killed.is_set():
+                return
         row = self._alloc.admit(seq)
         if row is None:
             self._seal_and_submit()
@@ -446,6 +556,7 @@ class ContinuousDispatcher(Dispatcher):
             svc._tel.counter("serve.pack_topups").inc()
         if not self._open:
             self._flush_at = time.monotonic() + svc.config.max_wait_ms / 1000.0
+            self._open_tenant = request.tenant
         self._open.append((request, seq))
         if self._alloc.rows >= self._max_rows:
             self._seal_and_submit()
@@ -458,7 +569,7 @@ class ContinuousDispatcher(Dispatcher):
         if not self._open:
             return
         svc = self.service
-        bank = svc.bank_snapshot()
+        bank = svc._bank_for(self._open_tenant)  # the pack is single-tenant
         chunk, self._open = self._open, []
         self._flush_at = None
         item = _SealedPack(chunk, self._alloc.sample(), self._alloc.real_tokens, bank)
@@ -470,6 +581,11 @@ class ContinuousDispatcher(Dispatcher):
             if total > self._reported[attr]:
                 svc._tel.counter(name).inc(total - self._reported[attr])
                 self._reported[attr] = total
+        if svc._trace_enabled:
+            batch = next(svc._batch_seq)
+            for request, _ in chunk:
+                if request.trace is not None:
+                    request.trace.batch = batch
         while True:
             if svc._killed.is_set():
                 return  # abandon unresolved; the sweep accounts them
@@ -521,6 +637,7 @@ class ContinuousDispatcher(Dispatcher):
                     padded_tokens=self._token_budget,
                     real_tokens=item.real_tokens,
                     score_fn=svc.predictor.score_ragged_sample,
+                    shape=f"pack:{item.real_tokens}/{self._token_budget}",
                 )
             finally:
                 self._device_busy.clear()

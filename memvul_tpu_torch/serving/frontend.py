@@ -1,18 +1,26 @@
-"""Stdlib HTTP front end for the scoring service (the JAX package's
-``serving/frontend.py``: ``POST /score`` and ``GET /healthz``).
+"""Stdlib HTTP front end for the scoring service or a replica router (the
+JAX package's ``serving/frontend.py``).
 
-Handler threads only enqueue a request and wait on its future;
-tokenization, packing and every device call stay on the service's
-threads.
+Handler threads only enqueue a request and wait on its future, or read a
+snapshot; tokenization, packing and every device call stay on the
+service's threads.
 
-* ``POST /score`` with ``{"text": "...", "deadline_ms": 500}`` → the
-  service response; HTTP 200 ok, 503 shed/drain, 504 deadline, 500 error,
-  400 for a malformed body or a named tenant.
-* ``GET /healthz`` → ``health_summary()``; HTTP 200, or 503 once draining.
+* ``POST /score`` with ``{"text": "...", "deadline_ms": 500, "tenant":
+  "acme"}`` → the response; the tenant comes from the JSON field, else the
+  ``X-MemVul-Tenant`` header, else the default tenant.  HTTP 200 ok, 503
+  shed/drain, 504 deadline, 500 error, 400 for a malformed body.
+* ``GET /healthz`` → ``health_summary()`` (a router's carries the fleet
+  view), with the ``slo`` block of an attached SLO monitor and the
+  ``tenancy`` block of an attached tenant manager; HTTP 200, or 503 once
+  draining.
+* ``GET /metrics`` → the live registries as Prometheus text
+  (``telemetry/exposition.py``; a router labels each replica's part).
+* ``GET /tracez[?limit=N]`` → the recent completed request traces, newest
+  first.
 
-``/metrics``, ``/tracez``, ``/programz``, ``/metricsz``, ``/alertz`` and
-``/profilez`` wait for the ops-plane slice and answer 404.  The access log
-goes through ``logging``.
+``/programz``, ``/metricsz``, ``/alertz`` and ``POST /profilez`` belong to
+the ops-plane slice: they answer 501 with an error naming it.  The access
+log goes through ``logging``.
 """
 
 from __future__ import annotations
@@ -20,8 +28,10 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..telemetry.exposition import render_target
 from .service import STATUS_DEADLINE, STATUS_DRAIN, STATUS_ERROR, STATUS_OK, STATUS_SHED, ScoringService
 
 logger = logging.getLogger(__name__)
@@ -36,6 +46,8 @@ _HTTP_STATUS = {
 # how long past the request's deadline a handler waits on the future (the
 # service resolves a deadline only at the pull)
 _RESULT_SLACK_S = 30.0
+# the JAX package's endpoints of the ops-plane slice (ROADMAP.md)
+OPS_PLANE_PATHS = ("/programz", "/metricsz", "/alertz", "/profilez")
 
 
 class ScoringHTTPServer(ThreadingHTTPServer):
@@ -63,14 +75,55 @@ class ScoreHandler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+    def _reply_text(self, http_status: int, text: str) -> None:
+        body = text.encode("utf-8")
+        self.send_response(http_status)
+        self.send_header("Content-Type", "text/plain; version=0.0.4")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _reply_ops_plane(self, path: str) -> bool:
+        if path not in OPS_PLANE_PATHS:
+            return False
+        self._reply(501, {"status": "error",
+                          "reason": f"{path} belongs to the ops-plane slice, which is not ported "
+                          "yet (ROADMAP.md)"})
+        return True
+
     def do_GET(self) -> None:
-        if self.path.partition("?")[0] != "/healthz":
-            self._reply(404, {"status": "error", "reason": "unknown path"})
+        path, _, query = self.path.partition("?")
+        service = self.server.service
+        if path == "/healthz":
+            summary = service.health_summary()
+            # attached monitors answer with a dict copy: a snapshot read
+            monitor = getattr(service, "slo_monitor", None)
+            if monitor is not None:
+                summary["slo"] = monitor.status()
+            manager = getattr(service, "tenant_manager", None)
+            if manager is not None and "tenancy" not in summary:
+                summary["tenancy"] = manager.summary()
+            self._reply(503 if summary["draining"] else 200, summary)
             return
-        summary = self.server.service.health_summary()
-        self._reply(503 if summary["draining"] else 200, summary)
+        if path == "/metrics":
+            self._reply_text(200, render_target(service))
+            return
+        if path == "/tracez":
+            params = urllib.parse.parse_qs(query)
+            try:
+                limit = int(params["limit"][0]) if "limit" in params else None
+            except (TypeError, ValueError):
+                self._reply(400, {"status": "error", "reason": "limit must be an integer"})
+                return
+            traces = service.recent_traces(limit)
+            self._reply(200, {"count": len(traces), "traces": traces})
+            return
+        if not self._reply_ops_plane(path):
+            self._reply(404, {"status": "error", "reason": "unknown path"})
 
     def do_POST(self) -> None:
+        if self._reply_ops_plane(self.path):
+            return
         if self.path != "/score":
             self._reply(404, {"status": "error", "reason": "unknown path"})
             return
@@ -84,7 +137,10 @@ class ScoreHandler(BaseHTTPRequestHandler):
             deadline_ms = payload.get("deadline_ms")
             if deadline_ms is not None:
                 deadline_ms = float(deadline_ms)
+            # the JSON field, then the header; neither: the default tenant
             tenant = payload.get("tenant") or self.headers.get("X-MemVul-Tenant")
+            if tenant is not None and not isinstance(tenant, str):
+                raise TypeError("'tenant' must be a string")
             # enqueue + wait on the future: the only service interaction
             future = service.submit(text, deadline_ms=deadline_ms, tenant=tenant)
         except (KeyError, TypeError, ValueError) as e:
@@ -101,10 +157,10 @@ class ScoreHandler(BaseHTTPRequestHandler):
 
 def run_http_server(service: ScoringService, host: str = "127.0.0.1", port: int = 0) -> ScoringHTTPServer:
     """Bind (port 0 = ephemeral; read ``server.server_address``) and serve
-    on a daemon thread.  Stop with ``server.shutdown()``, then
-    ``service.drain()``."""
+    a service or a router on a daemon thread.  Stop with
+    ``server.shutdown()``, then ``service.drain()``."""
     server = ScoringHTTPServer((host, port), service)
     threading.Thread(target=server.serve_forever, name="memvul-serve-http", daemon=True).start()
-    logger.info("scoring service listening on http://%s:%d (POST /score, GET /healthz)",
-                *server.server_address[:2])
+    logger.info("scoring service listening on http://%s:%d (POST /score, GET /healthz, "
+                "GET /metrics, GET /tracez)", *server.server_address[:2])
     return server

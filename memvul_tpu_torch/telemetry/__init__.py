@@ -15,18 +15,28 @@ A registry given a ``run_dir`` also writes that run's sinks
 :meth:`Registry.heartbeat` rewrites ``HEARTBEAT.json`` and
 :meth:`Registry.close` rolls the snapshot up into ``telemetry.json``.  The
 sharded corpus scorer's coordinator and each of its workers keep one.
-Spans, the time-series store, ``metrics_port`` and the roofline gauges
-wait for the ops-plane slice (ROADMAP.md).
+
+The serving plane's fleet adds the process-wide registry
+(:func:`get_registry`, :func:`configure`, :func:`reset`: the router's
+``router.*`` counters and the SLO monitor's ``slo.*`` gauges live there,
+each replica keeps a registry of its own), the liveness clock
+(:meth:`Registry.progress`, :meth:`Registry.heartbeat_age_s`, which the
+replica health check reads) and timed spans (:meth:`Registry.span`).
+Unlike the JAX package's, the default process-wide registry counts in
+memory (no sinks) instead of discarding, so ``router.*`` is readable
+without a :func:`configure`.  The time-series store, ``metrics_port`` and
+the roofline gauges wait for the ops-plane slice (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, Iterator, List, Optional, Union
 
 from .sinks import HeartbeatFile, JsonlSink, SummaryFile
 
@@ -125,6 +135,7 @@ class Registry:
         self.heartbeat_every_s = float(heartbeat_every_s)
         self.started_monotonic = time.monotonic()
         self.started_wall = time.time()
+        self.last_progress_monotonic = self.started_monotonic
         self.last_progress_wall = self.started_wall
         self._last_heartbeat = float("-inf")
         self._closed = False
@@ -180,11 +191,34 @@ class Registry:
         record.update(fields)
         self._events.emit(record)
 
+    def progress(self) -> None:
+        """Mark forward progress (two clock reads, no sink): what
+        :meth:`heartbeat_age_s` measures from."""
+        self.last_progress_monotonic = time.monotonic()
+        self.last_progress_wall = time.time()
+
+    def heartbeat_age_s(self) -> float:
+        """Seconds since the last recorded progress."""
+        return time.monotonic() - self.last_progress_monotonic
+
+    @contextlib.contextmanager
+    def span(self, name: str, **fields: Any) -> Iterator[None]:
+        """A timed scope: ``span.<name>`` timing stats and a ``span`` event."""
+        self.progress()
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            dur = time.perf_counter() - start
+            self.histogram(f"span.{name}").observe(dur)
+            self.event("span", name=name, dur_s=round(dur, 6), **fields)
+            self.heartbeat()
+
     def heartbeat(self, force: bool = False, **extra: Any) -> None:
         """Rewrite ``HEARTBEAT.json`` (at most every ``heartbeat_every_s``
         unless ``force``) with the wall time, the counters and ``extra``.
         Callers call it at progress milestones, so it also marks progress."""
-        self.last_progress_wall = time.time()
+        self.progress()
         if self._heartbeat_file is None or self._closed:
             return
         now = time.monotonic()
@@ -227,3 +261,41 @@ class Registry:
         self._closed = True
         if self._events is not None:
             self._events.close()
+
+
+# -- the process-wide registry -------------------------------------------------
+
+_default = Registry()
+_current: Registry = _default
+
+
+def get_registry() -> Registry:
+    """The process-wide registry: the router's ``router.*`` counters, the
+    SLO monitor's ``slo.*`` gauges, a tenant manager's and a shadow
+    scorer's on a fleet.  Until :func:`configure` runs it is an in-memory
+    registry without sinks."""
+    return _current
+
+
+def configure(
+    run_dir: Optional[Union[str, Path]] = None,
+    *,
+    events: bool = True,
+    heartbeat_every_s: float = 30.0,
+) -> Registry:
+    """Install a fresh process-wide registry (closing a configured one
+    before it) and return it; with ``run_dir`` it writes that run's sinks."""
+    global _current
+    if _current is not _default:
+        _current.close()
+    _current = Registry(run_dir=run_dir, heartbeat_every_s=heartbeat_every_s, events=events)
+    return _current
+
+
+def reset() -> None:
+    """Close a configured registry and install a fresh in-memory default
+    (tests: a clean slate of counters)."""
+    global _current, _default
+    if _current is not _default:
+        _current.close()
+    _default = _current = Registry()

@@ -16,8 +16,9 @@ the JAX package's, on the CPU.
   tolerance); a live ``ShadowScorer`` on a CPU ``ScoringService`` (bucketed
   and ragged) leaves the served answers bitwise unchanged and writes one
   delta row per request; a failing shadow worker never reaches a client;
-* **promote / demote** on one service, with provenance; fleet and tenant
-  targets raise, naming the serving-plane slice; a promoted reweighted bank
+* **promote / demote** on one service, with provenance; a fleet target
+  rolls through ``rolling_swap`` and ``tenant=`` scopes the install; a
+  promoted reweighted bank
   serves the same winners as the JAX package's service after its own
   promote (scores within the tolerance above);
 * the ``bank`` CLI through ``main([...])``.
@@ -295,21 +296,45 @@ class _Fleet(_NoService):
     replicas = ()
 
 
-def test_fleet_and_tenant_targets_raise_naming_the_slice(tmp_path):
+class _Recorder(_NoService):
+    """A service that records its installs."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.installs = []
+
+    def swap_bank(self, instances, **kwargs):
+        self.installs.append((len(list(instances)), kwargs))
+        return len(self.installs) + 1
+
+
+def test_fleet_and_tenant_targets_raise_naming_the_slice(tmp_path, monkeypatch):
+    """A fleet target rolls through ``rolling_swap`` and ``tenant=`` scopes
+    the install (both raised before the serving plane was ported); what
+    still raises naming its slice is the cross-host fleet."""
+    from memvul_tpu_torch.config import serving_config
+    from memvul_tpu_torch.serving import router as router_mod
+
     store = BankStore(tmp_path)
     store.create(ANCHORS_V1)
     store.derive("v1", BankDiff.from_json([{"op": "retire", "category": "CWE-22"}]))
     store.set_active("v2")
     approved = evaluate_gate(GOOD, GOOD, None, GateThresholds(require_shadow=False),
                              candidate="v2", parent="v1")
-    for call in (lambda: promote(_Fleet(), store, approved),
-                 lambda: promote(_NoService(), store, approved, tenant="orgA"),
-                 lambda: demote(_Fleet(), store),
-                 lambda: demote(_NoService(), store, tenant="orgA"),
-                 lambda: ShadowScorer(_Fleet(), [])):
-        with pytest.raises(NotImplementedError, match="serving-plane slice"):
-            call()
-    assert store.active()["version"] == "v2" and store.promotions() == []
+    rolled = []
+    monkeypatch.setattr(router_mod, "rolling_swap",
+                        lambda target, instances, **kw: rolled.append((len(instances), kw)) or 7)
+    assert promote(_Fleet(), store, approved) == 7
+    assert rolled[-1] == (2, {"source": "promotion", "store_version": "v2", "tenant": None})
+    assert demote(_Fleet(), store, tenant="orga") == {"version": "v1", "serving_version": 7}
+    assert rolled[-1] == (3, {"source": "demotion", "store_version": "v1", "tenant": "orga"})
+    service = _Recorder()
+    assert promote(service, store, approved, tenant="orga") == 2
+    assert service.installs == [(2, {"source": "promotion", "store_version": "v2",
+                                     "tenant": "orga"})]
+    assert [r["tenant"] for r in store.promotions()] == [None, "orga", "orga"]
+    with pytest.raises(ValueError, match="hosts.*ops-plane slice"):
+        serving_config({"serving": {"hosts": "a:8341,b:8341"}})
 
 
 # -- drift ---------------------------------------------------------------------
@@ -740,8 +765,10 @@ def test_swap_bank_warms_a_new_geometry_first(setup, ws, tmp_path):
         snapshot = service.bank_snapshot()
         assert (snapshot.version, snapshot.parent_version, snapshot.store_version) == (3, 2, "v2")
         assert snapshot.weights is None  # an all-1.0 bank selects by the plain argmax
-        with pytest.raises(NotImplementedError, match="serving-plane slice"):
-            service.swap_bank(store.instances("v1"), tenant="orgA")
+        # a named tenant's slot: its own version line, the default untouched
+        assert service.swap_bank(store.instances("v1"), tenant="orga") == 1
+        assert service.tenant_banks()["orga"].n_anchors == len(store.instances("v1"))
+        assert service.bank_snapshot() is snapshot
     finally:
         service.drain()
 
@@ -848,8 +875,14 @@ def test_bank_cli_build_diff_log_roundtrip(tmp_path, capsys):
     # usage errors exit 2 with a message, not a traceback
     assert cli.main(["bank", "diff", "--store", str(store_dir), "--retire", "CWE-404"]) == 2
     assert cli.main(["bank", "diff", "--store", str(tmp_path / "empty"), "--retire", "x"]) == 2
+    # --tenant scopes the store to <store>/<tenant>; a name that cannot be a
+    # telemetry label is a usage error
     assert cli.main(["bank", "log", "--store", str(store_dir), "--tenant", "orgA"]) == 2
-    assert "serving-plane slice" in capsys.readouterr().err
+    assert "must match" in capsys.readouterr().err
+    assert cli.main(["bank", "build", "--store", str(store_dir), "--tenant", "orga",
+                     "--anchors", str(anchors_path)]) == 0
+    assert json.loads(capsys.readouterr().out)["version"] == "v1"
+    assert BankStore(store_dir / "orga").versions() == ["v1"]
 
 
 def test_bank_cli_shadow_and_promote(setup, ws, tmp_path, capsys):
@@ -900,9 +933,12 @@ def test_bankops_section_honoured_or_refused():
     assert dict(BANKOPS_DEFAULTS, **BANKOPS_UNREAD) == JAX_BANKOPS_DEFAULTS
     assert bankops_config({"bankops": {"max_flip_rate": 0.5}})["max_flip_rate"] == 0.5
     assert bankops_config({"bankops": {"store_dir": None}}) == BANKOPS_DEFAULTS
-    for key, value in (("store_dir", "banks/"), ("shadow_sample_stride", 4)):
-        with pytest.raises(ValueError, match=key):
-            bankops_config({"bankops": {key: value}})
+    assert bankops_config({"bankops": {"shadow_sample_stride": 4}})["shadow_sample_stride"] == 4
+    assert ShadowConfig.from_bankops(bankops_config({"bankops": {
+        "shadow_sample_stride": 4, "shadow_max_queue": 8}})) == ShadowConfig(sample_stride=4,
+                                                                               max_queue=8)
+    with pytest.raises(ValueError, match="store_dir"):
+        bankops_config({"bankops": {"store_dir": "banks/"}})
 
 
 def test_serve_counts_anchor_wins_and_publishes_drift(setup, tmp_path):

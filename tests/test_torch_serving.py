@@ -337,12 +337,20 @@ def test_continuous_prefix_share_aliases_duplicates_and_keeps_scores(setup, monk
 
 
 def test_health_summary_and_named_tenant(setup):
+    """A tenant without a bank resolves "error" naming it (the queue is not
+    touched); once its bank is installed the tenant scores against it and
+    /healthz carries its row."""
     service = ScoringService(setup["ragged"])
     health = service.health_summary()
     assert health["status"] == "ok" and health["score_impl"] == "ragged"
     assert health["n_anchors"] == len(setup["anchors"])
-    with pytest.raises(ValueError, match="tenant"):
-        service.submit("x", tenant="acme")
+    assert "tenants" not in health
+    unknown = service.submit("x", tenant="acme").result(10)
+    assert unknown["status"] == "error" and "acme" in unknown["reason"]
+    assert service.swap_bank(setup["anchors"][:3], tenant="acme") == 1
+    scored = service.submit(setup["texts"][0], tenant="acme").result(30)
+    assert scored["status"] == "ok" and len(scored["predict"]) == 3
+    assert service.health_summary()["tenants"]["acme"]["n_anchors"] == 3
     service.drain()
     assert service.health_summary()["status"] == "draining"
 
@@ -353,11 +361,93 @@ def test_health_summary_and_named_tenant(setup):
 def test_serving_config_refuses_unported_settings():
     assert serving_config({})["token_budget"] is None
     assert serving_config({"serving": {"slo_enabled": True, "replicas": 1}})["max_batch"] == 16
-    assert serving_config({"serving": {"slo_enabled": False}})["score_impl"] == "bucketed"
+    assert serving_config({"serving": {"slo_enabled": False}})["slo_enabled"] is False
     for key, value in (("replicas", 2), ("tenants", "a=/x"), ("cache_capacity", 8),
                        ("trace_sample_rate", 0.5)):
-        with pytest.raises(ValueError, match=key):
+        assert serving_config({"serving": {key: value}})[key] == value
+    for key, value in (("hosts", "a:1,b:2"), ("autoscale_enabled", True),
+                       ("fleet_max_restarts", 5), ("incident_max_bundles", 2)):
+        with pytest.raises(ValueError, match=f"{key}.*ops-plane slice"):
             serving_config({"serving": {key: value}})
+
+
+MOVED_SERVING_KEYS = ("replicas", "heartbeat_timeout_s", "max_batch_errors", "monitor_interval_s",
+                      "max_reroutes", "trace_sample_rate", "trace_ring", "slo_enabled",
+                      "slo_availability_objective", "slo_latency_p95_ms", "slo_fast_window_s",
+                      "slo_window_s", "slo_interval_s", "tenants", "cache_capacity")
+
+
+@pytest.mark.parametrize("key", MOVED_SERVING_KEYS)
+def test_moved_serving_key_has_the_jax_default(key):
+    from memvul_tpu.config import SERVING_DEFAULTS as JAX_SERVING_DEFAULTS
+    from memvul_tpu_torch.config import SERVING_DEFAULTS, SERVING_UNPORTED
+
+    assert key not in SERVING_UNPORTED
+    assert SERVING_DEFAULTS[key] == JAX_SERVING_DEFAULTS[key]
+    assert serving_config({})[key] == JAX_SERVING_DEFAULTS[key]
+
+
+def _unported_serving_keys():
+    from memvul_tpu_torch.config import SERVING_UNPORTED
+
+    return sorted(SERVING_UNPORTED)
+
+
+@pytest.mark.parametrize("key", _unported_serving_keys())
+def test_unported_serving_key_raises_naming_its_slice(key):
+    from memvul_tpu.config import SERVING_DEFAULTS as JAX_SERVING_DEFAULTS
+    from memvul_tpu_torch.config import SERVING_DEFAULTS, SERVING_UNPORTED
+
+    assert key.startswith(("hosts", "fleet_", "autoscale_", "alert_", "incident_"))
+    assert SERVING_UNPORTED[key] == JAX_SERVING_DEFAULTS[key]
+    # the two tables together are the JAX package's serving section
+    assert set(SERVING_DEFAULTS) | set(SERVING_UNPORTED) == set(JAX_SERVING_DEFAULTS)
+    assert serving_config({"serving": {key: SERVING_UNPORTED[key]}})["max_batch"] == 16
+    changed = "h1:8341,h2:8341" if key == "hosts" else \
+        (not SERVING_UNPORTED[key] if isinstance(SERVING_UNPORTED[key], bool)
+         else SERVING_UNPORTED[key] + 1)
+    with pytest.raises(ValueError, match=f"{key}.*ops-plane slice"):
+        serving_config({"serving": {key: changed}})
+
+
+def _unported_telemetry_keys():
+    from memvul_tpu_torch.config import TELEMETRY_UNPORTED
+
+    return sorted(TELEMETRY_UNPORTED)
+
+
+@pytest.mark.parametrize("key", _unported_telemetry_keys())
+def test_unported_telemetry_key_raises_naming_its_slice(key):
+    from memvul_tpu_torch.config import TELEMETRY_UNPORTED, telemetry_config
+
+    default, _what = TELEMETRY_UNPORTED[key]
+    assert telemetry_config({"telemetry": {key: default}})["enabled"] is True
+    changed = "trace/" if default is None else \
+        (not default if isinstance(default, bool) else default + 1)
+    with pytest.raises(NotImplementedError, match=f"telemetry.{key}.*ops-plane slice"):
+        telemetry_config({"telemetry": {key: changed}})
+
+
+@pytest.mark.parametrize("path", ["/programz", "/metricsz", "/alertz", "/profilez"])
+def test_ops_plane_endpoints_answer_naming_their_slice(setup, path):
+    import urllib.error
+    import urllib.request
+
+    service = ScoringService(setup["ragged"])
+    server = run_http_server(service, port=0)
+    try:
+        url = "http://%s:%d%s" % (*server.server_address[:2], path)
+        method = "POST" if path == "/profilez" else "GET"
+        data = b'{"seconds": 1}' if method == "POST" else None
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(urllib.request.Request(url, data=data, method=method),
+                                   timeout=10)
+        assert err.value.code == 501
+        body = json.loads(err.value.read().decode("utf-8"))
+        assert path in body["reason"] and "ops-plane slice" in body["reason"]
+    finally:
+        server.shutdown()
+        service.drain()
 
 
 def test_serve_from_archive_on_cpu_with_http(setup, tmp_path):
