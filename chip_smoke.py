@@ -127,6 +127,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  (each tenant's own bank, hits bitwise their misses and no
                  pack); ``/healthz``, ``/metrics``, ``/tracez`` and a
                  tenant-header ``POST /score`` over HTTP;
+   ``ops_plane_path`` the serving ops plane on the same archive: two
+                 ``python -m memvul_tpu_torch serve`` processes on the card
+                 behind a ``HostBalancer`` under 256 closed-loop requests,
+                 host-1's process group SIGKILLed mid-load (rerouted,
+                 restarted, none lost, answers held against the bucketed
+                 path, each process's launches read from its
+                 ``/programz``), ``serve --hosts`` over them; a router
+                 autoscaled from one replica by a burst at 1.5x the
+                 single-service rate and back to one when idle; the flight
+                 recorder at a 0.5 s cadence, whose dead-lettered batches
+                 fire ``serve_error_rate`` and write one incident bundle,
+                 with ``/metricsz``, ``/alertz``, ``/programz``, the
+                 device-memory gauge and ``program.mfu`` in (0, 1]; and a
+                 ``POST /profilez`` capture under load whose trace names
+                 the K3 and K1 kernels;
 6. ``main_path_profile`` / ``serve_pack_profile``
                  device time by kernel (torch.profiler) for one batch of the
                  main path's 2048 bucket and for one serve pack's round trip
@@ -203,10 +218,7 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
 def device_ms(fn, iters: int) -> float:
     """Device time per call of ``fn``: its kernels' own time, summed by
     torch.profiler over ``iters`` calls, without the gaps between them."""
-    for _ in range(3):  # a profile that caught no device activity is taken again
-        groups, _ = _kernel_breakdown(lambda: [fn() for _ in range(iters)])
-        if groups:
-            break
+    groups, _ = _kernel_breakdown(lambda: [fn() for _ in range(iters)])
     return sum(groups.values()) / iters
 
 
@@ -2027,15 +2039,24 @@ def phase_serve_identity(workdir: Path, device: str = "cuda", requests: int = 12
         raise SystemExit(f"serve_identity failed: {checks}")
 
 
-def _kernel_breakdown(fn):
+def _kernel_breakdown(fn, attempts: int = 3):
     """Device time by kernel group of one call of ``fn``, by torch.profiler:
-    (ms per group, the eight costliest kernels)."""
+    (ms per group, the eight costliest kernels).  A profile that caught no
+    device activity at all (CUPTI now and then hands back none) is taken
+    again, up to ``attempts`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        fn()
-        torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [evt for evt in prof.key_averages()
+                  if getattr(evt, "self_device_time_total", None)
+                  or getattr(evt, "self_cuda_time_total", 0)]
+        if events:
+            break
     by_name: dict = {}
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
@@ -3401,7 +3422,7 @@ class _TenantSplit:
 
 def phase_fleet_path(workdir: Path, records: dict, serve_runs: dict, requests: int = 256,
                      clients: int = 16, kill_at: int = 64, swap_at: int = 128,
-                     ab_rounds: int = 3) -> None:
+                     ab_rounds: int = 2) -> float:
     """The serving plane's fleet on the main path's archive:
     ``serve_from_archive`` with ``score_impl`` "ragged", ``replicas`` 2 (both
     on this card, each on a CUDA stream of its own), tracing on; packs of
@@ -3797,6 +3818,541 @@ def phase_fleet_path(workdir: Path, records: dict, serve_runs: dict, requests: i
     records["ragged_flash_attention"]["launches"] += launches["ragged"]
     records["flash_attention"]["launches"] += launches["flash"]
     records["anchor_match"]["launches"] += launches["anchor_match"]
+    return out["closed_loop"]["requests_per_s"]
+
+
+# the serving hosts of ops_plane_path: the main path's archive served
+# "ragged" (packs of 2048 tokens, 16 rows), deadlines long enough that a
+# reroute never expires
+OPS_HOST_OVERRIDES = {"serving": {"score_impl": "ragged", "default_deadline_ms": 60000}}
+# the autoscaler's router: short windows and cooldowns, so a burst scales
+# up and a few idle seconds scale down; the latency objective loose, so
+# the hint comes from the backlog and the windows alone
+OPS_SCALER_OVERRIDES = {"serving": {
+    "score_impl": "ragged", "default_deadline_ms": 60000,
+    "autoscale_enabled": True, "autoscale_min_replicas": 1, "autoscale_max_replicas": 3,
+    "autoscale_interval_s": 0.25, "autoscale_up_consecutive": 1,
+    "autoscale_down_consecutive": 2, "autoscale_up_cooldown_s": 1.0,
+    "autoscale_down_cooldown_s": 1.0, "autoscale_drain_timeout_s": 10.0,
+    "slo_interval_s": 0.25, "slo_fast_window_s": 2.0, "slo_window_s": 4.0,
+    "slo_latency_p95_ms": 5000.0}}
+# the flight recorder's service: no retries (an injected batch fault
+# dead-letters), alerts evaluated every 0.25 s, every alert a bundle; the
+# history's resolution is the sampler's cadence, so a one-sample rate spike
+# is kept
+OPS_RECORDER_OVERRIDES = {
+    "serving": {"score_impl": "ragged", "retries": 0, "alert_interval_s": 0.25,
+                "incident_min_interval_s": 0.0, "default_deadline_ms": 60000},
+    "telemetry": {"tsdb_resolution_s": 0.5}}
+OPS_TSDB_CADENCE_S = 0.5
+OPS_KERNEL_SYMBOLS = ("ragged_fwd_wgmma_kernel", "anchor_match_kernel")
+
+
+def _gpu_memory_used_gib() -> float:
+    """The card's used memory as nvidia-smi reads it (every process's
+    contexts and allocations), in GiB."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) / 1024.0
+
+
+def _http_json(url: str, data: bytes = None, timeout: float = 30.0):
+    """(status, JSON body) of a GET, or of a POST when ``data`` is given."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="POST" if data is not None else "GET",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read().decode("utf-8"))
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode("utf-8"))
+
+
+def phase_ops_plane_path(workdir: Path, records: dict, serve_runs: dict, fleet_rps: float,
+                         requests: int = 256,
+                         clients: int = 16, kill_at: int = 128, burst_requests: int = 512,
+                         burst_rounds: int = 4) -> None:
+    """The serving ops plane on the main path's archive, packs of 2048
+    tokens and 16 rows.  Four steps:
+
+    1. **hosts**: two ``python -m memvul_tpu_torch serve`` processes on the
+       card (:func:`start_process_hosts`, started together) behind a
+       ``HostBalancer``; ``requests`` closed-loop requests from ``clients``
+       ``loadgen`` clients, host-1's process group SIGKILLed at about the
+       ``kill_at``-th: every request answered "ok", none past its deadline,
+       within ``BF16_SERVE_PROBS_ABS`` of the bucketed ``score_texts``;
+       host-1 restarted and serving; the card's used memory back to where
+       it was once the hosts stop.  Then ``serve --hosts`` over the two
+       hosts answers over HTTP and merges ``/healthz`` and ``/programz``.
+       Each host process's K1, K2 and K3 launches come from its
+       ``/programz`` (host-1's first process read just before the kill);
+    2. **autoscaler**: a router from one replica with ``autoscale_enabled``
+       (min 1, max 3, short cooldowns): open-loop Poisson bursts of
+       ``burst_requests`` at 1.5x ``serve_path``'s one-replica ragged rate
+       until a scale-up (at most ``burst_rounds``), then idle until the
+       fleet is back to one replica; the invariant over live and retired
+       replicas;
+    3. **flight recorder** at ``tsdb_cadence`` 0.5 s with a run dir: two
+       ``serve.batch`` faults that dead-letter fire ``serve_error_rate`` and
+       write one bundle; ``/metricsz``, ``/alertz`` and ``/programz``
+       answer; ``serve.hbm_in_use_bytes`` > 0; ``program.mfu`` in (0, 1];
+    4. **profiler**: ``POST /profilez {"seconds": 2}`` under load until the
+       capture ends (a second one answers 409) writes a Chrome trace naming
+       the K3 and K1 kernels; a trace with no device activity at all is
+       taken again, at most three captures.
+
+    This process's launch counts are set to 0 at the start and read at the
+    end, the oracle's taken out; the host processes' are added."""
+    import os
+    import signal
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from memvul_tpu_torch.archive import load_archive
+    from memvul_tpu_torch.build import build_reader, serve_from_archive
+    from memvul_tpu_torch.config import serving_config
+    from memvul_tpu_torch.data.synthetic import corpus_texts
+    from memvul_tpu_torch.evaluate.predict_memory import SiamesePredictor
+    from memvul_tpu_torch.ops import anchor_match as am
+    from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.ops import ragged_attention as ra
+    from memvul_tpu_torch.resilience import faults
+    from memvul_tpu_torch.serving import (
+        FleetConfig, HostBalancer, HTTPClient, LoadConfig, LoadGenerator, ScoreFuture,
+        fleet_snapshot, start_process_hosts)
+    from memvul_tpu_torch.serving.fleet import HOST_HEALTHY, _read_banner
+    from memvul_tpu_torch.serving.frontend import run_http_server
+    from memvul_tpu_torch.telemetry.exposition import parse_exposition
+    from memvul_tpu_torch.telemetry.programs import ProgramRegistry
+
+    phase_t0 = time.perf_counter()
+    archive = workdir / "model.tar.gz"
+    golden = workdir / "CWE_anchor_golden_project.json"
+    texts = corpus_texts(json.loads((workdir / "test_project.json").read_text()))[:requests]
+    host_log = ROOT / "build" / "ops_plane_hosts.log"
+    host_log.parent.mkdir(parents=True, exist_ok=True)
+    host_log.write_text("")
+
+    def counts():
+        return {"ragged": ra.launches, "flash": fa.launches, "anchor_match": am.launches}
+
+    oracle_launches = collections.Counter()
+
+    def oracle(fn):
+        before = counts()
+        result = fn()
+        oracle_launches.update({k: v - before[k] for k, v in counts().items()})
+        return result
+
+    checks, out = {}, {}
+    ra.launches = fa.launches = am.launches = 0
+
+    # the oracle: the bucketed path of a predictor shaped as the hosts' is
+    arch = load_archive(archive, overrides=OPS_HOST_OVERRIDES, device="cuda")
+    serve_cfg = serving_config(arch.config)
+    max_length = min(int(serve_cfg["max_length"]), arch.model.config.max_position_embeddings)
+    anchors = list(build_reader(arch.config.get("dataset_reader")).read_anchors(str(golden)))
+    ref = SiamesePredictor(arch.model, arch.tokenizer, batch_size=int(serve_cfg["max_batch"]),
+                           max_length=max_length, score_impl="ragged",
+                           token_budget=4 * max_length,
+                           max_rows_per_pack=int(serve_cfg["max_batch"]),
+                           program_registry=ProgramRegistry())
+    oracle(lambda: ref.encode_anchors(anchors))
+    labels = list(ref.anchor_labels)
+    want = oracle(lambda: ref.score_texts(texts, impl="bucketed"))
+    want_by_text = {t: row for t, row in zip(texts, want)}
+    torch.cuda.synchronize()
+
+    def probs(r, keys):
+        return np.array([r["predict"][a] for a in keys], np.float64)
+
+    # -- 1. two serving processes behind the balancer, one SIGKILLed ------------
+    step_t0 = time.perf_counter()
+    base_used = _gpu_memory_used_gib()
+    used = [base_used]
+    sampling = threading.Event()
+
+    def sample_memory():
+        while not sampling.wait(0.5):
+            used.append(_gpu_memory_used_gib())
+
+    sampler = threading.Thread(target=sample_memory, daemon=True)
+    sampler.start()
+    argv = [sys.executable, "-m", "memvul_tpu_torch", "serve", str(archive), "--port", "0",
+            "--overrides", json.dumps(OPS_HOST_OVERRIDES)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env.pop("MEMVUL_FAULTS", None)
+    t0 = time.perf_counter()
+    hosts = start_process_hosts([argv, argv], startup_timeout_s=300.0, env=env,
+                                log_path=str(host_log))
+    hosts_start_s = time.perf_counter() - t0
+    balancer = HostBalancer(hosts, config=FleetConfig(monitor_interval_s=0.25,
+                                                      heartbeat_timeout_s=30.0, max_reroutes=3))
+    cli = None
+    killed: dict = {}
+    fault_free = {}
+    try:
+        # fault-free closed loops before the kill, each request timed at
+        # the client too (a response's latency_ms is the host's own): the
+        # two hosts through the balancer (ProcessHost's relay thread and a
+        # connection per request), then host-0 alone over HTTP from the
+        # clients' own threads, without the balancer and its relay
+        def client_timed(submit_fn, wall_ms):
+            def timed(text, deadline_ms=None):
+                t0 = time.perf_counter()
+                future = submit_fn(text, deadline_ms=deadline_ms)
+                future.add_done_callback(
+                    lambda _r: wall_ms.append((time.perf_counter() - t0) * 1e3))
+                return future
+            return timed
+
+        direct = HTTPClient(hosts[0].base_url, timeout_s=120.0)
+
+        def direct_submit(text, deadline_ms=None):
+            future = ScoreFuture()
+            future.resolve(direct.score(text, deadline_ms=deadline_ms))
+            return future
+
+        for name, submit_fn in (("balancer_two_hosts", balancer.submit),
+                                ("host0_http_direct", direct_submit)):
+            wall_ms: list = []
+            rep = LoadGenerator(client_timed(submit_fn, wall_ms), LoadConfig(
+                pattern="closed", requests=requests, clients=clients, deadline_ms=60000.0,
+                result_timeout_s=180.0)).run(texts)
+            wall_ms.sort()
+            fault_free[name] = {
+                "outcomes": rep["outcomes"], "requests_per_s": rep["achieved_rps"],
+                "host_latency_ms": rep["latency_ms"],
+                "client_latency_ms": {"p50": wall_ms[len(wall_ms) // 2],
+                                      "p99": wall_ms[min(len(wall_ms) - 1,
+                                                         round(0.99 * (len(wall_ms) - 1)))]},
+            }
+        lock = threading.Lock()
+        sent = []
+        submits = iter(range(1, 1 << 30))  # each submit's number, taken under the lock
+
+        def kill_host1():
+            killed["launches_before_kill"] = hosts[1].programz().get("kernels", {})
+            killed["at"] = time.monotonic()
+            os.killpg(hosts[1].proc.pid, signal.SIGKILL)
+
+        def submit(text, deadline_ms=None):
+            with lock:
+                n = next(submits)
+            if n == kill_at:
+                threading.Thread(target=kill_host1, daemon=True).start()
+            future = balancer.submit(text, deadline_ms=deadline_ms)
+            with lock:
+                sent.append((text, future))
+            return future
+
+        load = LoadConfig(pattern="closed", requests=requests, clients=clients,
+                          deadline_ms=60000.0, result_timeout_s=180.0)
+        killed_wall_ms: list = []
+        report = LoadGenerator(client_timed(submit, killed_wall_ms), load).run(texts)
+        killed_wall_ms.sort()
+        deadline = time.monotonic() + (300 if "at" in killed else 0)
+        while time.monotonic() < deadline and not (
+                hosts[1].restart_count == 1 and hosts[1].state == HOST_HEALTHY):
+            time.sleep(0.05)
+        back_at = time.monotonic()
+        responses = [f.result(1.0) for _, f in sent]
+        ok = [(t, r) for (t, _), r in zip(sent, responses) if r["status"] == "ok"]
+        err = max((float(np.abs(probs(r, labels) - want_by_text[t]).max()) for t, r in ok),
+                  default=float("inf"))
+        rerouted = [r for r in responses if r.get("host_reroutes")]
+        # the restarted host serves again
+        after = [balancer.submit(t, deadline_ms=60000.0).result(120.0) for t in texts[:8]]
+        counters = balancer._tel.snapshot()["counters"]
+        # serve --hosts: a balancer process over the two running hosts
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "memvul_tpu_torch", "serve", "--hosts",
+             ",".join(h.base_url for h in hosts), "--port", "0",
+             "--overrides", json.dumps({"serving": {"fleet_monitor_interval_s": 0.5}})],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        banner = _read_banner(cli, 120.0) or {}
+        cli_out = {}
+        if banner:
+            front = HTTPClient(banner["serving"], timeout_s=120.0)
+            answers = [front.score(t, deadline_ms=60000.0) for t in texts[:4]]
+            health = front.health()
+            _, programz = _http_json(banner["serving"] + "/programz")
+            cli_out = {
+                "hosts": banner.get("hosts"),
+                "answers_ok": all(r["status"] == "ok" for r in answers),
+                "answers_max_abs_err": max(float(np.abs(probs(r, labels) - want_by_text[t]).max())
+                                           for t, r in zip(texts[:4], answers)),
+                "healthz_alive": health.get("hosts", {}).get("alive"),
+                "programz_hosts": sorted({row.get("host") for row in programz["programs"]}),
+            }
+        cli.send_signal(signal.SIGTERM)
+        cli_rc = cli.wait(60)
+        host_launches = {"host-0": hosts[0].programz().get("kernels", {}),
+                         "host-1 (restarted)": hosts[1].programz().get("kernels", {}),
+                         "host-1 (killed)": killed.get("launches_before_kill", {})}
+        host_peak_gib = {}
+        for host in hosts:
+            with urllib.request.urlopen(host.base_url + "/metrics", timeout=30) as resp:
+                parsed = parse_exposition(resp.read().decode("utf-8"))
+            host_peak_gib[host.name] = max(
+                parsed.get("serve_hbm_peak_bytes", {"": 0.0}).values()) / 2**30
+    finally:
+        if cli is not None and cli.poll() is None:
+            cli.kill()
+            cli.wait(30)
+        balancer.drain()
+        for host in hosts:
+            host.stop(timeout=60.0)
+        sampling.set()
+        sampler.join(10)
+    stopped_used = _gpu_memory_used_gib()
+    host_totals = {k: sum(int(h.get(k, 0)) for h in host_launches.values())
+                   for k in ("anchor_match", "flash_attention", "ragged_flash_attention")}
+    out["hosts"] = {
+        "fault_free": fault_free,
+        "with_kill": {"outcomes": report["outcomes"], "requests_per_s": report["achieved_rps"],
+                      "host_latency_ms": report["latency_ms"],
+                      "client_latency_ms": {
+                          "p50": killed_wall_ms[len(killed_wall_ms) // 2],
+                          "p99": killed_wall_ms[min(len(killed_wall_ms) - 1, round(
+                              0.99 * (len(killed_wall_ms) - 1)))]}},
+        "rerouted": len(rerouted),
+        "start_s": [h.start_seconds for h in hosts], "hosts_start_wall_s": hosts_start_s,
+        "recovery_s": back_at - killed["at"] if "at" in killed else None,
+        "max_abs_err": err, "tol": BF16_SERVE_PROBS_ABS,
+        "fleet_counters": {k: v for k, v in counters.items() if k.startswith("fleet.")},
+        "after_restart_hosts": sorted({r.get("host") for r in after}),
+        "serve_hosts_cli": cli_out, "serve_hosts_cli_rc": cli_rc,
+        "launches": host_launches, "host_allocator_peak_gib": host_peak_gib,
+        "gpu_used_gib": {"before": base_used, "peak": max(used), "after_stop": stopped_used},
+        "fleet_path_two_replicas_requests_per_s": fleet_rps,
+        "wall_s": time.perf_counter() - step_t0,
+    }
+    checks["hosts_fault_free_all_ok"] = all(
+        run["outcomes"]["ok"] == requests for run in fault_free.values()) and len(fault_free) == 2
+    checks["hosts_all_ok_none_late"] = (report["outcomes"]["ok"] == requests
+                                        and report["outcomes"]["deadline"] == 0
+                                        and report["outcomes"]["hang"] == 0)
+    checks["hosts_answers"] = len(ok) == requests and err <= BF16_SERVE_PROBS_ABS
+    checks["hosts_killed_rerouted_restarted"] = (
+        "at" in killed and hosts[1].restart_count == 1 and len(hosts[1].start_seconds) == 2
+        and counters.get("fleet.host_deaths") == 1 and counters.get("fleet.host_restarts") == 1
+        and len(rerouted) >= 1)
+    # the balancer took the fault-free loop, the loop with the kill and ``after``
+    checks["hosts_invariant"] = (counters.get("fleet.requests") == 2 * requests + len(after)
+                                 == counters.get("fleet.served")
+                                 and all(r["status"] == "ok" for r in after)
+                                 and "host-1" in out["hosts"]["after_restart_hosts"])
+    checks["serve_hosts_cli"] = (cli_out.get("hosts") == 2 and cli_out.get("answers_ok") is True
+                                 and cli_out.get("answers_max_abs_err", 1.0) <= BF16_SERVE_PROBS_ABS
+                                 and cli_out.get("healthz_alive") == 2
+                                 and cli_out.get("programz_hosts") == ["host-0", "host-1"]
+                                 and cli_rc == 0)
+    checks["hosts_launched_every_kernel"] = all(
+        int(h.get(k, 0)) > 0 for h in host_launches.values()
+        for k in ("anchor_match", "flash_attention", "ragged_flash_attention"))
+    checks["hosts_memory_released"] = stopped_used <= base_used + 1.0
+
+    # -- 2. the autoscaler ---------------------------------------------------------------
+    step_t0 = time.perf_counter()
+    router = serve_from_archive(archive, device="cuda", overrides=OPS_SCALER_OVERRIDES)
+    scaler = router.autoscaler
+    trajectory = []
+    watching = threading.Event()
+
+    def watch():
+        last = None
+        while not watching.is_set():
+            n = len(router.replicas)
+            if n != last:
+                trajectory.append((time.monotonic(), n))
+                last = n
+            time.sleep(0.005)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    rate = 1.5 * float(serve_runs["ragged"]["requests_per_s"])
+    bursts = []
+    try:
+        reg = router.registry
+        for k in range(burst_rounds):
+            t_burst = time.monotonic()
+            report = LoadGenerator(router.submit, LoadConfig(
+                pattern="poisson", requests=burst_requests, rps=rate, seed=k,
+                deadline_ms=60000.0, result_timeout_s=180.0)).run(texts)
+            bursts.append({"start": t_burst, "end": time.monotonic(),
+                           "outcomes": report["outcomes"], "achieved_rps": report["achieved_rps"]})
+            deadline = time.monotonic() + 15
+            while time.monotonic() < deadline and reg.counter("scaler.scale_ups").value == 0:
+                time.sleep(0.05)
+            if reg.counter("scaler.scale_ups").value:
+                break
+        idle_from = time.monotonic()
+        deadline = idle_from + 90
+        while time.monotonic() < deadline and not (
+                reg.counter("scaler.scale_ups").value >= 1 and len(router.replicas) == 1
+                and not scaler.status()["scaling"]):
+            time.sleep(0.05)
+        watching.set()
+        watcher.join(5)
+        members = list(router.replicas) + list(router.retired_replicas)
+        snap = fleet_snapshot(members)
+        scale_counters = {k: v for k, v in reg.snapshot()["counters"].items()
+                          if k.startswith("scaler.")}
+        spawned = [r for r in members if r.index > 0]
+        shared = all(r.service.predictor.model is members[0].service.predictor.model
+                     and r.service.predictor.stream is not None
+                     and r.service.predictor.stream != members[0].service.predictor.stream
+                     for r in spawned)
+    finally:
+        watching.set()
+        router.drain()
+    first_up = next((t for t, n in trajectory if n >= 2), None)
+    last_down = next((t for t, n in reversed(trajectory) if n == 1), None)
+    out["autoscaler"] = {
+        "offered_rps": rate, "bursts": [{k: v for k, v in b.items() if k not in ("start", "end")}
+                                        for b in bursts],
+        "trajectory": [(round(t - bursts[0]["start"], 3), n) for t, n in trajectory],
+        "scale_up_s": first_up - bursts[0]["start"] if first_up else None,
+        "scale_down_s": last_down - bursts[-1]["end"] if last_down and first_up else None,
+        "counters": scale_counters, "fleet": snap,
+        "decisions": len(scaler.history), "wall_s": time.perf_counter() - step_t0,
+    }
+    checks["autoscaler_scaled_up"] = scale_counters.get("scaler.scale_ups", 0) >= 1 and bool(
+        first_up)
+    checks["autoscaler_scaled_down_to_one"] = (scale_counters.get("scaler.scale_downs", 0) >= 1
+                                               and len(router.replicas) == 1)
+    checks["autoscaler_invariant_over_retired"] = snap["invariant_ok"] and len(
+        router.retired_replicas) >= 1
+    checks["autoscaler_spawn_shares_weights_own_stream"] = bool(spawned) and shared
+
+    # -- 3. the flight recorder, 4. the profiler ----------------------------------------------
+    step_t0 = time.perf_counter()
+    run_dir = workdir / "ops_run"
+    service = serve_from_archive(archive, out_dir=run_dir, device="cuda",
+                                 overrides=OPS_RECORDER_OVERRIDES, tsdb_cadence=OPS_TSDB_CADENCE_S)
+    server = run_http_server(service, port=0, profile_dir=run_dir / "profiles")
+    base = "http://%s:%d" % server.server_address[:2]
+    recorder = service.incident_recorder
+    try:
+        warm = LoadGenerator(service.submit, LoadConfig(
+            pattern="closed", requests=64, clients=clients, result_timeout_s=120.0)).run(texts)
+        # the first dead letter creates serve.errors; the second, a sample
+        # later, is its first rate
+        errors = []
+        for k, text in enumerate(texts[:2]):
+            if k:
+                time.sleep(2 * OPS_TSDB_CADENCE_S)
+            faults.configure("serve.batch=raise:RuntimeError:injected dead letter")
+            errors.append(service.submit(text).result(120.0)["status"])
+            fault_at = time.monotonic()
+        faults.reset()
+        deadline = time.monotonic() + 60
+        bundle = []
+        while time.monotonic() < deadline and not bundle:
+            if recorder.incidents_dir.is_dir():
+                bundle = [p for p in recorder.incidents_dir.iterdir()
+                          if p.name.endswith("alert-serve_error_rate")]
+            time.sleep(0.02)
+        # from the second dead letter to its bundle on disk
+        bundle_s = time.monotonic() - fault_at if bundle else None
+        bundle_files = sorted(p.name for p in bundle[0].iterdir()) if bundle else []
+        m_status, metricsz = _http_json(base + "/metricsz?metric=serve.&window=300")
+        a_status, alertz = _http_json(base + "/alertz")
+        p_status, programz = _http_json(base + "/programz")
+        gauges = service.registry.snapshot()["gauges"]
+        part = next((p for _, p in service.metrics_snapshots()[1:]
+                     if "program.programs" in p.get("counters", {})), {})
+        mfu = part.get("gauges", {}).get("program.mfu")
+        rows = {row["key"]: row for row in service.programs_snapshot()}
+        pack_mfu = rows.get("ragged:1x2048", {}).get("mfu")
+        # 4. the profiler, under load until the capture has ended; a trace
+        # that caught no device activity at all is taken again (at most
+        # three captures), as _kernel_breakdown retakes an empty profile
+        captures = []
+        for _ in range(3):
+            profile_t0 = time.monotonic()
+            first = _http_json(base + "/profilez", json.dumps({"seconds": 2}).encode())
+            second = _http_json(base + "/profilez", json.dumps({"seconds": 2}).encode())
+            loaded = 0
+            while time.monotonic() - profile_t0 < 60 and (loaded == 0 or server.profiler.busy):
+                LoadGenerator(service.submit, LoadConfig(pattern="closed", requests=64,
+                                                         clients=clients,
+                                                         result_timeout_s=120.0)).run(texts)
+                loaded += 64
+            trace = Path(first[1].get("trace_dir", run_dir / "missing")) / "trace.json"
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline and (server.profiler.busy or not trace.exists()):
+                time.sleep(0.1)
+            names, kernel_events = set(), 0
+            if trace.exists():
+                for event in json.loads(trace.read_text()).get("traceEvents", []):
+                    if event.get("cat") != "kernel":
+                        continue
+                    kernel_events += 1
+                    names.update(sym for sym in OPS_KERNEL_SYMBOLS if sym in event.get("name", ""))
+            trace_mb = trace.stat().st_size / 2**20 if trace.exists() else None
+            captures.append({"status": first[0], "second_status": second[0],
+                             "requests_under_load": loaded, "kernel_events": kernel_events,
+                             "kernels_named": sorted(names), "trace_mb": trace_mb})
+            if first[0] != 200 or kernel_events:
+                break
+    finally:
+        faults.reset()
+        server.shutdown()
+        service.drain()
+    out["flight_recorder"] = {
+        "tsdb_cadence_s": OPS_TSDB_CADENCE_S, "warm_outcomes": warm["outcomes"],
+        "dead_letters": errors, "bundle": bundle[0].name if bundle else None,
+        "bundle_files": bundle_files, "bundle_s": bundle_s,
+        "metricsz": {"status": m_status, "enabled": metricsz.get("enabled"),
+                     "series": metricsz.get("series")},
+        "alertz": {"status": a_status, "firing": sorted(f["rule"] for f in alertz.get(
+            "firing", []))},
+        "programz": {"status": p_status, "count": programz.get("count"),
+                     "kernels": programz.get("kernels")},
+        "hbm_in_use_gib": gauges.get("serve.hbm_in_use_bytes", 0.0) / 2**30,
+        "hbm_peak_gib": gauges.get("serve.hbm_peak_bytes", 0.0) / 2**30,
+        "program_mfu": mfu, "pack_program_mfu": pack_mfu,
+        "pack_program": {k: rows.get("ragged:1x2048", {}).get(k)
+                         for k in ("invocations", "device_time_s", "flops", "compile_s")},
+    }
+    out["profiler"] = {"first": first, "captures": captures,
+                       "wall_s": time.perf_counter() - step_t0}
+    checks["recorder_bundle"] = (errors == ["error", "error"] and len(bundle) == 1
+                                 and bundle_files == sorted(["manifest.json", "metrics.json",
+                                                             "traces.json", "programs.json"]))
+    checks["recorder_endpoints"] = (m_status == 200 and metricsz.get("enabled") is True
+                                    and bool(metricsz.get("history"))
+                                    and a_status == 200
+                                    and "serve_error_rate" in out["flight_recorder"]["alertz"][
+                                        "firing"]
+                                    and p_status == 200 and programz.get("count", 0) > 0)
+    checks["recorder_hbm_gauge"] = gauges.get("serve.hbm_in_use_bytes", 0.0) > 0
+    checks["recorder_mfu_in_0_1"] = (mfu is not None and 0.0 < mfu <= 1.0
+                                     and pack_mfu is not None and 0.0 < pack_mfu <= 1.0)
+    checks["profiler_capture"] = (all(c["status"] == 200 and c["second_status"] == 409
+                                      for c in captures)
+                                  and names == set(OPS_KERNEL_SYMBOLS))
+
+    out["peak_memory_gib"] = _peak_gib()
+    launches = {k: v - oracle_launches[k] for k, v in counts().items()}
+    out["launches"] = {"this_process": launches, "hosts": host_totals}
+    del ref, arch, router, service
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - phase_t0
+    emit("ops_plane_path", ok=all(checks.values()), checks=checks, **out, card=nvidia_smi_line())
+    if not all(checks.values()):
+        sys.stderr.write(host_log.read_text()[-6000:])
+        raise SystemExit(f"ops_plane_path failed: {checks}")
+    records["ragged_flash_attention"]["launches"] += (launches["ragged"]
+                                                      + host_totals["ragged_flash_attention"])
+    records["flash_attention"]["launches"] += launches["flash"] + host_totals["flash_attention"]
+    records["anchor_match"]["launches"] += launches["anchor_match"] + host_totals["anchor_match"]
 
 
 def phase_selfcheck(workdir: Path) -> None:
@@ -3871,7 +4427,9 @@ def main() -> int:
         phase_bank_path(Path(tmp), records, corpus_result)
         phase_selfcheck(Path(tmp))
         # slice 9: the serving plane's fleet on one card
-        phase_fleet_path(Path(tmp), records, serve_runs)
+        fleet_rps = phase_fleet_path(Path(tmp), records, serve_runs)
+        # the ops plane: serving processes, autoscaler, flight recorder, profiler
+        phase_ops_plane_path(Path(tmp), records, serve_runs, fleet_rps)
     phase_main_path_reference()
     phase_ragged_reference()
     phase_train_reference()

@@ -11,6 +11,8 @@
         --overrides '{"serving": {"score_impl": "continuous"}}'
     python -m memvul_tpu_torch serve out/model.tar.gz --replicas 2 \\
         --tenants acme=banks/acme,globex=banks/globex
+    python -m memvul_tpu_torch serve out/model.tar.gz -o run/ --tsdb-cadence 1 --port 0
+    python -m memvul_tpu_torch serve --hosts 127.0.0.1:8341,127.0.0.1:8342 --port 8340
     python -m memvul_tpu_torch bank build --store banks/ --anchors data/CWE_anchor_golden_project.json
     python -m memvul_tpu_torch bank diff --store banks/ --retire CWE-79 --reweight CWE-89=0.5
     python -m memvul_tpu_torch bank shadow --store banks/ --candidate v2 --archive out/ \\
@@ -36,11 +38,18 @@ scores a corpus across supervised worker subprocesses and merges their
 outputs exactly once (exit 0 done, 1 the merge verification failed, 2 a
 usage error, 3 partial: a shard was quarantined, the refusal printed as
 JSON).  ``serve`` puts the HTTP front end (``POST /score``, ``GET
-/healthz``, ``GET /metrics``, ``GET /tracez``) over
+/healthz``, ``GET /metrics``, ``GET /tracez``, ``GET /programz``, ``GET
+/metricsz``, ``GET /alertz``, ``POST /profilez``) over
 ``build.serve_from_archive`` (``--replicas N``: a router over N replicas;
-``--tenants name=store_dir,...``: one anchor bank per named tenant),
-prints one JSON line with the bound ``"serving"`` URL and the replica
-count once it listens, and drains on SIGTERM/SIGINT.
+``--tenants name=store_dir,...``: one anchor bank per named tenant;
+``--tsdb-cadence S``: the metrics history, the alert rules and, with
+``-o``, incident bundles; ``-o`` is also the ``/profilez`` capture root),
+or without an archive over a balancer of running serve processes
+(``--hosts``, else ``serving.hosts`` of ``--overrides``, whose ``fleet_*``
+keys set its supervision); it prints one JSON line with the bound ``"serving"`` URL and
+the replica count once it listens, and drains on SIGTERM/SIGINT.
+``pretrain``, ``train`` and ``evaluate`` take ``--profile DIR``, a
+profiler trace of the whole run.
 ``bank`` keeps the versioned anchor-bank store (``build``, ``diff``,
 ``log``; ``--tenant NAME`` scopes each subcommand to ``<store>/<NAME>``,
 the layout ``serve --tenants`` points at), replays a recorded run against a candidate bank (``shadow``) and
@@ -65,6 +74,14 @@ import sys
 import threading
 
 
+def _profiled(args):
+    """``--profile DIR``: a profiler trace of the whole command
+    (``DIR/trace.json``); without it, nothing."""
+    from .utils.profiling import trace_context
+
+    return trace_context(getattr(args, "profile", None))
+
+
 def cmd_pretrain(args) -> int:
     from .build import pretrain_from_config
     from .config import load_config
@@ -79,7 +96,8 @@ def cmd_pretrain(args) -> int:
         except (OSError, ValueError) as e:
             print(f"validation_data_path unusable: {e}", file=sys.stderr)
             return 2
-    report = pretrain_from_config(config, device=args.device, export_hf=args.export_hf)
+    with _profiled(args):
+        report = pretrain_from_config(config, device=args.device, export_hf=args.export_hf)
     report.pop("train")
     print(json.dumps(report))
     return 0
@@ -90,7 +108,8 @@ def cmd_train(args) -> int:
     from .config import load_config
 
     config = load_config(args.config, overrides=args.overrides)
-    result = train_from_config(config, args.serialization_dir, device=args.device)
+    with _profiled(args):
+        result = train_from_config(config, args.serialization_dir, device=args.device)
     print(json.dumps({k: result.get(k) for k in ("best_epoch", "best_validation", "archive")}))
     return 0
 
@@ -98,30 +117,59 @@ def cmd_train(args) -> int:
 def cmd_evaluate(args) -> int:
     from .build import evaluate_from_archive
 
-    metrics = evaluate_from_archive(
-        args.archive, args.test_path, args.out_dir,
-        overrides=args.overrides, golden_file=args.golden_file, name=args.name,
-        thres=args.threshold, device=args.device,
-    )
+    with _profiled(args):
+        metrics = evaluate_from_archive(
+            args.archive, args.test_path, args.out_dir,
+            overrides=args.overrides, golden_file=args.golden_file, name=args.name,
+            thres=args.threshold, device=args.device,
+        )
     print(json.dumps(metrics, default=float))
     return 0
 
 
+def _serve_target(args):
+    """The serve command's target: without an archive, a
+    :class:`HostBalancer` over running serve processes (``--hosts``, else
+    the overrides' ``serving.hosts``, else ``MEMVUL_FLEET_HOSTS``), else
+    ``build.serve_from_archive``.  Returns (target, None) or (None, exit
+    code) after printing the usage error."""
+    if args.archive and args.hosts:
+        print("serve: --hosts balances running serve processes and loads no archive",
+              file=sys.stderr)
+        return None, 2
+    if not args.archive:
+        from .build import serve_from_hosts
+
+        try:
+            return serve_from_hosts(
+                args.hosts, out_dir=args.out_dir, overrides=args.overrides,
+                tsdb_cadence=args.tsdb_cadence, default_port=args.port or 8341,
+            ), None
+        except ValueError as e:
+            print(f"serve: an archive is required, or {e}", file=sys.stderr)
+            return None, 2
+    from .build import serve_from_archive
+
+    return serve_from_archive(
+        args.archive, out_dir=args.out_dir, overrides=args.overrides,
+        golden_file=args.golden_file, device=args.device, replicas=args.replicas,
+        tenants=args.tenants, tsdb_cadence=args.tsdb_cadence,
+    ), None
+
+
 def cmd_serve(args) -> int:
     from . import telemetry
-    from .build import serve_from_archive
     from .serving.frontend import run_http_server
 
     try:
-        service = serve_from_archive(
-            args.archive, out_dir=args.out_dir, overrides=args.overrides,
-            golden_file=args.golden_file, device=args.device, replicas=args.replicas,
-            tenants=args.tenants,
-        )
+        service, rc = _serve_target(args)
     except ValueError as e:
         print(f"serve: {e}", file=sys.stderr)
         return 2
-    server = run_http_server(service, host=args.host, port=args.port)
+    if service is None:
+        return rc
+    # the run dir doubles as the POST /profilez capture root
+    server = run_http_server(service, host=args.host, port=args.port, profile_dir=args.out_dir)
     stop = threading.Event()
 
     def _stop_handler(signum, frame):
@@ -131,7 +179,8 @@ def cmd_serve(args) -> int:
     previous = [(sig, signal.signal(sig, _stop_handler)) for sig in (signal.SIGTERM, signal.SIGINT)]
     host, port = server.server_address[:2]
     print(json.dumps({"serving": f"http://{host}:{port}", "pid": os.getpid(),
-                      "replicas": len(getattr(service, "replicas", ())) or 1}), flush=True)
+                      "replicas": len(getattr(service, "replicas", ())) or 1,
+                      "hosts": len(getattr(service, "hosts", ())) or None}), flush=True)
     try:
         while not stop.is_set():
             stop.wait(0.5)
@@ -514,6 +563,8 @@ def main(argv=None) -> int:
                     help="also write an HF checkpoint dir (<output_dir>/hf) that the "
                     "reference's AutoModel.from_pretrained consumes")
     pt.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    pt.add_argument("--profile", default=None, metavar="DIR",
+                    help="a profiler trace of the whole run (DIR/trace.json)")
     pt.set_defaults(fn=cmd_pretrain)
     tr = sub.add_parser("train", help="train the model a config describes")
     tr.add_argument("config", help="training config (JSON / Jsonnet subset)")
@@ -521,6 +572,8 @@ def main(argv=None) -> int:
     tr.add_argument("-o", "--overrides", default=None,
                     help="JSON (Jsonnet subset) config overrides")
     tr.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    tr.add_argument("--profile", default=None, metavar="DIR",
+                    help="a profiler trace of the whole run (DIR/trace.json)")
     tr.set_defaults(fn=cmd_train)
     ev = sub.add_parser("evaluate", help="score a corpus with an archived model")
     ev.add_argument("archive", help="model.tar.gz or a serialization dir holding one")
@@ -532,10 +585,25 @@ def main(argv=None) -> int:
     ev.add_argument("--name", default=None, help="output file prefix (default: the model type)")
     ev.add_argument("--threshold", "--thres", dest="threshold", type=float, default=0.5)
     ev.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ev.add_argument("--profile", default=None, metavar="DIR",
+                    help="a profiler trace of the whole evaluation (DIR/trace.json)")
     ev.set_defaults(fn=cmd_evaluate)
-    sv = sub.add_parser("serve", help="online scoring service over HTTP")
-    sv.add_argument("archive", help="model.tar.gz or a serialization dir holding one")
-    sv.add_argument("-o", "--out-dir", default=None, help="telemetry.json lands here at drain")
+    sv = sub.add_parser("serve", help="online scoring service over HTTP; --hosts balances "
+                        "over running serve processes")
+    sv.add_argument("archive", nargs="?", default=None,
+                    help="model.tar.gz or a serialization dir holding one (not with --hosts)")
+    sv.add_argument("--hosts", default=None,
+                    help="comma-separated host[:port] or URLs of running serve processes to "
+                    "balance across (else serving.hosts of --overrides, else "
+                    "MEMVUL_FLEET_HOSTS; the fleet_* keys set supervision); merges /healthz, /metrics, "
+                    "/tracez, /programz and routes around dead or stalled hosts")
+    sv.add_argument("-o", "--out-dir", default=None,
+                    help="run dir: telemetry.json at drain, incident bundles, and the "
+                    "POST /profilez capture root")
+    sv.add_argument("--tsdb-cadence", type=float, default=None, metavar="SECONDS",
+                    help="metrics-history cadence: GET /metricsz, the alert rules (GET "
+                    "/alertz) and, with -o, incident bundles (default: the config's "
+                    "telemetry.tsdb_cadence_s; 0 = off)")
     sv.add_argument("--overrides", default=None, help="JSON (Jsonnet subset) config overrides")
     sv.add_argument("--golden-file", default=None, help="anchor file (default: the config's anchor_path)")
     sv.add_argument("--host", default="127.0.0.1")

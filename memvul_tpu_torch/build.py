@@ -18,8 +18,9 @@ package's ``build.py``).
 * :func:`evaluate_from_archive` — load an archive with overrides, score a
   corpus, write ``{name}_result.json`` and ``{name}_metric_all.json``;
 * :func:`serve_from_archive` — load an archive, encode its anchor bank,
-  warm the serving shapes and return a running ``ScoringService``
-  (single replica).
+  warm the serving shapes and return a running ``ScoringService``, or a
+  ``ReplicaRouter`` over several, with the autoscaler and the flight
+  recorder when the config asks for them.
 
 Everything runs on ``device``, ``"cuda"`` unless the caller asks for the
 CPU; on a host without CUDA the default raises instead of falling back.
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import copy
 import logging
+import threading
 import time
 from pathlib import Path
 from typing import Any, Dict, Optional, Union
@@ -230,16 +232,26 @@ def pretrain_from_config(
     adds the held-out ``eval_loss`` and ``perplexity``.  Returns the
     report (``final_loss``, ``checkpoint``[, ``eval_*``, ``perplexity``,
     ``hf_checkpoint``]) and, under ``"train"``, the trainer's result."""
-    from .config import validate_pretrain_config
+    from .config import telemetry_config, validate_pretrain_config
     from .pretrain.mlm import MLMTrainer, MLMTrainerConfig
+    from .telemetry.live import start_run_exposition
 
     device = resolve_device(device)
+    tel_cfg = telemetry_config(config)
     trainer_cfg = validate_pretrain_config(config.get("trainer"))
     tokenizer = build_tokenizer(config.get("tokenizer"))
     bert_cfg = encoder_config(config.get("encoder"), tokenizer.vocab_size)
     trainer = MLMTrainer(bert_cfg, tokenizer, MLMTrainerConfig(**trainer_cfg), device=device)
-    result = trainer.train(config["train_data_path"])
     out_dir = Path(config.get("output_dir", "further_pretrain/out_wwm"))
+    exposition = start_run_exposition(tel_cfg)
+    try:
+        return _pretrain_run(config, trainer, tokenizer, bert_cfg, out_dir, export_hf)
+    finally:
+        _end_run(tel_cfg, out_dir, exposition)
+
+
+def _pretrain_run(config, trainer, tokenizer, bert_cfg, out_dir: Path, export_hf: bool):
+    result = trainer.train(config["train_data_path"])
     encoder = trainer.encoder_params()
     report: Dict[str, Any] = {
         "final_loss": result["final_loss"],
@@ -254,6 +266,19 @@ def pretrain_from_config(
             export_hf_checkpoint(encoder, bert_cfg, out_dir / "hf", tokenizer=tokenizer))
     report["train"] = result
     return report
+
+
+def _end_run(tel_cfg: Dict[str, Any], run_dir, exposition) -> None:
+    """A run's ``finally``: the program table beside its outputs
+    (``programs.json``), the exposition port released."""
+    from .telemetry.programs import write_programs
+
+    try:
+        if tel_cfg["enabled"]:
+            write_programs(run_dir)
+    finally:
+        if exposition is not None:
+            exposition.close()
 
 
 def _tokenizer_file(tok_cfg: Optional[Dict[str, Any]]) -> Optional[str]:
@@ -291,6 +316,10 @@ def train_from_config(
     if mesh is not None:
         raise NotImplementedError("training on a mesh (DDP) belongs to the multi-device slice")
     check_training_unported(config)
+    from .config import telemetry_config
+    from .telemetry.live import start_run_exposition
+
+    tel_cfg = telemetry_config(config)
     model_cfg = config.get("model") or {}
     model_type = model_cfg.get("type", "model_memory")
     if model_type not in ("model_memory", "model_single", "model_cnn"):
@@ -316,6 +345,9 @@ def train_from_config(
             logger.warning("pretrained_checkpoint %s missing: training from scratch", ckpt)
     trainer_cfg.setdefault("seed", seed)
     trainer_cfg["serialization_dir"] = str(serialization_dir)
+    if tel_cfg["trace_dir"] and not trainer_cfg.get("profile_dir"):
+        # telemetry.trace_dir: the trainer's epoch-0 profiler trace
+        trainer_cfg["profile_dir"] = str(tel_cfg["trace_dir"])
     if model_type == "model_memory":
         from .training.trainer import MemoryTrainer, TrainerConfig
 
@@ -338,15 +370,20 @@ def train_from_config(
             config=ClassifierTrainerConfig(**trainer_cfg),
             device=device,
         )
-    result = trainer.train()
-    archived = dict(config)
-    archived["model"] = dict(model_cfg)
-    save_archive(
-        serialization_dir / ARCHIVE_NAME, archived,
-        flax_from_params(trainer.best_params(), getattr(model, "config", None)),
-        tokenizer_file=_tokenizer_file(config.get("tokenizer")),
-    )
-    (serialization_dir / "metrics.json").write_text(json.dumps(result, indent=2, default=float))
+    exposition = start_run_exposition(tel_cfg)
+    try:
+        result = trainer.train()
+        archived = dict(config)
+        archived["model"] = dict(model_cfg)
+        save_archive(
+            serialization_dir / ARCHIVE_NAME, archived,
+            flax_from_params(trainer.best_params(), getattr(model, "config", None)),
+            tokenizer_file=_tokenizer_file(config.get("tokenizer")),
+        )
+        (serialization_dir / "metrics.json").write_text(
+            json.dumps(result, indent=2, default=float))
+    finally:
+        _end_run(tel_cfg, serialization_dir, exposition)
     result["archive"] = str(serialization_dir / ARCHIVE_NAME)
     return result
 
@@ -435,34 +472,103 @@ def evaluate_from_archive(
             inflight=int(eval_cfg["inflight"]), aot_warmup=bool(eval_cfg["aot_warmup"]),
             device=device,
         )
+    from .config import telemetry_config
     from .evaluate.predict_memory import test_siamese
 
     golden = golden_file or (arch.config.get("dataset_reader") or {}).get("anchor_path")
     if golden is None:
         raise ValueError("memory-model evaluation needs a golden anchor file")
-    return test_siamese(
-        arch.model,
-        arch.tokenizer,
-        test_file=test_path,
-        golden_file=golden,
-        out_results=out_results,
-        out_metrics=out_metrics,
-        reader=reader,
-        batch_size=int(eval_cfg["batch_size"]),
-        max_length=max_length,
-        buckets=buckets,
-        tokens_per_batch=tokens_per_batch,
-        thres=thres,
-        inflight=int(eval_cfg["inflight"]),
-        anchor_match_impl=eval_cfg["anchor_match_impl"],
-        device=device,
-        aot_warmup=bool(eval_cfg["aot_warmup"]),
-        resume=bool(eval_cfg["resume"]),
-        quarantine=eval_cfg["quarantine"],
-        heartbeat_batches=int(eval_cfg["heartbeat_batches"]),
-        score_retries=int(eval_cfg["score_retries"]),
-        attribute_anchors=bool(eval_cfg["attribute_anchors"]),
-    )
+    tel_cfg = telemetry_config(arch.config)
+    try:
+        return test_siamese(
+            arch.model,
+            arch.tokenizer,
+            test_file=test_path,
+            golden_file=golden,
+            out_results=out_results,
+            out_metrics=out_metrics,
+            reader=reader,
+            batch_size=int(eval_cfg["batch_size"]),
+            max_length=max_length,
+            buckets=buckets,
+            tokens_per_batch=tokens_per_batch,
+            thres=thres,
+            inflight=int(eval_cfg["inflight"]),
+            anchor_match_impl=eval_cfg["anchor_match_impl"],
+            device=device,
+            aot_warmup=bool(eval_cfg["aot_warmup"]),
+            resume=bool(eval_cfg["resume"]),
+            quarantine=eval_cfg["quarantine"],
+            heartbeat_batches=int(eval_cfg["heartbeat_batches"]),
+            score_retries=int(eval_cfg["score_retries"]),
+            attribute_anchors=bool(eval_cfg["attribute_anchors"]),
+        )
+    finally:
+        # the program table beside the results
+        _end_run(tel_cfg, out_dir, None)
+
+
+def _tsdb_cadence(tel_cfg: Dict[str, Any], tsdb_cadence: Optional[float]) -> float:
+    """The ``tsdb_cadence`` argument, else ``telemetry.tsdb_cadence_s``."""
+    cadence = float(tel_cfg["tsdb_cadence_s"] if tsdb_cadence is None else tsdb_cadence)
+    if cadence < 0:
+        raise ValueError(f"telemetry.tsdb_cadence_s must be >= 0, got {cadence!r}")
+    return cadence
+
+
+def _attach_flight_recorder(target, serve_cfg: Dict[str, Any], tel_cfg: Dict[str, Any],
+                            cadence: float, out_dir):
+    """The metrics history, the alert engine and (with ``out_dir``) the
+    incident recorder on ``target``, sized by the ``tsdb_*``,
+    ``alert_interval_s`` and ``incident_*`` keys; cadence 0 builds nothing."""
+    if cadence > 0:
+        from .serving.incident import attach_flight_recorder
+
+        attach_flight_recorder(
+            target, run_dir=out_dir, registry=getattr(target, "registry", None),
+            cadence_s=cadence,
+            resolution_s=float(tel_cfg["tsdb_resolution_s"]),
+            retention_s=float(tel_cfg["tsdb_retention_s"]),
+            alert_interval_s=float(serve_cfg["alert_interval_s"]),
+            min_interval_s=float(serve_cfg["incident_min_interval_s"]),
+            max_bundles=int(serve_cfg["incident_max_bundles"]),
+            window_s=float(serve_cfg["incident_window_s"]),
+        )
+    return target
+
+
+def serve_from_hosts(
+    hosts: Optional[str] = None,
+    out_dir: Optional[Union[str, Path]] = None,
+    overrides: Optional[Union[str, Dict[str, Any]]] = None,
+    tsdb_cadence: Optional[float] = None,
+    default_port: int = 8341,
+):
+    """A :class:`~memvul_tpu_torch.serving.fleet.HostBalancer` over running
+    serve processes; no archive is loaded.  ``overrides`` is the whole
+    config here: its ``serving.hosts`` is the default of ``hosts`` (then
+    ``MEMVUL_FLEET_HOSTS``, see ``fleet.enumerate_hosts``), its ``fleet_*``
+    keys configure the balancer's supervision, and ``tsdb_cadence`` (else
+    ``telemetry.tsdb_cadence_s``) > 0 attaches the flight recorder as
+    :func:`serve_from_archive` does."""
+    from .config import loads_config, merge_overrides, serving_config, telemetry_config
+    from .serving.fleet import FleetConfig, HostBalancer, ProcessHost, enumerate_hosts
+
+    if isinstance(overrides, str):
+        overrides = loads_config(overrides)
+    cfg = merge_overrides({}, overrides or {})
+    serve_cfg = serving_config(cfg)
+    tel_cfg = telemetry_config(cfg)
+    spec = hosts or serve_cfg["hosts"]
+    if isinstance(spec, (list, tuple)):
+        spec = ",".join(str(h) for h in spec)
+    urls = enumerate_hosts(spec, default_port=default_port)
+    if not urls:
+        raise ValueError("no hosts: pass --hosts, serving.hosts or MEMVUL_FLEET_HOSTS")
+    cadence = _tsdb_cadence(tel_cfg, tsdb_cadence)
+    balancer = HostBalancer([ProcessHost(i, url=u) for i, u in enumerate(urls)],
+                            config=FleetConfig.from_serving(serve_cfg))
+    return _attach_flight_recorder(balancer, serve_cfg, tel_cfg, cadence, out_dir)
 
 
 def serve_from_archive(
@@ -473,9 +579,11 @@ def serve_from_archive(
     device: Union[str, torch.device] = "cuda",
     replicas: Optional[int] = None,
     tenants: Optional[str] = None,
+    tsdb_cadence: Optional[float] = None,
 ):
     """The archive's online scoring service on ``device``, or, with
-    ``replicas > 1`` (the argument, else ``serving.replicas``), a
+    ``replicas > 1`` (the argument, else ``serving.replicas``) or
+    ``serving.autoscale_enabled``, a
     :class:`~memvul_tpu_torch.serving.router.ReplicaRouter` over that many
     services.  The ``serving`` section (``config.SERVING_DEFAULTS``) sizes
     the predictor and the admission envelope; the anchor bank is encoded
@@ -492,7 +600,19 @@ def serve_from_archive(
     process-wide registry's sinks there and each replica's in
     ``replica-<i>/``.  ``bankops.baseline`` attaches a drift monitor,
     ``serving.slo_enabled`` an SLO monitor, and ``tenants`` (else
-    ``serving.tenants``) installs each named tenant's active bank."""
+    ``serving.tenants``) installs each named tenant's active bank.
+
+    ``serving.autoscale_enabled`` (which needs ``slo_enabled``) attaches an
+    :class:`~memvul_tpu_torch.serving.autoscaler.Autoscaler` that spawns
+    replicas through the same factory, up to ``autoscale_max_replicas``;
+    the JAX package autoscales only a fleet built with ``replicas > 1``,
+    here the router is built for it even from one replica.
+    ``tsdb_cadence`` (else ``telemetry.tsdb_cadence_s``) > 0 attaches the
+    metrics history and the alert engine, and with ``out_dir`` the
+    incident recorder (``serving/incident.py``).  Each replica keeps a
+    program registry of its own; a single service records in the
+    process-wide one.  ``telemetry.hbm_gauges`` books each service's card
+    memory."""
     from . import telemetry
     from .archive import load_archive
     from .bankops.shadow import ShadowConfig
@@ -536,6 +656,14 @@ def serve_from_archive(
     trace_sample_rate = float(serve_cfg["trace_sample_rate"])
     if not 0.0 <= trace_sample_rate <= 1.0:
         raise ValueError(f"serving.trace_sample_rate must be in [0, 1], got {trace_sample_rate!r}")
+    if serve_cfg["hosts"]:
+        raise ValueError("serving.hosts selects the cross-host balancer (serve --hosts), "
+                         "which loads no archive")
+    tsdb_cadence = _tsdb_cadence(tel_cfg, tsdb_cadence)
+    autoscale = bool(serve_cfg["autoscale_enabled"])
+    if autoscale and not bool(serve_cfg["slo_enabled"]):
+        raise ValueError("serving.autoscale_enabled requires serving.slo_enabled "
+                         "(the scale hint comes from the SLO monitor)")
     n_replicas = int(serve_cfg["replicas"] if replicas is None else replicas)
     if n_replicas < 1:
         raise ValueError(f"serving.replicas must be >= 1, got {n_replicas}")
@@ -559,9 +687,10 @@ def serve_from_archive(
         trace_sample_rate=trace_sample_rate,
         trace_ring=int(serve_cfg["trace_ring"]),
         cache_capacity=int(serve_cfg["cache_capacity"] or 0),
+        hbm_gauges=bool(tel_cfg["hbm_gauges"]),
     )
 
-    def make_predictor(model, stream=None):
+    def make_predictor(model, stream=None, programs=None):
         predictor = SiamesePredictor(
             model, arch.tokenizer,
             batch_size=int(serve_cfg["max_batch"]),
@@ -575,6 +704,7 @@ def serve_from_archive(
             cascade_low=float(serve_cfg["cascade_low"]),
             cascade_high=float(serve_cfg["cascade_high"]),
             stream=stream,
+            program_registry=programs,
         )
         predictor.encode_anchors(anchors)
         shapes = predictor.warmup_compile()
@@ -621,43 +751,60 @@ def serve_from_archive(
             configure_tenants(target, spec, registry=target.registry)
         return target
 
-    if n_replicas == 1:
+    def _with_flight_recorder(target):
+        # after the SLO monitor and the autoscaler, which it reads
+        return _attach_flight_recorder(target, serve_cfg, tel_cfg, tsdb_cadence, out_dir)
+
+    if n_replicas == 1 and not autoscale:
         service = ScoringService(
             make_predictor(arch.model), config=service_config, retry_policy=retry_policy,
             out_dir=out_dir, manifest_dir=out_dir,
         )
-        return _with_tenants(_with_slo_monitor(_with_drift_monitor(service)))
+        return _with_tenants(_with_flight_recorder(_with_slo_monitor(_with_drift_monitor(service))))
 
     # -- the fleet: replica i on cuda:{i % cards}, the weights shared per card
     cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    devices = [torch.device("cuda", i % cards) if device.type == "cuda" else device
-               for i in range(n_replicas)]
     models = {next(arch.model.parameters()).device: arch.model}
-    for dev in devices:
-        if dev not in models:
-            models[dev] = copy.deepcopy(arch.model).to(dev)
-    if device.type == "cuda":
-        # the weights are read from every replica's stream: make them ready first
-        torch.cuda.synchronize()
+    models_lock = threading.Lock()
+
+    def device_of(index: int) -> torch.device:
+        return torch.device("cuda", index % cards) if device.type == "cuda" else device
+
+    def model_on(dev: torch.device):
+        # one copy of the weights per card, made when a replica first lands there
+        with models_lock:
+            if dev not in models:
+                models[dev] = copy.deepcopy(arch.model).to(dev)
+                if dev.type == "cuda":
+                    # the weights are read from every replica's stream: make them ready first
+                    torch.cuda.synchronize(dev)
+            return models[dev]
+
+    for i in range(n_replicas):
+        model_on(device_of(i))
     if out_dir is not None and bool(tel_cfg["enabled"]):
         telemetry.configure(run_dir=out_dir, events=bool(tel_cfg["events"]),
                             heartbeat_every_s=float(tel_cfg["heartbeat_every_s"]))
 
     def make_factory(index: int):
-        dev = devices[index]
+        dev = device_of(index)
 
         def factory(registry):
             stream = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
+            # a replica-private program registry, its events in the
+            # replica's registry: /programz rows stay one replica's
+            programs = telemetry.ProgramRegistry(telemetry=registry)
             return ScoringService(
-                make_predictor(models[dev], stream), config=service_config,
+                make_predictor(model_on(dev), stream, programs), config=service_config,
                 retry_policy=retry_policy, registry=registry,
                 manifest_dir=Path(out_dir) / f"replica-{index}" if out_dir is not None else None,
+                device=dev,
             )
 
         return factory
 
     replica_list = [
-        Replica(i, make_factory(i), run_dir=out_dir, device=devices[i],
+        Replica(i, make_factory(i), run_dir=out_dir, device=device_of(i),
                 telemetry_enabled=bool(tel_cfg["enabled"]),
                 heartbeat_every_s=float(tel_cfg["heartbeat_every_s"]))
         for i in range(n_replicas)
@@ -673,4 +820,15 @@ def serve_from_archive(
         ),
         retry_policy=retry_policy,
     )
-    return _with_tenants(_with_slo_monitor(_with_drift_monitor(router)))
+    router = _with_slo_monitor(_with_drift_monitor(router))
+    if autoscale:
+        # spawns go through make_factory, the path a restart takes; the
+        # controller is stopped at the router's drain
+        from .serving.autoscaler import Autoscaler, AutoscalerConfig
+
+        router.autoscaler = Autoscaler(
+            router, replica_factory=make_factory, slo_monitor=router.slo_monitor,
+            config=AutoscalerConfig.from_serving(serve_cfg),
+            registry=router.registry, retry_policy=retry_policy, run_dir=out_dir,
+        )
+    return _with_tenants(_with_flight_recorder(router))

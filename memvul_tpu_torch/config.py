@@ -277,47 +277,62 @@ def evaluation_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     return _section_over_defaults(cfg, "evaluation", EVALUATION_DEFAULTS)
 
 
-# The ``telemetry`` section's keys that the sharded corpus scorer honours
-# (the coordinator's and the workers' run sinks), with the JAX package's
-# defaults.
+# The ``telemetry`` section's keys, with the JAX package's defaults: the
+# run sinks of the sharded corpus scorer and the serving fleet, the live
+# exposition server of a run (``telemetry/live.py``), the serving
+# device-memory gauges, the trainers' epoch-0 profiler trace and the
+# metrics history (``telemetry/timeseries.py``; 0 = off, nothing built).
 TELEMETRY_DEFAULTS: Dict[str, Any] = {
-    "enabled": True,         # the coordinator's events.jsonl, heartbeat, summary
+    "enabled": True,         # the run sinks: events.jsonl, heartbeat, summary
     "events": True,          # the append-only events.jsonl stream
     "heartbeat_every_s": 30.0,  # HEARTBEAT.json's most frequent rewrite
+    "trace_dir": None,       # the trainers' epoch-0 profiler trace
+    "hbm_gauges": True,      # serve.hbm_in_use_bytes / serve.hbm_peak_bytes
+    "metrics_port": 0,       # train/pretrain/score-corpus: /metrics (0 = off)
+    "tsdb_cadence_s": 0.0,   # metrics-history sampling cadence (0 = off)
+    "tsdb_resolution_s": 1.0,   # ring bucket width (points coalesce)
+    "tsdb_retention_s": 600.0,  # per-series history span
 }
 
-# The ``telemetry`` keys of the ops-plane slice (ROADMAP.md), with their
-# defaults: set away from the default, each raises naming that slice.
+# The ``telemetry`` keys of slice 11 (ROADMAP.md), with their defaults: set
+# away from the default, each raises naming that slice.
 TELEMETRY_UNPORTED: Dict[str, Any] = {
-    "metrics_port": (0, "the live /metrics server"),
     "step_events": (True, "switching the per-step trainer events"),
-    "hbm_gauges": (True, "switching the device-memory gauges"),
-    "trace_dir": (None, "the profiler trace"),
-    "tsdb_cadence_s": (0.0, "the metrics history"),
-    "tsdb_resolution_s": (1.0, "the metrics history"),
-    "tsdb_retention_s": (600.0, "the metrics history"),
 }
 
 
 def telemetry_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     """``cfg["telemetry"]`` merged over :data:`TELEMETRY_DEFAULTS`; a key of
     :data:`TELEMETRY_UNPORTED` set away from its default raises
-    NotImplementedError naming the ops-plane slice."""
+    NotImplementedError naming slice 11, and an out-of-range port or
+    history setting raises ValueError."""
     section = dict((cfg or {}).get("telemetry") or {})
     for key, (default, what) in TELEMETRY_UNPORTED.items():
         value = section.pop(key, None)
         if value is not None and value != default:
             raise NotImplementedError(
-                f"telemetry.{key}={value!r}: {what} belongs to the ops-plane slice, which is "
+                f"telemetry.{key}={value!r}: {what} belongs to slice 11, which is "
                 "not ported yet (ROADMAP.md)"
             )
-    return _section_over_defaults({"telemetry": section}, "telemetry", TELEMETRY_DEFAULTS)
+    out = _section_over_defaults({"telemetry": section}, "telemetry", TELEMETRY_DEFAULTS)
+    if not isinstance(out["hbm_gauges"], bool):
+        raise ValueError(f"telemetry.hbm_gauges must be a bool, got {out['hbm_gauges']!r}")
+    port = int(out["metrics_port"] or 0)
+    if not 0 <= port < 65536:
+        raise ValueError(f"telemetry.metrics_port must be in [0, 65536), got {port!r}")
+    if float(out["tsdb_cadence_s"] or 0.0) < 0:
+        raise ValueError(f"telemetry.tsdb_cadence_s must be >= 0, got {out['tsdb_cadence_s']!r}")
+    if float(out["tsdb_cadence_s"] or 0.0) > 0 and not (
+            0 < float(out["tsdb_resolution_s"]) <= float(out["tsdb_retention_s"])):
+        raise ValueError("telemetry.tsdb_resolution_s must be > 0 and <= tsdb_retention_s")
+    return out
 
 
-# The ``serving`` section's keys that the port honours, with the JAX
-# package's defaults.  ``build.serve_from_archive`` sizes the predictor,
-# the service's admission-control envelope, the replica fleet, tracing,
-# the SLO monitor, the tenants and the admission cache from them.
+# The ``serving`` section's keys, every one of the JAX package's, with its
+# defaults.  ``build.serve_from_archive`` sizes the predictor, the
+# service's admission-control envelope, the replica fleet, tracing, the SLO
+# monitor, the tenants, the admission cache, the autoscaler and the flight
+# recorder from them; ``serve --hosts`` the cross-host balancer.
 SERVING_DEFAULTS: Dict[str, Any] = {
     "max_batch": 16,         # requests coalesced per micro-batch flush
     "max_wait_ms": 5.0,      # oldest-request coalescing window
@@ -357,18 +372,13 @@ SERVING_DEFAULTS: Dict[str, Any] = {
     # named tenants, "name=store_dir,...": one bank per tenant from its store
     "tenants": None,
     "cache_capacity": 0,     # admission-cache entries (0: no cache)
-}
-
-# The JAX package's serving keys for the ops-plane slice (ROADMAP.md), with
-# their defaults.  Leaving one at its default is fine; setting it to
-# anything else raises, naming the slice, so a setting is never silently
-# ignored.
-SERVING_UNPORTED: Dict[str, Any] = {
-    "hosts": None,
-    "fleet_heartbeat_timeout_s": 10.0,
-    "fleet_monitor_interval_s": 0.25,
-    "fleet_max_reroutes": 2,
-    "fleet_max_restarts": 2,
+    # the cross-host balancer (serving/fleet.py; serve --hosts)
+    "hosts": None,           # "host[:port],..." of running serve processes
+    "fleet_heartbeat_timeout_s": 10.0,  # a host's stall eviction threshold
+    "fleet_monitor_interval_s": 0.25,   # host health-check cadence
+    "fleet_max_reroutes": 2,  # re-enqueue attempts after host failures
+    "fleet_max_restarts": 2,  # per host, then quarantine
+    # the autoscaler (serving/autoscaler.py), fed by the SLO scale hint
     "autoscale_enabled": False,
     "autoscale_min_replicas": 1,
     "autoscale_max_replicas": 4,
@@ -378,31 +388,16 @@ SERVING_UNPORTED: Dict[str, Any] = {
     "autoscale_up_consecutive": 2,
     "autoscale_down_consecutive": 4,
     "autoscale_drain_timeout_s": 10.0,
+    # the alert engine and the incident recorder (with tsdb_cadence_s > 0)
     "alert_interval_s": 5.0,
     "incident_min_interval_s": 30.0,
     "incident_max_bundles": 8,
     "incident_window_s": 120.0,
 }
 
-
 def serving_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
-    """``cfg["serving"]`` merged over :data:`SERVING_DEFAULTS`.  Raises
-    ValueError, naming the ops-plane slice, when a key of
-    :data:`SERVING_UNPORTED` (the cross-host fleet, the autoscaler, alerts
-    and incident bundles) is set to anything but its default."""
-    section = dict((cfg or {}).get("serving") or {})
-    changed = sorted(key for key, default in SERVING_UNPORTED.items()
-                     if section.get(key) is not None and section[key] != default)
-    if changed:
-        raise ValueError(
-            f"serving keys {changed} belong to the ops-plane slice (the cross-host fleet, "
-            "the autoscaler, alerts and incident bundles), which is not ported yet "
-            "(ROADMAP.md); leave them at their defaults"
-        )
-    return _section_over_defaults(
-        {"serving": {k: v for k, v in section.items() if k not in SERVING_UNPORTED}},
-        "serving", SERVING_DEFAULTS,
-    )
+    """``cfg["serving"]`` merged over :data:`SERVING_DEFAULTS`."""
+    return _section_over_defaults(cfg, "serving", SERVING_DEFAULTS)
 
 
 # The ``bankops`` section (the anchor-bank lifecycle), with the JAX
@@ -535,15 +530,11 @@ def validate_training_config(trainer: Optional[Dict[str, Any]]) -> Dict[str, Any
     return trainer
 
 
-# The JAX package's telemetry and tuning keys that a training run would
-# act on, for features this port does not have yet, with their defaults:
-# set away from the default, each raises NotImplementedError naming the
-# slice it belongs to.
+# The JAX package's keys that a training run would act on, for features
+# this port does not have yet, with their defaults: set away from the
+# default, each raises NotImplementedError naming the slice it belongs to.
 TRAINING_UNPORTED: Dict[str, Any] = {
-    "telemetry.trace_dir": (None, "the profiler trace (ops-plane slice)"),
-    "telemetry.metrics_port": (0, "the live /metrics server (ops-plane slice)"),
-    "telemetry.tsdb_cadence_s": (0.0, "the metrics history (ops-plane slice)"),
-    "tuning.profile_dir": (None, "tuned trainer profiles (ops-plane slice)"),
+    "tuning.profile_dir": (None, "tuned trainer profiles (slice 11)"),
 }
 
 

@@ -18,7 +18,7 @@ file name ("golden"/"test_"/"validation_").  Scoring streams take a
 a record that does not parse, fails to prepare or is over-long is
 dead-lettered with its reason and the stream goes on; without one such a
 record raises, and training keeps that fail-fast rule.  The chaos fault
-points belong to the ops-plane slice.  :class:`SingleReader` streams
+points belong to slice 11.  :class:`SingleReader` streams
 single-text instances for the MemVul-m and TextCNN classifiers.
 """
 

@@ -24,8 +24,8 @@ Per-shard progress goes to the coordinator's ``telemetry.json`` and
 ``events.jsonl`` (``shard.rows_committed.<shard>``,
 ``shard.heartbeat_age_s.<shard>``, ``shard.retries.<shard>``,
 ``shard.restarts``, ``shard.quarantined``, ``merge.rows_verified``);
-the live ``/metrics`` export (``telemetry.metrics_port``) belongs to the
-ops-plane slice and raises.
+``telemetry.metrics_port`` serves them live (``telemetry/live.py``), with
+``telemetry.tsdb_cadence_s`` also as a history.
 """
 
 from __future__ import annotations
@@ -271,6 +271,9 @@ def score_corpus(
         heartbeat_every_s=float(tel_cfg["heartbeat_every_s"]),
         events=bool(tel_cfg["events"]),
     )
+    from ..telemetry.live import start_run_exposition
+
+    exposition = start_run_exposition(tel_cfg, parts=lambda: [({}, tel.snapshot())])
     try:
         model_type = (config.get("model") or {}).get("type", "model_memory")
         if model_type != "model_memory":
@@ -476,3 +479,5 @@ def score_corpus(
         }
     finally:
         tel.close()
+        if exposition is not None:
+            exposition.close()

@@ -39,11 +39,17 @@ a run directory, the heartbeat to its ``HEARTBEAT.json``: the sharded
 scorer's workers); each batch passes the ``score.batch`` fault point inside
 its retried window.
 
-PyTorch runs eagerly, so the JAX package's AOT compile, its trace
-counter and its program registry have no counterpart here;
-:meth:`SiamesePredictor.warmup_bank_shapes` instead runs each shape once,
-which builds the kernel library and launches the kernels before the
-first request (``aot_warmup``).  Meshes belong to a later slice.
+PyTorch runs eagerly, so the JAX package's AOT compile and its trace
+counter have no counterpart here; :meth:`SiamesePredictor.
+warmup_bank_shapes` instead runs each shape once, which builds the kernel
+library and launches the kernels before the first request
+(``aot_warmup``).  Each shape the predictor runs is a program of its
+program registry (``telemetry/programs.py``; ``program_registry=``, else
+the process-wide one): the first call of a shape registers it with that
+call's wall time and its analytic cost, and every call books its work and,
+on the card, its device time from CUDA events around its launches (read
+once the host copy has waited for them).  A shape met for the first time
+after the warmup counts as a recompile.  Meshes belong to a later slice.
 """
 
 from __future__ import annotations
@@ -79,6 +85,7 @@ from ..resilience import faults
 from ..resilience.journal import DeadLetter, ScoreJournal
 from ..resilience.retry import RetryPolicy, exception_text
 from ..telemetry import Registry
+from ..telemetry.programs import get_program_registry, model_bytes, score_cost, shape_key
 from .measure import cal_metrics
 from .metrics import SiameseMeasure
 
@@ -108,6 +115,7 @@ class SiamesePredictor:
         cascade_low: float = 0.3,
         cascade_high: float = 0.7,
         stream: Optional["torch.cuda.Stream"] = None,
+        program_registry=None,
     ) -> None:
         if score_impl not in ("bucketed", "ragged", "continuous", "cascade"):
             raise ValueError(
@@ -167,10 +175,78 @@ class SiamesePredictor:
         self.stats: Dict = {}
         self.telemetry = Registry()
         self.int8_model = _int8_twin(self.model) if encoder_precision == "int8" else None
+        self.programs = program_registry if program_registry is not None \
+            else get_program_registry()
+        self._weight_bytes = model_bytes(self.model)
+        header = getattr(self.model, "header", None) if getattr(self.model, "use_header", False) \
+            else None
+        self._header_dim = header.dense.out_features if header is not None else None
+        self._num_classes = int(self.model.pair_kernel.shape[1])
 
     def _on_stream(self):
         """The context the predictor's device calls run in: its stream."""
         return torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
+
+    def _wait(self) -> None:
+        """Wait for the predictor's own work: its stream, else the device
+        (a replica built beside busy ones never waits for their packs)."""
+        if self.stream is not None:
+            self.stream.synchronize()
+        else:
+            _sync(self.device)
+
+    # -- the program registry ------------------------------------------------
+
+    def _cost(self, processed: int, lengths, rows: int, n_anchors: int):
+        return score_cost(
+            self.model.config, processed, lengths, rows, n_anchors,
+            header_dim=self._header_dim, num_classes=self._num_classes,
+            weight_bytes=self._weight_bytes,
+            bank_bytes=n_anchors * (self._header_dim or self.model.config.hidden_size)
+            * self.model.config.dtype.itemsize if n_anchors else 0,
+        )
+
+    def _book(self, key: str, cost, full_cost, seconds: Optional[float], wall: float) -> None:
+        """Book one call of program ``key``: its work ``cost`` (FLOPs,
+        bytes) and device ``seconds``; the first call of a key registers
+        it with its wall time and ``full_cost``, the work at its full
+        shape, and counts as a recompile in a warm scope."""
+        programs = self.programs
+        if key not in programs:
+            programs.note_trace("score", key)
+            programs.register(key, scope="score", compile_s=wall, flops=full_cost[0],
+                              bytes_accessed=full_cost[1], device=self.device)
+        programs.record_invocation(key, seconds, flops=cost[0], bytes_accessed=cost[1])
+
+    def _timed_call(self, key: str, launch, cost, full_cost) -> np.ndarray:
+        """``launch()`` (device work returning a tensor) then its host copy,
+        with CUDA events around the launches on the card; booked as one
+        call of ``key``."""
+        t0 = time.perf_counter()
+        with self._on_stream():
+            if self.device.type == "cuda":
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = launch()
+                end.record()
+                host = out.cpu().numpy()  # waits for the launches, and so for end
+                seconds = start.elapsed_time(end) / 1e3
+            else:
+                host = launch().cpu().numpy()
+                seconds = None
+        self._book(key, cost, full_cost, seconds, time.perf_counter() - t0)
+        return host
+
+    def _block_call(self, block: Dict[str, np.ndarray], bank: torch.Tensor, model=None,
+                    prefix: str = "score") -> np.ndarray:
+        rows, length = block["input_ids"].shape
+        lengths = block["attention_mask"].sum(axis=1).tolist()
+        n = int(bank.shape[0])
+        return self._timed_call(
+            shape_key(prefix, (rows, length)), lambda: self._score(block, bank, model),
+            self._cost(rows * length, lengths, rows, n),
+            self._cost(rows * length, [length] * rows, rows, n),
+        )
 
     def _to_device(self, block: Dict[str, np.ndarray]):
         return (
@@ -185,8 +261,7 @@ class SiamesePredictor:
         ``max_length`` and keep the bank on the device."""
         start = time.perf_counter()
         bank, labels, n_anchors = self.encode_bank(anchor_instances)
-        with self._on_stream():
-            _sync(self.device)
+        self._wait()
         self.anchor_bank, self.anchor_labels, self.n_anchors = bank, labels, n_anchors
         self.stats["anchor_encode_s"] = time.perf_counter() - start
         self.stats["anchor_chunks"] = -(-n_anchors // self.anchor_chunk)
@@ -202,14 +277,34 @@ class SiamesePredictor:
         instances = list(anchor_instances)
         labels = [inst["meta"]["label"] for inst in instances]
         parts: List[torch.Tensor] = []
+        rows, length = self.anchor_chunk, self.encoder.max_length
+        key = shape_key("bank", (rows, length))
+        on_card = self.device.type == "cuda"
+        calls = []  # per chunk: (events or None, cost)
+        t0 = time.perf_counter()
         with self._on_stream():
             for start in range(0, len(instances), self.anchor_chunk):
                 chunk = instances[start : start + self.anchor_chunk]
                 seqs = self.encoder.encode_many([inst["text1"] for inst in chunk])
                 block = _pad_block(seqs, self.anchor_chunk, self.encoder.pad_id,
                                    self.encoder.max_length)
+                events = None
+                if on_card:
+                    events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    events[0].record()
                 parts.append(self.model.encode(*self._to_device(block))[: len(chunk)])
+                if on_card:
+                    events[1].record()
+                cost = self._cost(rows * length, block["attention_mask"].sum(axis=1).tolist(),
+                                  rows, 0)
+                calls.append((events, cost))
             bank = torch.cat(parts, dim=0)
+        self._wait()
+        wall = time.perf_counter() - t0
+        full = self._cost(rows * length, [length] * rows, rows, 0)
+        for events, cost in calls:
+            seconds = events[0].elapsed_time(events[1]) / 1e3 if events else None
+            self._book(key, cost, full, seconds, wall)
         return bank, labels, bank.shape[0]
 
     # -- phase 2: streaming scoring ------------------------------------------
@@ -235,16 +330,11 @@ class SiamesePredictor:
 
     def score_block(self, block: Dict[str, np.ndarray], bank: torch.Tensor) -> np.ndarray:
         """One padded (rows, length) block × bank → probabilities [rows, A]."""
-        return self._host(self._score(block, bank))
+        return self._block_call(block, bank)
 
     def score_block_int8(self, block: Dict[str, np.ndarray], bank: torch.Tensor) -> np.ndarray:
         """:meth:`score_block` on the int8 tier (``encoder_precision="int8"``)."""
-        return self._host(self._score(block, bank, self._require_int8()))
-
-    def _host(self, probs: torch.Tensor) -> np.ndarray:
-        """The copy to the host, on the predictor's stream, which it waits for."""
-        with self._on_stream():
-            return probs.cpu().numpy()
+        return self._block_call(block, bank, self._require_int8(), prefix="score_int8")
 
     def _require_int8(self) -> MemoryModel:
         if self.int8_model is None:
@@ -257,12 +347,23 @@ class SiamesePredictor:
     def score_ragged_sample(self, sample: Dict[str, np.ndarray], bank: torch.Tensor) -> np.ndarray:
         """One :func:`~memvul_tpu_torch.data.batching.collate_ragged` pack
         × bank → probabilities [max_rows, A] (dead rows included)."""
-        with self._on_stream():
+        def launch():
             dev = {k: torch.from_numpy(v).to(self.device) for k, v in sample.items()}
             for key in ("input_ids", "position_ids", "row_starts"):
                 dev[key] = dev[key].long()
             logits = self.model.score_ragged(dev, bank, impl=self.anchor_match_impl)
-            return anchor_probs(logits).cpu().numpy()
+            return anchor_probs(logits)
+
+        segments = sample["segment_ids"]
+        lengths = np.bincount(segments[segments > 0]).tolist()[1:]
+        budget = int(sample["input_ids"].shape[1])
+        rows, n = int(sample["row_starts"].shape[0]), int(bank.shape[0])
+        cap = self.encoder.max_length
+        full = [cap] * (budget // cap) + ([budget % cap] if budget % cap else [])
+        return self._timed_call(
+            shape_key("ragged", (1, budget)), launch,
+            self._cost(budget, lengths, rows, n), self._cost(budget, full, rows, n),
+        )
 
     def stream_shapes(self) -> List[Tuple[int, int]]:
         """The closed (rows, length) set bucketed scoring produces: one per
@@ -289,10 +390,13 @@ class SiamesePredictor:
         builds the kernel library and launches each kernel, so the first
         request pays neither.  Returns the number of shapes run."""
         pad = self.encoder.pad_id
+        # an intended (re-)warm: its new shapes are no recompiles
+        self.programs.mark_warm("score", False)
         if self.uses_ragged_program:
             self.score_ragged_sample(
                 collate_ragged([[pad]], self.token_budget, self.max_rows_per_pack, pad), bank
             )
+            self.programs.mark_warm("score")
             return 1
         shapes = self.stream_shapes()
         tiers = [self.score_block] + ([self.score_block_int8] if self.int8_model else [])
@@ -303,6 +407,7 @@ class SiamesePredictor:
                      "attention_mask": np.ones((rows, length), np.int32)},
                     bank,
                 )
+        self.programs.mark_warm("score")
         return len(shapes) * len(tiers)
 
     def warmup_compile(self) -> int:
@@ -375,7 +480,9 @@ class SiamesePredictor:
             for start in range(0, len(indices), rows):
                 chunk = indices[start : start + rows]
                 block = _pad_block([seqs[i] for i in chunk], rows, self.encoder.pad_id, length)
-                out[chunk] = self._host(self._score(block, bank, model))[: len(chunk), :n]
+                out[chunk] = self._block_call(block, bank, model,
+                                              "score" if model is None or model is self.model
+                                              else "score_int8")[: len(chunk), :n]
         return out
 
     def score_instances(
@@ -465,6 +572,13 @@ class SiamesePredictor:
             elapsed = timing[0].elapsed_time(timing[1]) / 1e3 if on_card else timing
             n_slots, length = batch["sample1"]["input_ids"].shape
             metas = batch["meta"]
+            block_lengths = batch["sample1"]["attention_mask"].sum(axis=1).tolist()
+            self._book(
+                shape_key("score", (n_slots, length)),
+                self._cost(n_slots * length, block_lengths, n_slots, self.n_anchors),
+                self._cost(n_slots * length, [length] * n_slots, n_slots, self.n_anchors),
+                elapsed if on_card else None, elapsed,
+            )
             seconds[length] = seconds.get(length, 0.0) + elapsed
             counts[length] = counts.get(length, 0) + 1
             rows[length] = rows.get(length, 0) + len(metas)
@@ -497,15 +611,16 @@ class SiamesePredictor:
 
     def predict_single(self, text: str) -> Dict:
         """Score one report: per-anchor probabilities, the best score and
-        the winning anchor's id and bank index.  Uses the smallest bucket
-        covering the text (over-long texts truncate into the largest)."""
+        the winning anchor's id and bank index.  Dispatches at the smallest
+        stream shape covering the text (over-long texts truncate into the
+        largest), so after ``warmup_compile`` it meets no new program."""
         if self.anchor_bank is None:
             raise RuntimeError("call encode_anchors() first")
         seq = self.encoder.encode_many([text])[0]
-        lengths = sorted(self.buckets) if self.buckets else [self.encoder.max_length]
-        length = next((b for b in lengths if b >= len(seq)), lengths[-1])
-        row = self._host(self._score(_pad_block([seq], 1, self.encoder.pad_id, length)))
-        row = row[0, : self.n_anchors]
+        shapes = sorted(self.stream_shapes(), key=lambda rl: rl[1])
+        rows, length = next(((r, n) for r, n in shapes if n >= len(seq)), shapes[-1])
+        block = _pad_block([seq], rows, self.encoder.pad_id, length)
+        row = self._block_call(block, self.anchor_bank)[0, : self.n_anchors]
         best = int(np.argmax(row))
         return {
             "predict": {label: float(p) for label, p in zip(self.anchor_labels, row)},

@@ -10,9 +10,11 @@ link against the driver: the TMA tensor-map encode is found at run time
 through ``cudaGetDriverEntryPoint``.
 
 The build runs at first use into ``build/kernels/`` at the repository
-root.  The library's name carries a hash of the sources, the headers and
-the flags, so an edited kernel or header never loads a stale build, and a
-finished build is reused by later processes.  There is no fallback: a
+root; its wall time with the load is the ``kernels:<library>`` program of
+the process's program registry (``telemetry/programs.py``).  The
+library's name carries a hash of the sources, the headers and the flags,
+so an edited kernel or header never loads a stale build, and a finished
+build is reused by later processes.  There is no fallback: a
 host without ``nvcc`` or a source that does not compile raises.
 """
 
@@ -149,7 +151,11 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            import time
+
+            t0 = time.perf_counter()
+            path = build()
+            lib = ctypes.CDLL(str(path))
             for name, argtypes in PROTOTYPES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -157,6 +163,10 @@ def library() -> ctypes.CDLL:
             lib.memvul_error_string.argtypes = [ctypes.c_int]
             lib.memvul_error_string.restype = ctypes.c_char_p
             _lib = lib
+            from ..telemetry.programs import get_program_registry
+
+            get_program_registry().register(f"kernels:{path.stem}", scope="build",
+                                            compile_s=time.perf_counter() - t0)
         return _lib
 
 

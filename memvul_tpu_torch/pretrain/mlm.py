@@ -284,7 +284,7 @@ class MLMTrainer:
         c = self.c = trainer_config or MLMTrainerConfig()
         if c.debug_checks:
             raise NotImplementedError(
-                "debug_checks (checkify) belongs to the ops-plane slice, not ported yet; "
+                "debug_checks (checkify) belongs to slice 11, not ported yet; "
                 "leave it False"
             )
         if config.quant is not None:
@@ -445,7 +445,8 @@ class MLMTrainer:
         updates' losses, wall seconds (a drain's wait spread over the
         updates it covers) and padded and real token counts."""
         from ..data.batching import prefetch
-        from ..training.trainer import StepTimer, _fetch_stats
+        from ..training.trainer import _fetch_stats
+        from ..utils.profiling import StepTimer
 
         c = self.c
         self._encode_corpus(read_corpus_lines(corpus_path))

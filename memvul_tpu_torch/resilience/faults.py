@@ -35,13 +35,22 @@ point              fires
                    lookup to a miss (``cache.errors``)
 ``bank.resolve``   once per submit, at its tenant's bank resolution: a
                    firing errors that request only
+``host.kill``      once per request routed to an in-process fleet host
+                   (``serving/fleet.py``): a firing kills the whole host,
+                   which the balancer re-routes around and restarts;
+                   ``host.kill.host-<i>`` targets one host
+``host.stall``     the same site: the host wedges (alive, no progress) until
+                   the balancer's heartbeat-age detector catches it
+``scaler.spawn``   once per autoscaler spawn attempt, inside its retried
+                   window (``serving/autoscaler.py``)
+``incident.dump``  once per incident bundle, on the recorder's worker
+                   (``serving/incident.py``): counted in
+                   ``incident.dump_errors``, never seen by a request
 =================  ==========================================================
 
 The JAX package's other points (``data.read``, ``ckpt.write``,
-``step.N``, the cross-host fleet's ``host.kill`` and ``host.stall``, the
-autoscaler's ``scaler.spawn``, ``incident.dump``) are not wired here yet
-(ROADMAP.md); ``kernel.lower`` exercises the JAX package's fall-back to
-XLA, which the port does not have.
+``step.N``) belong to slice 11 (ROADMAP.md); ``kernel.lower`` exercises
+the JAX package's fall-back to XLA, which the port does not have.
 
 With no configuration every point is a near-zero-cost no-op.  Arming is by
 the ``MEMVUL_FAULTS`` environment variable (read once, at the first

@@ -4,11 +4,16 @@ end; and the fleet on one host: replicas behind a health-gated router
 with rolling bank swaps, named tenants, the admission cache, the SLO
 monitor and the load generator.
 
+The ops plane: the cross-host balancer (:class:`HostBalancer` over
+:class:`LocalHost` and :class:`ProcessHost` hosts), the
+:class:`Autoscaler` and the incident flight recorder
+(:func:`attach_flight_recorder`).
+
 ``build.serve_from_archive`` builds a :class:`ScoringService`, or with
-``serving.replicas > 1`` a :class:`ReplicaRouter` over that many;
-``python -m memvul_tpu_torch serve [--replicas N] [--tenants SPEC]`` puts
-the front end over either.  The cross-host fleet and the autoscaler
-belong to the ops-plane slice (ROADMAP.md).
+``serving.replicas > 1`` (or ``serving.autoscale_enabled``) a
+:class:`ReplicaRouter`; ``python -m memvul_tpu_torch serve [--replicas N]
+[--tenants SPEC] [--tsdb-cadence S]`` puts the front end over either, and
+``serve --hosts`` over a balancer of running serve processes.
 """
 
 from .service import (  # noqa: F401
@@ -26,6 +31,7 @@ from .client import HTTPClient, InprocessClient  # noqa: F401
 from .replica import (  # noqa: F401
     REPLICA_DEAD,
     REPLICA_HEALTHY,
+    REPLICA_RETIRED,
     REPLICA_SWAPPING,
     REPLICA_UNHEALTHY,
     Replica,
@@ -60,3 +66,14 @@ from .slo import (  # noqa: F401
     SLOConfig,
     SLOMonitor,
 )
+from .autoscaler import Autoscaler, AutoscalerConfig  # noqa: F401
+from .fleet import (  # noqa: F401
+    FleetConfig,
+    HostBalancer,
+    HostDead,
+    LocalHost,
+    ProcessHost,
+    enumerate_hosts,
+    start_process_hosts,
+)
+from .incident import IncidentRecorder, attach_flight_recorder  # noqa: F401

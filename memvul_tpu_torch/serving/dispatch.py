@@ -94,6 +94,7 @@ class Dispatcher:
                 return  # keep _inflight visible for take_unresolved
             with svc._cond:
                 svc._inflight = []
+            svc._maybe_sample_hbm()
             svc._tel.heartbeat()
         if svc._killed.is_set():
             return
@@ -117,6 +118,7 @@ class Dispatcher:
                 svc._cond.wait(0.05)
             # idle liveness tick, outside the queue lock: an idle batcher
             # keeps its heartbeat age near zero, so only a wedged one ages
+            svc._maybe_sample_hbm()
             svc._tel.heartbeat()
         flush_at = time.monotonic() + cfg.max_wait_ms / 1000.0
         while len(pulled) < cfg.max_batch and not svc._draining.is_set():
@@ -508,6 +510,7 @@ class ContinuousDispatcher(Dispatcher):
                 if svc._killed.is_set():
                     return
             else:
+                svc._maybe_sample_hbm()
                 svc._tel.heartbeat()  # idle liveness tick, outside the lock
             if self._open and self._flush_at is not None and time.monotonic() >= self._flush_at:
                 self._seal_and_submit()

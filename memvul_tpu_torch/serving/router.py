@@ -56,6 +56,7 @@ from .service import (
     STATUS_ERROR,
     STATUS_OK,
     ScoreFuture,
+    stop_attached,
 )
 from .tenancy import DEFAULT_TENANT
 
@@ -94,8 +95,10 @@ class ReplicaRouter:
     """Load-balancing dispatch over a fleet of :class:`Replica` objects.
     Its surface is :class:`ScoringService`'s (``submit``, ``queue_depth``,
     ``bank_version``, ``draining``, ``health_summary``,
-    ``metrics_snapshots``, ``recent_traces``, ``request_drain``,
-    ``drain``), so the front end and the clients serve either."""
+    ``metrics_snapshots``, ``programs_snapshot``, ``recent_traces``,
+    ``request_drain``, ``drain``), so the front end and the clients serve
+    either.  The autoscaler grows and shrinks it
+    (:meth:`admit_replica`, :meth:`retire_replica`)."""
 
     def __init__(
         self,
@@ -107,6 +110,9 @@ class ReplicaRouter:
         if not replicas:
             raise ValueError("a router needs at least one replica")
         self.replicas: List[Replica] = list(replicas)
+        # scaled-down members (serving/autoscaler.py), kept for the fleet
+        # invariant, which sums over them too
+        self.retired_replicas: List[Replica] = []
         self.config = config or RouterConfig()
         self.retry_policy = retry_policy
         self._tel = registry if registry is not None else get_registry()
@@ -216,11 +222,34 @@ class ReplicaRouter:
     def metrics_snapshots(self) -> List:
         """Snapshot parts for ``telemetry.exposition``: the router's own
         registry (``router.*``) unlabeled, and every replica's under a
-        ``replica`` label.  Registry reads only."""
+        ``replica`` label, its program registry's ``program.*`` rows as a
+        second part under the same label.  Registry reads only."""
         parts: List = [({}, self._tel.snapshot())]
         for replica in self._members():
             parts.append(({"replica": replica.name}, replica.registry.snapshot()))
+            service = replica.service
+            if service is not None:
+                programs = getattr(service.predictor, "programs", None)
+                part = programs.metrics_part() if programs is not None else {}
+                if part:
+                    parts.append(({"replica": replica.name}, part))
         return parts
+
+    def programs_snapshot(self) -> List[Dict[str, Any]]:
+        """Fleet ``/programz``: every replica's programs stamped with the
+        replica's name, merged newest first (``compiled_wall`` orders
+        them)."""
+        rows: List[Dict[str, Any]] = []
+        for replica in self._members():
+            service = replica.service
+            if service is None:
+                continue
+            for row in service.programs_snapshot():
+                row = dict(row)
+                row["replica"] = replica.name
+                rows.append(row)
+        rows.sort(key=lambda r: -(r.get("compiled_wall") or 0.0))
+        return rows
 
     def recent_traces(self, limit: Optional[int] = None) -> List[Dict[str, Any]]:
         """Fleet ``/tracez``: every replica's completed traces, newest
@@ -411,6 +440,9 @@ class ReplicaRouter:
         if dead:
             self._tel.counter("router.replica_deaths").inc()
             self._tel.event("replica_dead", replica=replica.name)
+            recorder = getattr(self, "incident_recorder", None)
+            if recorder is not None:  # a bounded-queue put, never blocks
+                recorder.trigger("replica_dead", {"replica": replica.name})
         thread = threading.Thread(
             target=_recover_replica,
             args=(self, replica, dead),
@@ -431,6 +463,48 @@ class ReplicaRouter:
             if not request.future.done():
                 self._reroute(request, reason=reason)
 
+    # -- live membership (serving/autoscaler.py) -------------------------------
+
+    def admit_replica(self, replica: Replica) -> None:
+        """Add a warmed replica to the routing set.  Membership
+        bookkeeping only: the spawn's build, warmup and bank sync already
+        ran on the autoscaler's worker thread."""
+        if self._draining.is_set():
+            raise RuntimeError("cannot admit a replica into a draining fleet")
+        if self._shadow_tap is not None:
+            replica.set_shadow_tap(self._shadow_tap)
+        with self._lock:
+            if any(r.name == replica.name for r in self.replicas):
+                raise ValueError(f"{replica.name} is already a member")
+            self.replicas.append(replica)
+            self._outstanding.setdefault(replica.name, {})
+            count = len(self.replicas)
+        self._tel.gauge("router.replicas").set(count)
+        self._tel.counter("router.replica_admits").inc()
+        self._tel.event("replica_admit", replica=replica.name, replicas=count)
+
+    def retire_replica(self, replica: Replica) -> None:
+        """Remove a drained replica from the routing set and re-enqueue
+        anything still charged to it (a retire never loses a request: the
+        invariant sums over ``retired_replicas`` too).  The caller stops
+        routing to it and drains it first (serving/autoscaler.py)."""
+        with self._lock:
+            if len(self.replicas) <= 1:
+                raise ValueError("cannot retire the last replica")
+            try:
+                self.replicas.remove(replica)
+            except ValueError:
+                raise ValueError(f"{replica.name} is not a member") from None
+            taken = self._outstanding.pop(replica.name, {})
+            self.retired_replicas.append(replica)
+            count = len(self.replicas)
+        for request in taken.values():
+            if not request.future.done():
+                self._reroute(request, reason=f"{replica.name} retired")
+        self._tel.gauge("router.replicas").set(count)
+        self._tel.counter("router.replica_retires").inc()
+        self._tel.event("replica_retire", replica=replica.name, replicas=count)
+
     # -- shutdown --------------------------------------------------------------
 
     def request_drain(self) -> None:
@@ -444,10 +518,7 @@ class ReplicaRouter:
         stragglers.  Idempotent."""
         self.request_drain()
         self._monitor.join(timeout)
-        for attr in ("drift_monitor", "slo_monitor"):
-            monitor = getattr(self, attr, None)
-            if monitor is not None:
-                monitor.stop()
+        stop_attached(self)
         for replica in self._members():
             replica.close(timeout=timeout or 30.0)
         with self._lock:

@@ -88,6 +88,25 @@ STATUS_ERROR = "error"        # batch dead-lettered after retries; see "reason"
 MANIFEST_NAME = "anchor_bank_manifest.json"
 
 
+# the background workers a build attaches to a serving target (service,
+# router or balancer); its drain stops each one present
+ATTACHED_WORKERS = ("autoscaler", "drift_monitor", "slo_monitor", "alert_engine",
+                    "metrics_sampler", "incident_recorder")
+
+
+def stop_attached(target) -> None:
+    """Stop the background workers attached to ``target``
+    (:data:`ATTACHED_WORKERS`); the incident recorder writes what it has
+    queued first."""
+    recorder = getattr(target, "incident_recorder", None)
+    for attr in ATTACHED_WORKERS:
+        worker = getattr(target, attr, None)
+        if worker is not None:
+            worker.stop()
+    if recorder is not None:
+        recorder.drain()
+
+
 @dataclasses.dataclass(frozen=True)
 class ServiceConfig:
     """Micro-batcher and admission-control knobs; defaults mirror
@@ -110,6 +129,9 @@ class ServiceConfig:
     trace_ring: int = 256        # completed traces kept for GET /tracez
     # the admission cache's LRU entries; 0 builds no cache
     cache_capacity: int = 0
+    # serve.hbm_in_use_bytes / serve.hbm_peak_bytes from the service's own
+    # card at heartbeat cadence (nothing on the CPU)
+    hbm_gauges: bool = True
 
 
 class ScoreFuture:
@@ -277,6 +299,7 @@ class ScoringService:
         registry: Optional[Registry] = None,
         out_dir: Optional[Union[str, Path]] = None,
         manifest_dir: Optional[Union[str, Path]] = None,
+        device: Any = None,
     ) -> None:
         if predictor.anchor_bank is None:
             raise RuntimeError(
@@ -342,6 +365,10 @@ class ScoringService:
         self._trace_ring: "collections.deque[Dict[str, Any]]" = collections.deque(
             maxlen=max(1, int(self.config.trace_ring)))
         self._ring_lock = threading.Lock()  # guards the ring and the credit
+        # the device-memory gauges read this service's own device (the
+        # predictor's unless given), sampled on the batcher thread
+        self._device = device if device is not None else getattr(predictor, "device", None)
+        self._hbm_next_monotonic = 0.0
         self._write_manifest()
         from .dispatch import make_dispatcher  # dispatch imports this module
 
@@ -626,8 +653,25 @@ class ScoringService:
 
     def metrics_snapshots(self) -> List[Tuple[Dict[str, str], Dict[str, Any]]]:
         """The snapshot parts ``GET /metrics`` renders: one unlabeled part
-        (a router fans out one per replica)."""
-        return [({}, self._tel.snapshot())]
+        (a router fans out one per replica), and the predictor's program
+        registry's ``program.*`` rows as a second one."""
+        parts = [({}, self._tel.snapshot())]
+        programs = getattr(self.predictor, "programs", None)
+        if programs is not None:
+            part = programs.metrics_part()
+            if part:
+                parts.append(({}, part))
+        return parts
+
+    def programs_snapshot(self) -> List[Dict[str, Any]]:
+        """The predictor's program rows, newest first (``GET /programz``)."""
+        programs = getattr(self.predictor, "programs", None)
+        return programs.snapshot() if programs is not None else []
+
+    def programs_roofline(self) -> Optional[Dict[str, Any]]:
+        """The predictor's roofline reading (``GET /programz``)."""
+        programs = getattr(self.predictor, "programs", None)
+        return programs.roofline() if programs is not None else None
 
     def recent_traces(self, limit: Optional[int] = None) -> List[Dict[str, Any]]:
         """Completed request traces, newest first (the ``GET /tracez``
@@ -649,10 +693,7 @@ class ScoringService:
         """Graceful shutdown; waits for the batcher.  Idempotent."""
         self.request_drain()
         self._thread.join(timeout)
-        for attr in ("drift_monitor", "slo_monitor"):
-            monitor = getattr(self, attr, None)
-            if monitor is not None:
-                monitor.stop()
+        stop_attached(self)
         if self._thread.is_alive():  # pragma: no cover - defensive
             logger.warning("serve batcher did not exit within %ss", timeout)
         if self.out_dir is not None:
@@ -735,6 +776,27 @@ class ScoringService:
                 self._trace_accum -= 1.0
         self._tel.counter("serve.traces_sampled").inc()
         self._tel.event("rtrace", **record)
+
+    def _maybe_sample_hbm(self) -> None:
+        """``serve.hbm_in_use_bytes`` / ``serve.hbm_peak_bytes``: the
+        allocator's live and peak bytes on this service's card, at most once
+        a heartbeat interval (batcher thread).  Nothing on the CPU."""
+        if not self.config.hbm_gauges or self._device is None:
+            return
+        now = time.monotonic()
+        if now < self._hbm_next_monotonic:
+            return
+        self._hbm_next_monotonic = now + max(1.0, float(self._tel.heartbeat_every_s))
+        from ..utils import profiling
+
+        try:
+            stats = profiling.device_memory_stats(self._device)
+        except Exception:  # pragma: no cover - a device probe never stops the batcher
+            return
+        if not stats:
+            return
+        self._tel.gauge("serve.hbm_in_use_bytes").set(stats["bytes_in_use"])
+        self._tel.gauge("serve.hbm_peak_bytes").set(stats["peak_bytes_in_use"])
 
     def _shed_queue(self, status: str) -> None:
         while True:

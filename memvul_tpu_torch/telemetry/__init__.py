@@ -24,8 +24,12 @@ each replica keeps a registry of its own), the liveness clock
 replica health check reads) and timed spans (:meth:`Registry.span`).
 Unlike the JAX package's, the default process-wide registry counts in
 memory (no sinks) instead of discarding, so ``router.*`` is readable
-without a :func:`configure`.  The time-series store, ``metrics_port`` and
-the roofline gauges wait for the ops-plane slice (ROADMAP.md).
+without a :func:`configure`.
+
+The ops plane: the program registry and its ``program.*`` rows
+(:mod:`.programs`), the metrics history (:mod:`.timeseries`), the alert
+rules (:mod:`.alerts`) and the live exposition server of a run
+(:mod:`.live`, ``telemetry.metrics_port``).
 """
 
 from __future__ import annotations
@@ -299,3 +303,9 @@ def reset() -> None:
     if _current is not _default:
         _current.close()
     _default = _current = Registry()
+
+
+from .programs import ProgramRegistry, get_program_registry, write_programs  # noqa: E402,F401
+from .timeseries import MetricsSampler, TimeSeriesStore  # noqa: E402,F401
+from .alerts import AlertEngine, AlertRule, default_rules  # noqa: E402,F401
+from .live import start_metrics_server  # noqa: E402,F401

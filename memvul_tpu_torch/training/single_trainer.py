@@ -42,7 +42,8 @@ from ..models.losses import masked_cross_entropy
 from .checkpoint import MetricTracker, TrainCheckpointer
 from .metrics import RunningClassification, device_confusion, drain_pending
 from .optim import GroupedAdamW, make_optimizer
-from .trainer import StepTimer, _fetch_stats, host_tree, to_device
+from ..utils.profiling import StepTimer, trace_context
+from .trainer import _fetch_stats, host_tree, to_device
 
 logger = logging.getLogger(__name__)
 
@@ -97,7 +98,8 @@ class ClassifierTrainerConfig:
     # steps run ahead before a window of stats is pulled to the host; the
     # NaN guard fires there.  1 syncs every step
     sync_every: int = 32
-    # the JAX package's checkify mode and profiler trace: not ported
+    # the JAX package's checkify mode: not ported (slice 11); a profiler
+    # trace of epoch 0 (utils/profiling.trace_context)
     debug_checks: bool = False
     profile_dir: Optional[str] = None
 
@@ -126,9 +128,8 @@ class ClassifierTrainer:
         if mesh is not None:
             raise NotImplementedError("training on a mesh (DDP) belongs to the multi-device slice")
         if c.debug_checks:
-            raise NotImplementedError("debug_checks (checkify) is not ported; leave it False")
-        if c.profile_dir:
-            raise NotImplementedError("profile_dir (an epoch-0 trace) is not ported; leave it unset")
+            raise NotImplementedError(
+                "debug_checks (checkify) belongs to slice 11, not ported yet; leave it False")
         quant = getattr(getattr(model, "config", None), "quant", None)
         if quant is not None:
             raise ValueError(f"encoder quant={quant!r} is inference-only")
@@ -281,7 +282,10 @@ class ClassifierTrainer:
         self.maybe_restore()
         while self.epoch < c.num_epochs:
             epoch_metrics: Dict[str, Any] = {"epoch": self.epoch}
-            epoch_metrics.update({f"training_{k}": v for k, v in self.train_epoch().items()})
+            # profile_dir: a profiler trace of epoch 0
+            with trace_context(c.profile_dir if self.epoch == 0 else None):
+                train_metrics = self.train_epoch()
+            epoch_metrics.update({f"training_{k}": v for k, v in train_metrics.items()})
             val = self.validate()
             epoch_metrics.update({f"validation_{k}": v for k, v in val.items()})
             self.metrics_history.append(epoch_metrics)

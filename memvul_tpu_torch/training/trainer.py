@@ -56,6 +56,7 @@ from ..data.readers import MemoryReader
 from ..models.memory import MemoryModel, pair_loss
 from ..resilience.io import atomic_write_text
 from ..telemetry import Registry
+from ..utils.profiling import StepTimer, trace_context
 from .checkpoint import MetricTracker, TrainCheckpointer
 from .metrics import RunningClassification, device_confusion, drain_pending
 from .optim import GroupedAdamW, make_optimizer
@@ -147,60 +148,6 @@ def train_step(
     return {"loss": loss_sum / k, "grad_norm": grad_norm, "confusion": confusion}
 
 
-class StepTimer:
-    """Per-step wall durations.  A stats drain's time is spread over the
-    steps it covers (:meth:`distribute_over_last`): the steps themselves
-    only enqueue work on the card, the drain waits for it."""
-
-    def __init__(self) -> None:
-        self._durations: List[float] = []
-
-    @contextlib.contextmanager
-    def step(self):
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._durations.append(time.perf_counter() - start)
-
-    @contextlib.contextmanager
-    def distribute_over_last(self, n: int):
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
-            elapsed = time.perf_counter() - start
-            if not self._durations:
-                self._durations.append(elapsed)
-            else:
-                n = max(1, min(n, len(self._durations)))
-                for i in range(len(self._durations) - n, len(self._durations)):
-                    self._durations[i] += elapsed / n
-
-    @property
-    def durations(self) -> tuple:
-        return tuple(self._durations)
-
-    def summary(self, prefix: str = "step_") -> Dict[str, float]:
-        """The first step (which builds and warms) apart as ``first_s``."""
-        if not self._durations:
-            return {}
-        first, rest = self._durations[0], self._durations[1:]
-        out = {
-            f"{prefix}first_s": first,
-            f"{prefix}count": float(len(self._durations)),
-            f"{prefix}total_s": float(np.sum(self._durations)),
-        }
-        if rest:
-            out.update({
-                f"{prefix}mean_s": float(np.mean(rest)),
-                f"{prefix}p50_s": float(np.percentile(rest, 50)),
-                f"{prefix}p95_s": float(np.percentile(rest, 95)),
-                f"{prefix}max_s": float(np.max(rest)),
-            })
-        return out
-
-
 @dataclasses.dataclass
 class TrainerConfig:
     """Every field of the JAX package's ``TrainerConfig``, with its
@@ -244,7 +191,8 @@ class TrainerConfig:
     steps_per_epoch: Optional[int] = None
     # False freezes epoch 0's pair sample for every epoch
     online_resample: bool = True
-    # the JAX package's profiler trace and checkify mode: not ported
+    # a profiler trace of epoch 0 (utils/profiling.trace_context); the JAX
+    # package's checkify mode is not ported (slice 11)
     profile_dir: Optional[str] = None
     debug_checks: bool = False
     ema_decay: Optional[float] = None
@@ -278,9 +226,8 @@ class MemoryTrainer:
         if mesh is not None:
             raise NotImplementedError("training on a mesh (DDP) belongs to the multi-device slice")
         if c.debug_checks:
-            raise NotImplementedError("debug_checks (checkify) is not ported; leave it False")
-        if c.profile_dir:
-            raise NotImplementedError("profile_dir (an epoch-0 trace) is not ported; leave it unset")
+            raise NotImplementedError(
+                "debug_checks (checkify) belongs to slice 11, not ported yet; leave it False")
         if model.config.quant is not None:
             raise ValueError(f"encoder quant={model.config.quant!r} is inference-only")
         if int(c.prefetch_depth) < 1:
@@ -600,7 +547,9 @@ class MemoryTrainer:
                     self._save_preemption_state()
                     break
                 epoch_metrics: Dict[str, Any] = {"epoch": self.epoch}
-                train_metrics = self.train_epoch()
+                # profile_dir: a profiler trace of epoch 0 (the first epoch run)
+                with trace_context(c.profile_dir if self.epoch == 0 else None):
+                    train_metrics = self.train_epoch()
                 if self._stop_signal is not None:
                     # a partial epoch: no validation, no epoch checkpoint;
                     # the resumed run finishes the epoch

@@ -333,8 +333,7 @@ def test_fleet_and_tenant_targets_raise_naming_the_slice(tmp_path, monkeypatch):
     assert service.installs == [(2, {"source": "promotion", "store_version": "v2",
                                      "tenant": "orga"})]
     assert [r["tenant"] for r in store.promotions()] == [None, "orga", "orga"]
-    with pytest.raises(ValueError, match="hosts.*ops-plane slice"):
-        serving_config({"serving": {"hosts": "a:8341,b:8341"}})
+    assert serving_config({"serving": {"hosts": "a:8341,b:8341"}})["hosts"] == "a:8341,b:8341"
 
 
 # -- drift ---------------------------------------------------------------------

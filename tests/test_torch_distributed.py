@@ -396,9 +396,9 @@ def test_quarantine_partial_completion_exit_3(setup, tmp_path, monkeypatch, caps
 
 @pytest.mark.parametrize("overrides,needle", [
     ({"evaluation": {"shards": 0}}, "shards must be >= 1"),
-    ({"telemetry": {"metrics_port": 9100}}, "ops-plane slice"),
+    ({"telemetry": {"metrics_port": -1}}, "metrics_port"),
     ({"telemetry": {"step_events": False}}, "telemetry.step_events"),
-    ({"telemetry": {"hbm_gauges": False}}, "telemetry.hbm_gauges"),
+    ({"telemetry": {"hbm_gauges": "yes"}}, "telemetry.hbm_gauges"),
     ({"model": {"type": "model_single"}}, "memory-model archives only"),
 ])
 def test_score_corpus_usage_errors_exit_2(setup, tmp_path, capsys, overrides, needle):

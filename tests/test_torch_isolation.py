@@ -31,6 +31,10 @@ EXPECTED_MODULES = (
     "memvul_tpu_torch.bankops.drift", "memvul_tpu_torch.bankops.shadow",
     "memvul_tpu_torch.bankops.promote", "memvul_tpu_torch.models.folding",
     "memvul_tpu_torch.data.analysis",
+    "memvul_tpu_torch.telemetry.timeseries", "memvul_tpu_torch.telemetry.alerts",
+    "memvul_tpu_torch.telemetry.programs", "memvul_tpu_torch.telemetry.live",
+    "memvul_tpu_torch.utils.profiling", "memvul_tpu_torch.serving.incident",
+    "memvul_tpu_torch.serving.autoscaler", "memvul_tpu_torch.serving.fleet",
 )
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_compare.py"]
 

@@ -359,77 +359,118 @@ def test_health_summary_and_named_tenant(setup):
 
 
 def test_serving_config_refuses_unported_settings():
+    """Every serving key of the JAX package is honoured now: the ops-plane
+    keys pass through like the others."""
     assert serving_config({})["token_budget"] is None
     assert serving_config({"serving": {"slo_enabled": True, "replicas": 1}})["max_batch"] == 16
     assert serving_config({"serving": {"slo_enabled": False}})["slo_enabled"] is False
     for key, value in (("replicas", 2), ("tenants", "a=/x"), ("cache_capacity", 8),
-                       ("trace_sample_rate", 0.5)):
+                       ("trace_sample_rate", 0.5), ("hosts", "a:1,b:2"),
+                       ("autoscale_enabled", True), ("fleet_max_restarts", 5),
+                       ("incident_max_bundles", 2)):
         assert serving_config({"serving": {key: value}})[key] == value
-    for key, value in (("hosts", "a:1,b:2"), ("autoscale_enabled", True),
-                       ("fleet_max_restarts", 5), ("incident_max_bundles", 2)):
-        with pytest.raises(ValueError, match=f"{key}.*ops-plane slice"):
-            serving_config({"serving": {key: value}})
 
+
+# the keys of the ops-plane slice, honoured since it was ported
+OPS_PLANE_SERVING_KEYS = (
+    "alert_interval_s", "autoscale_down_consecutive", "autoscale_down_cooldown_s",
+    "autoscale_drain_timeout_s", "autoscale_enabled", "autoscale_interval_s",
+    "autoscale_max_replicas", "autoscale_min_replicas", "autoscale_up_consecutive",
+    "autoscale_up_cooldown_s", "fleet_heartbeat_timeout_s", "fleet_max_reroutes",
+    "fleet_max_restarts", "fleet_monitor_interval_s", "hosts", "incident_max_bundles",
+    "incident_min_interval_s", "incident_window_s")
 
 MOVED_SERVING_KEYS = ("replicas", "heartbeat_timeout_s", "max_batch_errors", "monitor_interval_s",
                       "max_reroutes", "trace_sample_rate", "trace_ring", "slo_enabled",
                       "slo_availability_objective", "slo_latency_p95_ms", "slo_fast_window_s",
-                      "slo_window_s", "slo_interval_s", "tenants", "cache_capacity")
+                      "slo_window_s", "slo_interval_s", "tenants",
+                      "cache_capacity") + OPS_PLANE_SERVING_KEYS
 
 
 @pytest.mark.parametrize("key", MOVED_SERVING_KEYS)
 def test_moved_serving_key_has_the_jax_default(key):
     from memvul_tpu.config import SERVING_DEFAULTS as JAX_SERVING_DEFAULTS
-    from memvul_tpu_torch.config import SERVING_DEFAULTS, SERVING_UNPORTED
+    from memvul_tpu_torch.config import SERVING_DEFAULTS
 
-    assert key not in SERVING_UNPORTED
     assert SERVING_DEFAULTS[key] == JAX_SERVING_DEFAULTS[key]
     assert serving_config({})[key] == JAX_SERVING_DEFAULTS[key]
 
 
-def _unported_serving_keys():
-    from memvul_tpu_torch.config import SERVING_UNPORTED
-
-    return sorted(SERVING_UNPORTED)
-
-
-@pytest.mark.parametrize("key", _unported_serving_keys())
-def test_unported_serving_key_raises_naming_its_slice(key):
+@pytest.mark.parametrize("key", OPS_PLANE_SERVING_KEYS)
+def test_unported_serving_key_raises_naming_its_slice(key, tmp_path):
+    """The ops-plane keys raised until their slice was ported; now each
+    is honoured, at the JAX default and away from it, and a value away
+    from the default reaches the object the key configures: the balancer
+    of ``serve --hosts`` (``hosts``, ``fleet_*``), its flight recorder
+    (``alert_interval_s``, ``incident_*``) or the autoscaler's config
+    (``autoscale_*``; ``autoscale_enabled`` is held by
+    test_torch_autoscaler's ``serve_from_archive`` test)."""
     from memvul_tpu.config import SERVING_DEFAULTS as JAX_SERVING_DEFAULTS
-    from memvul_tpu_torch.config import SERVING_DEFAULTS, SERVING_UNPORTED
+    from memvul_tpu_torch.build import serve_from_hosts
+    from memvul_tpu_torch.config import SERVING_DEFAULTS
+    from memvul_tpu_torch.serving.autoscaler import AutoscalerConfig
 
     assert key.startswith(("hosts", "fleet_", "autoscale_", "alert_", "incident_"))
-    assert SERVING_UNPORTED[key] == JAX_SERVING_DEFAULTS[key]
-    # the two tables together are the JAX package's serving section
-    assert set(SERVING_DEFAULTS) | set(SERVING_UNPORTED) == set(JAX_SERVING_DEFAULTS)
-    assert serving_config({"serving": {key: SERVING_UNPORTED[key]}})["max_batch"] == 16
-    changed = "h1:8341,h2:8341" if key == "hosts" else \
-        (not SERVING_UNPORTED[key] if isinstance(SERVING_UNPORTED[key], bool)
-         else SERVING_UNPORTED[key] + 1)
-    with pytest.raises(ValueError, match=f"{key}.*ops-plane slice"):
-        serving_config({"serving": {key: changed}})
+    # the port's table is the JAX package's serving section
+    assert set(SERVING_DEFAULTS) == set(JAX_SERVING_DEFAULTS)
+    default = JAX_SERVING_DEFAULTS[key]
+    assert serving_config({"serving": {key: default}})[key] == default
+    # unbound local ports: the balancer only ever finds them refusing
+    changed = "127.0.0.1:9,127.0.0.1:10" if key == "hosts" else \
+        (not default if isinstance(default, bool) else default + 1)
+    assert serving_config({"serving": {key: changed}})[key] == changed
+    if key.startswith("autoscale_"):
+        if key != "autoscale_enabled":
+            config = AutoscalerConfig.from_serving(serving_config({"serving": {key: changed}}))
+            assert getattr(config, key[len("autoscale_"):]) == changed
+        return
+    serving = {"hosts": "127.0.0.1:9", key: changed}
+    balancer = serve_from_hosts(overrides={"serving": serving}, out_dir=tmp_path,
+                                tsdb_cadence=60.0)
+    try:
+        if key == "hosts":
+            assert [h.base_url for h in balancer.hosts] == [
+                "http://127.0.0.1:9", "http://127.0.0.1:10"]
+        elif key.startswith("fleet_"):
+            assert getattr(balancer.config, key[len("fleet_"):]) == changed
+        elif key == "alert_interval_s":
+            assert balancer.alert_engine.interval_s == changed
+        else:
+            assert getattr(balancer.incident_recorder, key[len("incident_"):]) == changed
+    finally:
+        balancer.drain(timeout=1.0)
 
 
-def _unported_telemetry_keys():
-    from memvul_tpu_torch.config import TELEMETRY_UNPORTED
+# the telemetry keys the ops-plane slice ported, and the one left to slice 11
+TELEMETRY_KEYS = ("hbm_gauges", "metrics_port", "step_events", "trace_dir", "tsdb_cadence_s",
+                  "tsdb_resolution_s", "tsdb_retention_s")
 
-    return sorted(TELEMETRY_UNPORTED)
 
-
-@pytest.mark.parametrize("key", _unported_telemetry_keys())
+@pytest.mark.parametrize("key", TELEMETRY_KEYS)
 def test_unported_telemetry_key_raises_naming_its_slice(key):
+    """``step_events`` still raises, naming slice 11; the ops-plane keys are
+    honoured with the JAX package's defaults."""
+    from memvul_tpu.config import TELEMETRY_DEFAULTS as JAX_TELEMETRY_DEFAULTS
     from memvul_tpu_torch.config import TELEMETRY_UNPORTED, telemetry_config
 
-    default, _what = TELEMETRY_UNPORTED[key]
+    default = JAX_TELEMETRY_DEFAULTS[key]
     assert telemetry_config({"telemetry": {key: default}})["enabled"] is True
     changed = "trace/" if default is None else \
         (not default if isinstance(default, bool) else default + 1)
-    with pytest.raises(NotImplementedError, match=f"telemetry.{key}.*ops-plane slice"):
-        telemetry_config({"telemetry": {key: changed}})
+    if key in TELEMETRY_UNPORTED:
+        assert TELEMETRY_UNPORTED[key][0] == default
+        with pytest.raises(NotImplementedError, match=f"telemetry.{key}.*slice 11"):
+            telemetry_config({"telemetry": {key: changed}})
+        return
+    assert telemetry_config({})[key] == default
+    assert telemetry_config({"telemetry": {key: changed}})[key] == changed
 
 
 @pytest.mark.parametrize("path", ["/programz", "/metricsz", "/alertz", "/profilez"])
 def test_ops_plane_endpoints_answer_naming_their_slice(setup, path):
+    """The ops-plane endpoints are ported: without a flight recorder
+    /metricsz and /alertz answer ``{"enabled": false}``, /programz the
+    rows, and /profilez without a run dir 503 (the JAX front end's codes)."""
     import urllib.error
     import urllib.request
 
@@ -439,12 +480,22 @@ def test_ops_plane_endpoints_answer_naming_their_slice(setup, path):
         url = "http://%s:%d%s" % (*server.server_address[:2], path)
         method = "POST" if path == "/profilez" else "GET"
         data = b'{"seconds": 1}' if method == "POST" else None
-        with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(urllib.request.Request(url, data=data, method=method),
-                                   timeout=10)
-        assert err.value.code == 501
-        body = json.loads(err.value.read().decode("utf-8"))
-        assert path in body["reason"] and "ops-plane slice" in body["reason"]
+        request = urllib.request.Request(url, data=data, method=method)
+        if path == "/profilez":
+            with pytest.raises(urllib.error.HTTPError) as err:
+                urllib.request.urlopen(request, timeout=10)
+            assert err.value.code == 503
+            assert "run dir" in json.loads(err.value.read().decode("utf-8"))["reason"]
+            return
+        with urllib.request.urlopen(request, timeout=10) as resp:
+            assert resp.status == 200
+            body = json.loads(resp.read().decode("utf-8"))
+        if path == "/programz":
+            assert body["count"] == len(body["programs"]) and "roofline" in body
+            assert set(body["kernels"]) == {"anchor_match", "flash_attention",
+                                            "ragged_flash_attention"}
+        else:
+            assert body["enabled"] is False
     finally:
         server.shutdown()
         service.drain()

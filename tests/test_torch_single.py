@@ -280,7 +280,6 @@ def test_classifier_trainer_refusals(ws):
     _, _, pmodel, _, ptok, _ = _models("single", ws)
     reader = SingleReader()
     for kw, err in ((dict(debug_checks=True), NotImplementedError),
-                    (dict(profile_dir="trace"), NotImplementedError),
                     (dict(prefetch_depth=0), ValueError)):
         with pytest.raises(err):
             ClassifierTrainer(pmodel, ptok, reader, ws["paths"]["train"],

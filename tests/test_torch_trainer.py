@@ -292,8 +292,9 @@ def test_port_archive_scores_the_same_in_the_jax_package(ws, tmp_path):
 
 def test_unported_knobs_raise_naming_their_slice(ws, tmp_path):
     cfg = selfcheck_config(ws)
-    with pytest.raises(NotImplementedError, match="ops-plane"):
-        build.train_from_config(dict(cfg, telemetry={"metrics_port": 9000}), tmp_path, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        build.train_from_config(dict(cfg, tuning={"profile_dir": "profiles/"}), tmp_path,
+                                device="cpu")
     with pytest.raises(ValueError, match="unknown model type"):
         build.train_from_config(dict(cfg, model=dict(cfg["model"], type="model_folding")),
                                 tmp_path, device="cpu")
