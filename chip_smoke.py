@@ -76,9 +76,28 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  steps, validation (K1 and K2 counted around it), the
                  archive, ``evaluate_from_archive`` of it; then a 2-step run
                  with attention dropout 0 whose train steps must launch K2
-                 12 layers × 2 towers × microbatches times; and the host
-                 wall against the device time of single train steps
-                 (``train_step_profile``);
+                 12 layers × 2 towers × microbatches times, twice that
+                 with the configuration's ``remat``; its run dir's sinks
+                 (a ``train_step`` event a step) read back through
+                 ``telemetry-report --json``, as ``main_path``'s are; and
+                 the host wall against the device time of single train
+                 steps (``train_step_profile``);
+   ``remat_path`` one memory-model train step of the configuration at
+                 attention dropout 0 with ``remat`` on and off from the same
+                 weights, at ``[32 × 2, 256]`` and ``[8, 2048]``: gradients
+                 within ``kernel_flash_grad``'s tolerance, peak GiB and step
+                 seconds of each, K2's forwards doubled; then hidden dropout
+                 0.1 from one generator seed, whose gradients must agree;
+   ``debug_checks`` a step's seconds with the checks on and off; a NaN in
+                 one weight raises FloatingPointError naming it, the
+                 parameters and optimizer state untouched;
+   ``train_faults`` ``train`` subprocesses under ``step.3=sigterm``,
+                 resumed to an uninterrupted run's losses (f32 1e-5);
+                 ``ckpt.write`` and ``data.read`` in process;
+   ``baseline_path`` ``python -m memvul_tpu_torch baseline`` over 8192 +
+                 2048 ``generate_corpus`` reports: each learner's seconds,
+                 F1 and AUC, the selected features; NB's and KNN's card
+                 predictions equal to the CPU's, LR's within 1e-3;
    ``pretrain_path`` MLM further pretraining with ``configs/further_pretrain.json``
                  at its widths (the encoder stacked, bert-base's table): a
                  few updates, the held-out loss and perplexity, the encoder
@@ -480,9 +499,12 @@ def phase_flash(records: dict) -> None:
 
     ptxas = _wgmma_ptxas()
     _check_ptxas("kernel_flash", ptxas)
-    # the main path's shapes, then the train step's
+    # the main path's shapes, then the train step's and remat_path's
     main_shapes = main_path_flash_shapes()
-    shapes = main_shapes + [s for s in train_flash_shapes() if s not in main_shapes]
+    shapes = main_shapes
+    for s in train_flash_shapes() + [[rows, length] for rows, _, length in REMAT_SHAPES]:
+        if s not in shapes:
+            shapes = shapes + [s]
     bf16, f32 = torch.bfloat16, torch.float32
     # bf16 with head dim 64 on 16-byte-aligned tensors takes the wgmma
     # kernel; f32, other head dims and unaligned views (pad 4) the
@@ -1084,6 +1106,10 @@ def phase_main_path(workdir: Path, records: dict, reports_wanted: int = 512) -> 
         if count:
             anchor["launches_by_rows"][b] = anchor["launches_by_rows"].get(b, 0) + count
     records["flash_attention"]["launches"] = flash_launches
+    sinks = _run_sinks_report(workdir / "eval", "main_path")
+    if sinks["counters"].get("score.rows") != len(reports) \
+            or "score_stream" not in sinks["spans"]:
+        raise SystemExit(f"main_path's run sinks disagree with the run: {sinks}")
     emit(
         "main_path", ok=True, config=str(CONFIG.relative_to(ROOT)),
         reports=len(reports), anchors=129, vocab_size=tok.vocab_size,
@@ -1097,9 +1123,36 @@ def phase_main_path(workdir: Path, records: dict, reports_wanted: int = 512) -> 
         flash_launches=flash_launches, anchor_match_launches=match_launches,
         warmup_s=metrics.get("s_warmup_s"),
         peak_memory_gib=peak_bytes / 2**30, f1=saved["f1"], auc=saved["auc"],
-        card=nvidia_smi_line(),
+        run_sinks=sinks["line"], card=nvidia_smi_line(),
     )
     emit_flash_shapes(records, metrics["s_bucket_batches"], chunks, layers, warm)
+
+
+def _run_sinks_report(run_dir: Path, phase: str) -> dict:
+    """A run dir's sinks as ``train`` and ``evaluate`` write them:
+    ``events.jsonl``, ``HEARTBEAT.json`` and ``telemetry.json`` exist, and
+    ``python -m memvul_tpu_torch telemetry-report --json`` over the dir
+    parses, with spans; returns its spans, counters, event kinds and the
+    report's wall time (``line``)."""
+    missing = [n for n in ("events.jsonl", "HEARTBEAT.json", "telemetry.json")
+               if not (run_dir / n).is_file()]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "memvul_tpu_torch", "telemetry-report",
+                           str(run_dir), "--json"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    wall = time.perf_counter() - t0
+    if missing or proc.returncode != 0:
+        raise SystemExit(f"{phase}: run sinks missing {missing} or telemetry-report failed "
+                         f"({proc.returncode}): {proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout)
+    kinds = collections.Counter(
+        json.loads(line)["kind"] for line in (run_dir / "events.jsonl").read_text().splitlines()
+        if line.strip())
+    if not report["spans"] or report["events"]["skipped"]:
+        raise SystemExit(f"{phase}: telemetry-report found no spans or torn events: {report}")
+    return {"spans": report["spans"], "counters": report["counters"], "kinds": kinds,
+            "line": {"event_kinds": dict(kinds), "spans": sorted(report["spans"]),
+                     "report_wall_s": wall}}
 
 
 # -- the reference's evaluation override files, the int8 tier, resume -----------
@@ -2209,7 +2262,11 @@ def phase_train_path(workdir: Path, records: dict, steps: int = 8) -> None:
     own.  The counts of K1 and K2 are set to 0 before and read after, with
     validation's share read around it.  A second, 2-step run with encoder
     ``attention_dropout`` 0 (and no validation) must launch K2 12 layers ×
-    2 towers × microbatches times in its train steps."""
+    2 towers × microbatches times in its train steps, twice that with the
+    config's ``remat`` (each layer's forward runs again in the backward).
+    The run dir's sinks hold a ``train_step`` event a step and
+    ``telemetry-report --json`` a ``train.steps`` counter equal to the
+    steps; the cost of one ``train_step`` event is timed beside the step."""
     import numpy as np
     import torch
 
@@ -2239,6 +2296,8 @@ def phase_train_path(workdir: Path, records: dict, steps: int = 8) -> None:
     losses = epoch["training_losses"]
     steps_s = epoch["training_step_durations_s"]
     after_first = steps_s[1:]
+    sinks = _run_sinks_report(workdir / "train_run", "train_path")
+    remat = bool(cfg["model"]["encoder"].get("remat"))
 
     # the archive, scored by the evaluation entry point on the card
     t2 = time.perf_counter()
@@ -2261,6 +2320,9 @@ def phase_train_path(workdir: Path, records: dict, steps: int = 8) -> None:
         "train_steps_k2_launches_zero_with_attention_dropout": flash_total == rec.validation["flash"],
         "archive_scored": len(recs) == test_reports and probs.shape[1] == len(ws["anchors"])
         and bool(np.isfinite(probs).all()) and probs.min() >= 0.0 and probs.max() <= 1.0,
+        "remat_as_the_config_says": remat,
+        "train_step_event_per_step": sinks["kinds"].get("train_step") == steps,
+        "report_train_steps_eq_steps": sinks["counters"].get("train.steps") == steps,
     }
 
     # dropout 0: K2 forward in every train step through the autograd Function
@@ -2273,12 +2335,13 @@ def phase_train_path(workdir: Path, records: dict, steps: int = 8) -> None:
     torch.cuda.synchronize()
     microbatches = 2 * int(cfg0["trainer"]["grad_accum"])
     flash0 = fa.launches
-    checks["dropout0_k2_launches_eq_layers_x_towers_x_microbatches"] = (
-        flash0 == layers * 2 * microbatches)
+    # remat runs each layer's forward again in the backward
+    want0 = layers * 2 * microbatches * (2 if remat else 1)
+    checks["dropout0_k2_launches_eq_layers_x_towers_x_microbatches_x_remat"] = flash0 == want0
     checks["dropout0_losses_finite"] = bool(np.isfinite(result0["history"][0]["training_losses"]).all())
 
     checks = {k: bool(v) for k, v in checks.items()}
-    checks = {k: bool(v) for k, v in checks.items()}
+    event_us = _event_cost_us(workdir / "event_cost")
     line = {
         "ok": all(checks.values()), "checks": checks, "config": str(CONFIG.relative_to(ROOT)),
         "reduced": {"steps": steps, "epochs": 1, "warmup_steps": 2,
@@ -2300,9 +2363,11 @@ def phase_train_path(workdir: Path, records: dict, steps: int = 8) -> None:
         "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
         "grad_norms": epoch["training_grad_norms"],
         "evaluate_archive_s": eval_s, "archive_test_reports": len(recs),
-        "archive_s_auc": metrics.get("s_auc"),
+        "archive_s_auc": metrics.get("s_auc"), "remat": remat, "run_sinks": sinks["line"],
+        "train_step_event_us": event_us,
+        "train_step_event_share_of_step_median": event_us * 1e-6 / float(np.median(after_first)),
         "dropout0": {"steps": 2, "microbatches": microbatches, "k2_launches": flash0,
-                     "want": layers * 2 * microbatches,
+                     "want": want0,
                      "k2_launches_by_shape": {f"{b}x{t}": n for (b, t), n in
                                               sorted(rec0.by_shape.items())}},
         "card": nvidia_smi_line(),
@@ -2311,6 +2376,7 @@ def phase_train_path(workdir: Path, records: dict, steps: int = 8) -> None:
     if not line["ok"]:
         raise SystemExit(f"train_path failed: {checks}")
     # K2 at the train step's shapes beside its launches per optimizer step
+    # (with remat, forward and recompute)
     fl = records["flash_attention"]
     per_step = {shape: n / 2 for shape, n in rec0.by_shape.items()}
     rows = []
@@ -2326,6 +2392,21 @@ def phase_train_path(workdir: Path, records: dict, steps: int = 8) -> None:
     fl["launches"] += flash_total + flash0
     records["anchor_match"]["launches"] += match_total
     _train_step_profile(cfg)
+
+
+def _event_cost_us(run_dir: Path, events: int = 2000) -> float:
+    """Host microseconds of one ``train_step`` event with its heartbeat
+    call, as the trainers emit them at a drain, into a run dir's sinks."""
+    from memvul_tpu_torch.telemetry import Registry
+
+    tel = Registry(run_dir=run_dir)
+    t0 = time.perf_counter()
+    for step in range(events):
+        tel.event("train_step", step=step, loss=0.5, lr=1e-4, grad_norm=1.0)
+        tel.heartbeat()
+    cost = (time.perf_counter() - t0) / events * 1e6
+    tel.close()
+    return cost
 
 
 def _train_step_profile(cfg: dict, stacks: int = 3) -> None:
@@ -4355,6 +4436,374 @@ def phase_ops_plane_path(workdir: Path, records: dict, serve_runs: dict, fleet_r
     records["anchor_match"]["launches"] += launches["anchor_match"] + host_totals["anchor_match"]
 
 
+# -- slice 11: remat, debug_checks, the trainers' fault points, the baseline ----
+
+# remat_path's shapes: train_path's [32 × 2 microbatches, 256] and one
+# long-context stack of the configuration's 4096 positions
+REMAT_SHAPES = ((32, 2, 256), (8, 1, 2048))
+# debug_checks' step: train_path's shape
+DEBUG_SHAPE = (32, 2, 256)
+
+
+def _remat_model(remat: bool, hidden_dropout: float):
+    """``config_memory_longctx.json``'s memory model (bert-base, bf16, flash)
+    with attention dropout 0, so K2 runs in the train step, and weights
+    from seed 0."""
+    from memvul_tpu_torch.build import build_model, init_params
+    from memvul_tpu_torch.config import load_config
+
+    model_cfg = load_config(CONFIG)["model"]
+    encoder = dict(model_cfg["encoder"], vocab_size=30522, remat=remat,
+                   attention_dropout=0.0, hidden_dropout=hidden_dropout)
+    return init_params(build_model(dict(model_cfg, encoder=encoder), 30522), 0)
+
+
+def _random_stack(rows: int, k: int, length: int, seed: int) -> dict:
+    """A ``[K, rows, length]`` pair stack on the card: padded sample1 rows of
+    random lengths, full-length sample2 rows, labels and unit weights."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def side(full: bool):
+        ids = torch.randint(1000, 30000, (k, rows, length), generator=gen)
+        mask = torch.ones(k, rows, length, dtype=torch.int64)
+        if not full:
+            for i in range(k):
+                for r in range(rows):
+                    mask[i, r, int(torch.randint(length // 4, length + 1, (1,), generator=gen)):] = 0
+        ids[:, :, 0] = 101
+        return {"input_ids": (ids * mask).cuda(), "attention_mask": mask.cuda()}
+
+    return {"sample1": side(False), "sample2": side(True),
+            "label": torch.randint(0, 2, (k, rows), generator=gen).cuda(),
+            "weight": torch.ones(k, rows).cuda()}
+
+
+def phase_remat_path(records: dict) -> None:
+    """``remat`` on the card: one memory-model train step of
+    ``config_memory_longctx.json`` (attention dropout 0, so K2 runs under
+    autograd) at ``REMAT_SHAPES`` with remat on and off from the same
+    weights: gradients within ``kernel_flash_grad``'s relative tolerance
+    (3e-2 of each parameter's gradient norm), the peak GiB and step seconds
+    of each, and K2's forward launches with remat twice those without.
+    Then hidden dropout 0.1 from one generator seed, remat on against off:
+    the gradients must agree, so the recompute replayed the masks."""
+    import torch
+
+    from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.training.optim import make_optimizer
+    from memvul_tpu_torch.training.trainer import train_step
+
+    tol = 3e-2
+
+    def run(model, start, stack, seed):
+        model.load_state_dict(start)
+        opt = make_optimizer(model.named_parameters(), warmup_steps=0)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        launches0 = fa.launches
+        t0 = time.perf_counter()
+        stats = train_step(model, opt, stack, gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        return {"seconds": seconds, "peak_gib": peak / 2**30,
+                "step_peak_over_start_gib": (peak - base) / 2**30,
+                "k2_launches": fa.launches - launches0, "loss": float(stats["loss"]),
+                "grads": grads}
+
+    def grad_rel(a, b):
+        return max(float((a[n].float() - b[n].float()).norm() / b[n].float().norm().clamp_min(1e-30))
+                   for n in b)
+
+    rows, ok = [], True
+    fa.launches = 0
+    for dropout in (0.0, 0.1):
+        plain = _remat_model(False, dropout).cuda().train()
+        rematted = _remat_model(True, dropout).cuda().train()
+        start = {k: v.clone() for k, v in plain.state_dict().items()}
+        for rows_, k, length in (REMAT_SHAPES if dropout == 0.0 else REMAT_SHAPES[:1]):
+            stack = _random_stack(rows_, k, length, seed=rows_ * length)
+            run(plain, start, stack, 3)  # warm: the kernels, the allocator
+            run(rematted, start, stack, 3)
+            off = run(plain, start, stack, 5)
+            on = run(rematted, start, stack, 5)
+            rel = grad_rel(on.pop("grads"), off.pop("grads"))
+            row = {"shape": [rows_ * k, length], "microbatches": k, "hidden_dropout": dropout,
+                   "remat_off": off, "remat_on": on, "grad_max_rel_err": rel,
+                   "peak_ratio_off_over_on": off["peak_gib"] / on["peak_gib"],
+                   "step_ratio_on_over_off": on["seconds"] / off["seconds"]}
+            row["ok"] = (rel <= tol and on["k2_launches"] == 2 * off["k2_launches"] > 0
+                         and abs(on["loss"] - off["loss"]) <= tol * max(abs(off["loss"]), 1.0))
+            ok = ok and row["ok"]
+            rows.append(row)
+            del stack
+        del plain, rematted, start
+        torch.cuda.empty_cache()
+    records["flash_attention"]["launches"] += fa.launches
+    # K2 at each shape, timed by kernel_flash, beside its launches here
+    timed = records["flash_attention"]["shapes"]
+    k2 = [{"shape": [b, t, 12, 64], **{key: timed[(b, t)].get(key) for key in (
+        "kernel_ms", "kernel_device_ms", "plain_ms", "library_ms", "library_device_ms",
+        "bound_ms", "bound_by")}} for b, _, t in REMAT_SHAPES if (b, t) in timed]
+    emit("remat_path", ok=ok, tol=tol, config=str(CONFIG.relative_to(ROOT)), cases=rows,
+         k2_at_shapes=k2, card=nvidia_smi_line())
+    if not ok:
+        raise SystemExit(f"remat_path failed: {rows}")
+
+
+def phase_debug_checks(records: dict, steps: int = 5) -> None:
+    """``debug_checks`` on the card at ``train_path``'s step shape
+    (``DEBUG_SHAPE``: 32 rows × 2 microbatches × 256): a healthy step's
+    seconds with the checks on and off (the overhead), then a NaN planted
+    in one weight: the step must raise FloatingPointError naming that
+    weight, with every parameter and the optimizer state bitwise the
+    pre-step ones."""
+    import torch
+
+    from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.training.optim import make_optimizer
+    from memvul_tpu_torch.training.trainer import train_step
+
+    model = _remat_model(True, 0.0).cuda().train()
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    stack = _random_stack(*DEBUG_SHAPE, seed=1)
+    times = {}
+    fa.launches = 0
+    for debug in (False, True, True, False):
+        model.load_state_dict(start)
+        opt = make_optimizer(model.named_parameters(), warmup_steps=0)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            train_step(model, opt, stack, gen, debug_checks=debug)
+        torch.cuda.synchronize()
+        times.setdefault(debug, []).append((time.perf_counter() - t0) / steps)
+    healthy_launches = fa.launches
+    on, off = min(times[True]), min(times[False])
+
+    # a weight in the middle of the encoder: layer 6 of 12
+    name = f"bert.encoder.layer.{len(model.bert.encoder.layer) // 2}.attention.self.query.weight"
+    model.load_state_dict(start)
+    with torch.no_grad():
+        dict(model.named_parameters())[name].view(-1)[7] = float("nan")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = make_optimizer(model.named_parameters(), warmup_steps=0)
+    try:
+        train_step(model, opt, stack, torch.Generator(device="cuda").manual_seed(0),
+                   debug_checks=True)
+        message = None
+    except FloatingPointError as e:
+        message = str(e)
+    torch.cuda.synchronize()
+    unchanged = all(
+        torch.equal(torch.isnan(v), torch.isnan(before[k]))
+        and torch.equal(torch.nan_to_num(v), torch.nan_to_num(before[k]))
+        for k, v in model.state_dict().items())
+    checks = {"raised_naming_the_weight": message is not None and repr(name) in message,
+              "params_bitwise_unchanged": unchanged,
+              "optimizer_state_untouched": opt.count == 0 and not opt.optimizer.state,
+              "k2_launched": healthy_launches > 0}
+    records["flash_attention"]["launches"] += fa.launches
+    emit("debug_checks", ok=all(checks.values()), checks=checks,
+         shape=[DEBUG_SHAPE[0] * DEBUG_SHAPE[1], DEBUG_SHAPE[2]], steps=steps,
+         step_s_checks_off=off, step_s_checks_on=on, overhead=on / off - 1.0,
+         step_s_all=dict((str(k), v) for k, v in times.items()), message=message,
+         card=nvidia_smi_line())
+    if not all(checks.values()):
+        raise SystemExit(f"debug_checks failed: {checks}")
+    del model, start, before, stack
+    torch.cuda.empty_cache()
+
+
+def _faults_config(ws: dict, out: Path, log: Path) -> dict:
+    """A tiny f32 memory-model train config (dropout 0, 2 epochs of 3
+    steps, ``sync_every`` 1, the step losses logged) over ``ws``."""
+    from memvul_tpu_torch.data.synthetic import selfcheck_config
+
+    cfg = selfcheck_config(ws, num_epochs=2, steps_per_epoch=3, sync_every=1, patience=None,
+                           step_loss_log=str(log))
+    cfg["model"]["encoder"].update(hidden_dropout=0.0, attention_dropout=0.0)
+    return cfg
+
+
+def _train_cli(cfg_path: Path, out: Path, faults: str = "") -> subprocess.CompletedProcess:
+    import os
+
+    env = dict(os.environ, MEMVUL_FAULTS=faults)
+    return subprocess.run([sys.executable, "-m", "memvul_tpu_torch", "train", str(cfg_path),
+                           "-s", str(out)], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env=env)
+
+
+def phase_train_faults(workdir: Path) -> None:
+    """The trainers' fault points on the card: ``python -m memvul_tpu_torch
+    train`` of a tiny f32 model in a subprocess with
+    ``MEMVUL_FAULTS="step.3=sigterm"`` is preempted after step 3 (the
+    marker says step 4), and the resumed run's per-step losses equal an
+    uninterrupted run's within f32 1e-5; ``ckpt.write@1=raise`` fails a
+    step checkpoint and leaves the previous one readable;
+    ``data.read@2=raise`` raises at the second record without a
+    quarantine and is dead-lettered with one (the JAX package's readers)."""
+    import torch
+
+    from memvul_tpu_torch.data.readers import MemoryReader
+    from memvul_tpu_torch.data.synthetic import build_workspace
+    from memvul_tpu_torch.resilience import faults
+    from memvul_tpu_torch.resilience.journal import DeadLetter
+    from memvul_tpu_torch.training.checkpoint import TrainCheckpointer
+
+    ws = build_workspace(workdir / "faults_ws", seed=5)
+    logs = {}
+    t0 = time.perf_counter()
+    for name, spec in (("uninterrupted", ""), ("preempted", "step.3=sigterm")):
+        out, log = workdir / f"faults_{name}", workdir / f"faults_{name}.jsonl"
+        cfg_path = workdir / f"faults_{name}.json"
+        cfg_path.write_text(json.dumps(_faults_config(ws, out, log)))
+        proc = _train_cli(cfg_path, out, spec)
+        if proc.returncode != 0:
+            raise SystemExit(f"train_faults: {name} run failed: {proc.stderr[-2000:]}")
+        logs[name] = {"first": [json.loads(x) for x in log.read_text().splitlines()]}
+        if spec:
+            logs[name]["marker"] = json.loads((out / "PREEMPTED.json").read_text())
+            resumed = _train_cli(cfg_path, out)
+            if resumed.returncode != 0:
+                raise SystemExit(f"train_faults: resume failed: {resumed.stderr[-2000:]}")
+            logs[name]["resumed_marker_gone"] = not (out / "PREEMPTED.json").exists()
+        logs[name]["losses"] = {r["step"]: r["loss"] for r in
+                                (json.loads(x) for x in log.read_text().splitlines())}
+    subprocess_s = time.perf_counter() - t0
+    want, got = logs["uninterrupted"]["losses"], logs["preempted"]["losses"]
+    loss_err = max((abs(got[s] - want[s]) for s in want), default=float("inf"))
+
+    ckpt = TrainCheckpointer(workdir / "faults_ckpt")
+    ckpt.save_step(1, {"w": torch.ones(4, device="cuda").cpu()})
+    faults.configure("ckpt.write@1=raise:OSError:injected")
+    try:
+        ckpt.save_step(2, {"w": torch.zeros(4)})
+        ckpt_raised = False
+    except OSError:
+        ckpt_raised = True
+    faults.reset()
+    step, state = ckpt.restore_latest_step()
+
+    reader = MemoryReader(cve_path=ws["paths"]["cve"], anchor_path=ws["paths"]["anchors"])
+    n_test = len(json.loads(Path(ws["paths"]["test"]).read_text()))
+    faults.configure("data.read@2=raise")
+    try:
+        list(reader.read(ws["paths"]["test"], split="test"))
+        read_raised = False
+    except RuntimeError:
+        read_raised = True
+    faults.configure("data.read@2=raise:ValueError:injected malformed record")
+    dead = DeadLetter(workdir / "faults.deadletter")
+    kept = list(reader.read(ws["paths"]["test"], split="test", quarantine=dead))
+    dead.close()
+    faults.reset()
+    checks = {
+        "preempted_after_step_3": logs["preempted"]["marker"]["step"] == 4
+        and sorted(r["step"] for r in logs["preempted"]["first"]) == [0, 1, 2, 3],
+        "resume_completed": logs["preempted"]["resumed_marker_gone"]
+        and sorted(got) == sorted(want) == list(range(6)),
+        "resume_losses_within_1e-5": loss_err <= 1e-5,
+        "ckpt_write_raised": ckpt_raised,
+        "previous_checkpoint_readable": step == 1 and torch.equal(state["w"], torch.ones(4)),
+        "data_read_raises_without_quarantine": read_raised,
+        "data_read_dead_lettered": len(kept) == n_test - 1 and dead.count == 1,
+    }
+    emit("train_faults", ok=all(checks.values()), checks=checks, loss_max_abs_err=loss_err,
+         marker=logs["preempted"]["marker"], subprocess_s=subprocess_s, card=nvidia_smi_line())
+    if not all(checks.values()):
+        raise SystemExit(f"train_faults failed: {checks}")
+
+
+def _baseline_corpus(workdir: Path, train_n: int = 8192, test_n: int = 2048) -> tuple:
+    """``generate_corpus`` reports of realistic lengths, split into the
+    first ``train_n`` and the next ``test_n``."""
+    from memvul_tpu_torch.data.synthetic import generate_corpus
+
+    reports, _ = generate_corpus(num_projects=80, reports_per_project=128, seed=3,
+                                 realistic_lengths=True)
+    train, test = reports[:train_n], reports[train_n:train_n + test_n]
+    if len(test) != test_n:
+        raise SystemExit(f"baseline corpus too small: {len(reports)} reports")
+    paths = workdir / "baseline_train.json", workdir / "baseline_test.json"
+    for path, part in zip(paths, (train, test)):
+        path.write_text(json.dumps(part))
+    return paths
+
+
+def phase_baseline_path(workdir: Path) -> None:
+    """``python -m memvul_tpu_torch baseline`` on the card (no sklearn on
+    this machine) over 8192 train and 2048 test reports of
+    ``generate_corpus``: the ten result and metric files, each learner's
+    seconds, F1 and AUC and the selected feature count from its log; then
+    NB, KNN and LR fitted on the card and on the CPU on the same selected
+    matrix: NB's and KNN's predictions equal, LR's probabilities within
+    1e-3 (the CPU test's tolerance against sklearn)."""
+    import re as _re
+
+    import numpy as np
+
+    from memvul_tpu_torch.baselines import sklearn_baseline as bl
+
+    train_path, test_path = _baseline_corpus(workdir)
+    out = workdir / "baseline_out"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "memvul_tpu_torch", "baseline", str(train_path),
+                           str(test_path), "-o", str(out)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"baseline failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    metrics = json.loads(proc.stdout.strip().splitlines()[-1])
+    learners = {m.group(1): json.loads(m.group(2)) for m in
+                _re.finditer(r"learner (\w+): (\{.*\})", proc.stderr)}
+    selection = _re.search(r"L1-SVC selection: (\d+) of (\d+) features in ([\d.]+) s", proc.stderr)
+    written = sorted(p.name for p in out.iterdir())
+
+    train = json.loads(train_path.read_text())
+    test = json.loads(test_path.read_text())
+    train_texts, y_train = bl._texts_and_labels(train, "Security_Issue_Full")
+    test_texts, _ = bl._texts_and_labels(test, "Security_Issue_Full")
+    vec = bl.CountVectorizer()
+    x_train, x_test = vec.fit_transform(train_texts), vec.transform(test_texts)
+    coef, _ = bl.l1_svc(x_train, y_train, device="cuda")
+    support = bl.select_features(coef)
+    x_train, x_test = x_train[:, support], x_test[:, support]
+    compare = {}
+    for name, make in (("NB", lambda d: bl.MultinomialNB(device=d)),
+                       ("KNN", lambda d: bl.KNeighborsClassifier(device=d)),
+                       ("LR", lambda d: bl.LogisticRegression(device=d))):
+        card = make("cuda").fit(x_train, y_train).predict_proba(x_test)
+        host = make("cpu").fit(x_train, y_train).predict_proba(x_test)
+        compare[name] = {"predictions_equal": bool((card.argmax(1) == host.argmax(1)).all()),
+                         "prob_max_abs_err": float(np.abs(card - host).max())}
+    checks = {
+        "ten_files": len(written) == 10,
+        "five_learners": sorted(metrics) == sorted(learners) == ["KNN", "LR", "MLP", "NB", "RF"],
+        "nb_card_eq_cpu": compare["NB"]["predictions_equal"],
+        "knn_card_eq_cpu": compare["KNN"]["predictions_equal"],
+        "lr_card_within_1e-3_of_cpu": compare["LR"]["prob_max_abs_err"] <= 1e-3,
+        "metrics_finite": all(np.isfinite([m["f1"], m["auc"]]).all() for m in metrics.values()),
+    }
+    emit("baseline_path", ok=all(checks.values()), checks=checks, wall_s=wall,
+         train_reports=len(train), test_reports=len(test),
+         features=int(selection.group(2)) if selection else None,
+         selected=int(selection.group(1)) if selection else None,
+         selection_s=float(selection.group(3)) if selection else None,
+         learners={k: {"seconds": v["seconds"], "f1": v["f1"], "auc": v["auc"]}
+                   for k, v in learners.items()},
+         card_vs_cpu=compare, card=nvidia_smi_line())
+    if not all(checks.values()):
+        raise SystemExit(f"baseline_path failed: {checks}\n{proc.stderr[-3000:]}")
+
+
 def phase_selfcheck(workdir: Path) -> None:
     """``python -m memvul_tpu_torch selfcheck`` on the card, as a user runs
     it: a synthetic workspace, a tiny train, the archive, ``evaluate``."""
@@ -4417,6 +4866,11 @@ def main() -> int:
         phase_serve_identity(Path(tmp))
         phase_profile(Path(tmp) / "model.tar.gz")
         phase_train_path(Path(tmp), records)
+        # slice 11: remat, debug_checks, the trainers' fault points, the baseline
+        phase_remat_path(records)
+        phase_debug_checks(records)
+        phase_train_faults(Path(tmp))
+        phase_baseline_path(Path(tmp))
         # the paper's other trained models: further pretraining, MemVul-m, TextCNN
         other = _other_workspace(Path(tmp))
         phase_pretrain_path(Path(tmp), other, records)

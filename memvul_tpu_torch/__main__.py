@@ -24,6 +24,8 @@
         --cve-dict CVE_dict.json --out data/
     python -m memvul_tpu_torch analyze data/train_project.json --cve-dict CVE_dict.json
     python -m memvul_tpu_torch selfcheck
+    python -m memvul_tpu_torch telemetry-report out/ [--json]
+    python -m memvul_tpu_torch baseline data/train_project.json data/test_project.json -o baseline_out/
 
 ``pretrain`` further-pretrains the encoder with whole-word-mask MLM into
 ``<output_dir>/encoder.msgpack`` (``--export-hf`` adds an HF checkpoint
@@ -57,10 +59,19 @@ runs the promotion gate (``promote``: exit 0 approved, 1 refused, 2 a
 usage error).  ``build-data`` runs the offline corpus pipeline (splits,
 CWE anchors, the MLM corpus), ``analyze`` the paper's corpus analyses, and
 ``selfcheck`` a synthetic workspace through a tiny ``train``, the archive
-and ``evaluate``.  The commands that compute on a device (``pretrain``,
-``train``, ``evaluate``, ``score-corpus``, ``serve``, ``bank shadow``,
-``bank promote``, ``selfcheck``) run on the card (``--device cuda``, the
-default) unless ``--device cpu`` is given.
+and ``evaluate``.  ``telemetry-report`` renders a run dir's sinks
+(``events.jsonl``, ``telemetry.json``, ``HEARTBEAT.json``, ``programs.json``,
+replica and shard subdirs, incident bundles) as text, or with ``--json``
+as the machine-readable report.  ``baseline`` runs the paper's classical
+baselines (bag of words, L1-SVC feature selection, RF, NB, MLP, LR, KNN)
+without sklearn and writes ``{learner}_result.json`` and
+``{learner}_metric.json`` per learner.  ``train``, ``evaluate`` and
+``serve`` take the reference's ``--no-mesh`` (one device, the default) and
+``--mesh SPEC``, which exits 2: meshes belong to the multi-device slice.
+The commands that compute on a device (``pretrain``, ``train``,
+``evaluate``, ``score-corpus``, ``serve``, ``bank shadow``, ``bank
+promote``, ``selfcheck``, ``baseline``) run on the card (``--device cuda``,
+the default) unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -109,7 +120,8 @@ def cmd_train(args) -> int:
 
     config = load_config(args.config, overrides=args.overrides)
     with _profiled(args):
-        result = train_from_config(config, args.serialization_dir, device=args.device)
+        result = train_from_config(config, args.serialization_dir, device=args.device,
+                                   mesh=args.mesh)
     print(json.dumps({k: result.get(k) for k in ("best_epoch", "best_validation", "archive")}))
     return 0
 
@@ -121,8 +133,37 @@ def cmd_evaluate(args) -> int:
         metrics = evaluate_from_archive(
             args.archive, args.test_path, args.out_dir,
             overrides=args.overrides, golden_file=args.golden_file, name=args.name,
-            thres=args.threshold, device=args.device,
+            thres=args.threshold, device=args.device, mesh=args.mesh,
         )
+    print(json.dumps(metrics, default=float))
+    return 0
+
+
+def cmd_telemetry_report(args) -> int:
+    """A run dir's sinks as the text report, or with ``--json`` the
+    machine-readable one (exit 2: not a directory)."""
+    from pathlib import Path
+
+    from .telemetry.report import render_report, report_json
+
+    run_dir = Path(args.run_dir)
+    if not run_dir.is_dir():
+        print(f"telemetry-report: {run_dir} is not a directory", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(report_json(run_dir), indent=2, default=str))
+    else:
+        print(render_report(run_dir))
+    return 0
+
+
+def cmd_baseline(args) -> int:
+    from .baselines import run_baselines
+
+    metrics = run_baselines(
+        args.train_path, args.test_path, args.out_dir,
+        feature_selection=not args.no_feature_selection, device=args.device,
+    )
     print(json.dumps(metrics, default=float))
     return 0
 
@@ -138,7 +179,9 @@ def _serve_target(args):
               file=sys.stderr)
         return None, 2
     if not args.archive:
-        from .build import serve_from_hosts
+        from .build import refuse_mesh, serve_from_hosts
+
+        refuse_mesh(args.mesh)
 
         try:
             return serve_from_hosts(
@@ -153,7 +196,7 @@ def _serve_target(args):
     return serve_from_archive(
         args.archive, out_dir=args.out_dir, overrides=args.overrides,
         golden_file=args.golden_file, device=args.device, replicas=args.replicas,
-        tenants=args.tenants, tsdb_cadence=args.tsdb_cadence,
+        tenants=args.tenants, tsdb_cadence=args.tsdb_cadence, mesh=args.mesh,
     ), None
 
 
@@ -163,7 +206,7 @@ def cmd_serve(args) -> int:
 
     try:
         service, rc = _serve_target(args)
-    except ValueError as e:
+    except (ValueError, NotImplementedError) as e:
         print(f"serve: {e}", file=sys.stderr)
         return 2
     if service is None:
@@ -552,6 +595,15 @@ def _add_bank_parsers(sub) -> None:
     b.set_defaults(fn=cmd_bank_promote)
 
 
+def _add_mesh_flags(p) -> None:
+    """The reference's ``--mesh SPEC`` and ``--no-mesh``: one device is what
+    every run uses, so ``--no-mesh`` changes nothing and ``--mesh`` exits 2
+    (the multi-device slice is not ported)."""
+    p.add_argument("--mesh", default=None, metavar="SPEC",
+                   help='a device mesh, e.g. "data=8": not ported (exit 2)')
+    p.add_argument("--no-mesh", action="store_true", help="run on one device (the default)")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m memvul_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -574,6 +626,7 @@ def main(argv=None) -> int:
     tr.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     tr.add_argument("--profile", default=None, metavar="DIR",
                     help="a profiler trace of the whole run (DIR/trace.json)")
+    _add_mesh_flags(tr)
     tr.set_defaults(fn=cmd_train)
     ev = sub.add_parser("evaluate", help="score a corpus with an archived model")
     ev.add_argument("archive", help="model.tar.gz or a serialization dir holding one")
@@ -587,6 +640,7 @@ def main(argv=None) -> int:
     ev.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ev.add_argument("--profile", default=None, metavar="DIR",
                     help="a profiler trace of the whole evaluation (DIR/trace.json)")
+    _add_mesh_flags(ev)
     ev.set_defaults(fn=cmd_evaluate)
     sv = sub.add_parser("serve", help="online scoring service over HTTP; --hosts balances "
                         "over running serve processes")
@@ -616,6 +670,7 @@ def main(argv=None) -> int:
                     help="named tenants, 'name=store_dir,...': each tenant's active bank "
                     "from its store; requests carry a 'tenant' field or an X-MemVul-Tenant "
                     "header (default: the config's serving.tenants)")
+    _add_mesh_flags(sv)
     sv.set_defaults(fn=cmd_serve)
     sc = sub.add_parser("score-corpus", help="sharded corpus scoring: supervised worker "
                         "subprocesses, exactly-once merge (exit 3: partial)")
@@ -656,8 +711,29 @@ def main(argv=None) -> int:
     sk.add_argument("--reports", type=int, default=24, help="reports per project")
     sk.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     sk.set_defaults(fn=cmd_selfcheck)
+    trp = sub.add_parser("telemetry-report", help="render a run dir's telemetry (events.jsonl, "
+                         "telemetry.json, HEARTBEAT.json, programs.json): phases, step-time "
+                         "percentiles, counters, last-heartbeat age; --json for the "
+                         "machine-readable report")
+    trp.add_argument("run_dir", help="serialization/output dir of a run")
+    trp.add_argument("--json", action="store_true", help="the machine-readable report")
+    trp.set_defaults(fn=cmd_telemetry_report)
+    bl = sub.add_parser("baseline", help="the classical baselines: bag of words, L1-SVC feature "
+                        "selection, RF, NB, MLP, LR, KNN")
+    bl.add_argument("train_path")
+    bl.add_argument("test_path")
+    bl.add_argument("-o", "--out-dir", required=True)
+    bl.add_argument("--no-feature-selection", action="store_true")
+    bl.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    bl.set_defaults(fn=cmd_baseline)
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    if args.command in ("train", "evaluate"):
+        try:
+            return args.fn(args)
+        except NotImplementedError as e:  # an unported setting (--mesh): a usage error
+            print(f"{args.command}: {e}", file=sys.stderr)
+            return 2
     if args.command != "bank":
         return args.fn(args)
     from .bankops import BankStoreError

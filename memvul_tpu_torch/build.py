@@ -268,17 +268,46 @@ def _pretrain_run(config, trainer, tokenizer, bert_cfg, out_dir: Path, export_hf
     return report
 
 
-def _end_run(tel_cfg: Dict[str, Any], run_dir, exposition) -> None:
+def refuse_mesh(mesh) -> None:
+    """A device mesh (``mesh=``, the CLI's ``--mesh SPEC``) raises: runs
+    over several devices belong to the multi-device slice (ROADMAP.md).
+    ``--no-mesh``, the one device, is what every run does."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"mesh {mesh!r}: training, scoring or serving on a mesh (DDP) belongs to the "
+            "multi-device slice, which is not ported yet (ROADMAP.md)")
+
+
+def configure_run_sinks(tel_cfg: Dict[str, Any], run_dir):
+    """The process-wide telemetry registry over ``run_dir``, as the JAX
+    package's ``train`` and ``evaluate`` configure it: ``events.jsonl``,
+    ``HEARTBEAT.json`` and ``telemetry.json`` (with ``telemetry.enabled``),
+    the per-step trainer events (``step_events``)."""
+    from . import telemetry
+
+    return telemetry.configure(
+        run_dir=run_dir, enabled=bool(tel_cfg["enabled"]), events=bool(tel_cfg["events"]),
+        heartbeat_every_s=float(tel_cfg["heartbeat_every_s"]),
+        step_events=bool(tel_cfg["step_events"]),
+    )
+
+
+def _end_run(tel_cfg: Dict[str, Any], run_dir, exposition, registry=None) -> None:
     """A run's ``finally``: the program table beside its outputs
-    (``programs.json``), the exposition port released."""
+    (``programs.json``), the run sinks closed (``run_end``, the last
+    heartbeat, ``telemetry.json``), the exposition port released."""
     from .telemetry.programs import write_programs
 
     try:
         if tel_cfg["enabled"]:
             write_programs(run_dir)
     finally:
-        if exposition is not None:
-            exposition.close()
+        try:
+            if registry is not None:
+                registry.close()
+        finally:
+            if exposition is not None:
+                exposition.close()
 
 
 def _tokenizer_file(tok_cfg: Optional[Dict[str, Any]]) -> Optional[str]:
@@ -304,17 +333,18 @@ def train_from_config(
     ``<dir>/model.tar.gz`` (readable by the JAX package) and
     ``<dir>/metrics.json``.  An existing ``model.pretrained_checkpoint``
     is loaded into the encoder first (:func:`load_pretrained_encoder`); a
-    missing one warns and trains from scratch.  Returns the trainer's
-    result with the archive path."""
+    missing one warns and trains from scratch.  The run sinks
+    (``events.jsonl``, ``HEARTBEAT.json``, ``telemetry.json``) go to the
+    serialization dir (:func:`configure_run_sinks`).  Returns the
+    trainer's result with the archive path."""
     import json
 
     from .archive import ARCHIVE_NAME, save_archive
     from .config import check_training_unported, validate_classifier_config, validate_training_config
     from .models.convert import flax_from_params
 
+    refuse_mesh(mesh)
     device = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError("training on a mesh (DDP) belongs to the multi-device slice")
     check_training_unported(config)
     from .config import telemetry_config
     from .telemetry.live import start_run_exposition
@@ -370,20 +400,23 @@ def train_from_config(
             config=ClassifierTrainerConfig(**trainer_cfg),
             device=device,
         )
-    exposition = start_run_exposition(tel_cfg)
+    registry = configure_run_sinks(tel_cfg, serialization_dir)
+    exposition = None
     try:
+        exposition = start_run_exposition(tel_cfg)
         result = trainer.train()
         archived = dict(config)
         archived["model"] = dict(model_cfg)
-        save_archive(
-            serialization_dir / ARCHIVE_NAME, archived,
-            flax_from_params(trainer.best_params(), getattr(model, "config", None)),
-            tokenizer_file=_tokenizer_file(config.get("tokenizer")),
-        )
+        with registry.span("archive"):
+            save_archive(
+                serialization_dir / ARCHIVE_NAME, archived,
+                flax_from_params(trainer.best_params(), getattr(model, "config", None)),
+                tokenizer_file=_tokenizer_file(config.get("tokenizer")),
+            )
         (serialization_dir / "metrics.json").write_text(
             json.dumps(result, indent=2, default=float))
     finally:
-        _end_run(tel_cfg, serialization_dir, exposition)
+        _end_run(tel_cfg, serialization_dir, exposition, registry)
     result["archive"] = str(serialization_dir / ARCHIVE_NAME)
     return result
 
@@ -411,9 +444,12 @@ def evaluate_from_archive(
     name: Optional[str] = None,
     thres: float = 0.5,
     device: Union[str, torch.device] = "cuda",
+    mesh=None,
 ) -> Dict[str, float]:
     """Load the archive with overrides, score the test corpus on
-    ``device``, write ``{name}_result.json`` + ``{name}_metric_all.json``.
+    ``device``, write ``{name}_result.json`` + ``{name}_metric_all.json``
+    and the run sinks (``events.jsonl``, ``HEARTBEAT.json``,
+    ``telemetry.json``, ``programs.json``) into ``out_dir``.
     ``buckets: "auto"`` derives ``n_buckets`` boundaries from a
     2048-report sample of the corpus.  A memory model honours every key of
     the ``evaluation`` section (``config.EVALUATION_DEFAULTS``; the
@@ -424,12 +460,25 @@ def evaluate_from_archive(
     when set away from their defaults (``config.SINGLE_EVALUATION_UNUSED``),
     as do an anchor file and a threshold (it predicts the argmax)."""
     from .archive import load_archive
-    from .config import evaluation_config, refuse_single_evaluation_keys
+    from .config import telemetry_config
 
+    refuse_mesh(mesh)
     device = resolve_device(device)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     arch = load_archive(archive_path, overrides=overrides, device=device)
+    tel_cfg = telemetry_config(arch.config)
+    registry = configure_run_sinks(tel_cfg, out_dir)
+    try:
+        return _evaluate(arch, test_path, out_dir, golden_file, name, thres, device, registry)
+    finally:
+        # the program table beside the results, the sinks closed
+        _end_run(tel_cfg, out_dir, None, registry)
+
+
+def _evaluate(arch, test_path, out_dir: Path, golden_file, name, thres, device, registry):
+    from .config import evaluation_config, refuse_single_evaluation_keys
+
     model_cfg = arch.config.get("model") or {}
     model_type = model_cfg.get("type", "model_memory")
     name = name or model_type
@@ -472,40 +521,35 @@ def evaluate_from_archive(
             inflight=int(eval_cfg["inflight"]), aot_warmup=bool(eval_cfg["aot_warmup"]),
             device=device,
         )
-    from .config import telemetry_config
     from .evaluate.predict_memory import test_siamese
 
     golden = golden_file or (arch.config.get("dataset_reader") or {}).get("anchor_path")
     if golden is None:
         raise ValueError("memory-model evaluation needs a golden anchor file")
-    tel_cfg = telemetry_config(arch.config)
-    try:
-        return test_siamese(
-            arch.model,
-            arch.tokenizer,
-            test_file=test_path,
-            golden_file=golden,
-            out_results=out_results,
-            out_metrics=out_metrics,
-            reader=reader,
-            batch_size=int(eval_cfg["batch_size"]),
-            max_length=max_length,
-            buckets=buckets,
-            tokens_per_batch=tokens_per_batch,
-            thres=thres,
-            inflight=int(eval_cfg["inflight"]),
-            anchor_match_impl=eval_cfg["anchor_match_impl"],
-            device=device,
-            aot_warmup=bool(eval_cfg["aot_warmup"]),
-            resume=bool(eval_cfg["resume"]),
-            quarantine=eval_cfg["quarantine"],
-            heartbeat_batches=int(eval_cfg["heartbeat_batches"]),
-            score_retries=int(eval_cfg["score_retries"]),
-            attribute_anchors=bool(eval_cfg["attribute_anchors"]),
-        )
-    finally:
-        # the program table beside the results
-        _end_run(tel_cfg, out_dir, None)
+    return test_siamese(
+        arch.model,
+        arch.tokenizer,
+        test_file=test_path,
+        golden_file=golden,
+        out_results=out_results,
+        out_metrics=out_metrics,
+        reader=reader,
+        batch_size=int(eval_cfg["batch_size"]),
+        max_length=max_length,
+        buckets=buckets,
+        tokens_per_batch=tokens_per_batch,
+        thres=thres,
+        inflight=int(eval_cfg["inflight"]),
+        anchor_match_impl=eval_cfg["anchor_match_impl"],
+        device=device,
+        aot_warmup=bool(eval_cfg["aot_warmup"]),
+        resume=bool(eval_cfg["resume"]),
+        quarantine=eval_cfg["quarantine"],
+        heartbeat_batches=int(eval_cfg["heartbeat_batches"]),
+        score_retries=int(eval_cfg["score_retries"]),
+        attribute_anchors=bool(eval_cfg["attribute_anchors"]),
+        telemetry=registry,
+    )
 
 
 def _tsdb_cadence(tel_cfg: Dict[str, Any], tsdb_cadence: Optional[float]) -> float:
@@ -580,6 +624,7 @@ def serve_from_archive(
     replicas: Optional[int] = None,
     tenants: Optional[str] = None,
     tsdb_cadence: Optional[float] = None,
+    mesh=None,
 ):
     """The archive's online scoring service on ``device``, or, with
     ``replicas > 1`` (the argument, else ``serving.replicas``) or
@@ -622,6 +667,7 @@ def serve_from_archive(
     from .resilience.retry import RetryPolicy
     from .serving import Replica, ReplicaRouter, RouterConfig, ScoringService, ServiceConfig
 
+    refuse_mesh(mesh)
     device = resolve_device(device)
     arch = load_archive(archive_path, overrides=overrides, device=device)
     model_type = (arch.config.get("model") or {}).get("type", "model_memory")

@@ -278,14 +278,16 @@ def evaluation_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 # The ``telemetry`` section's keys, with the JAX package's defaults: the
-# run sinks of the sharded corpus scorer and the serving fleet, the live
-# exposition server of a run (``telemetry/live.py``), the serving
-# device-memory gauges, the trainers' epoch-0 profiler trace and the
-# metrics history (``telemetry/timeseries.py``; 0 = off, nothing built).
+# run sinks of train, evaluate, the sharded corpus scorer and the serving
+# fleet, the trainers' per-step events, the live exposition server of a run
+# (``telemetry/live.py``), the serving device-memory gauges, the trainers'
+# epoch-0 profiler trace and the metrics history (``telemetry/timeseries.py``;
+# 0 = off, nothing built).
 TELEMETRY_DEFAULTS: Dict[str, Any] = {
     "enabled": True,         # the run sinks: events.jsonl, heartbeat, summary
     "events": True,          # the append-only events.jsonl stream
     "heartbeat_every_s": 30.0,  # HEARTBEAT.json's most frequent rewrite
+    "step_events": True,     # per-step train_step events (drain cadence)
     "trace_dir": None,       # the trainers' epoch-0 profiler trace
     "hbm_gauges": True,      # serve.hbm_in_use_bytes / serve.hbm_peak_bytes
     "metrics_port": 0,       # train/pretrain/score-corpus: /metrics (0 = off)
@@ -294,29 +296,15 @@ TELEMETRY_DEFAULTS: Dict[str, Any] = {
     "tsdb_retention_s": 600.0,  # per-series history span
 }
 
-# The ``telemetry`` keys of slice 11 (ROADMAP.md), with their defaults: set
-# away from the default, each raises naming that slice.
-TELEMETRY_UNPORTED: Dict[str, Any] = {
-    "step_events": (True, "switching the per-step trainer events"),
-}
-
 
 def telemetry_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
-    """``cfg["telemetry"]`` merged over :data:`TELEMETRY_DEFAULTS`; a key of
-    :data:`TELEMETRY_UNPORTED` set away from its default raises
-    NotImplementedError naming slice 11, and an out-of-range port or
-    history setting raises ValueError."""
-    section = dict((cfg or {}).get("telemetry") or {})
-    for key, (default, what) in TELEMETRY_UNPORTED.items():
-        value = section.pop(key, None)
-        if value is not None and value != default:
-            raise NotImplementedError(
-                f"telemetry.{key}={value!r}: {what} belongs to slice 11, which is "
-                "not ported yet (ROADMAP.md)"
-            )
-    out = _section_over_defaults({"telemetry": section}, "telemetry", TELEMETRY_DEFAULTS)
-    if not isinstance(out["hbm_gauges"], bool):
-        raise ValueError(f"telemetry.hbm_gauges must be a bool, got {out['hbm_gauges']!r}")
+    """``cfg["telemetry"]`` merged over :data:`TELEMETRY_DEFAULTS`; an
+    out-of-range port or history setting, or a switch that is not a bool,
+    raises ValueError."""
+    out = _section_over_defaults(cfg, "telemetry", TELEMETRY_DEFAULTS)
+    for key in ("hbm_gauges", "step_events"):
+        if not isinstance(out[key], bool):
+            raise ValueError(f"telemetry.{key} must be a bool, got {out[key]!r}")
     port = int(out["metrics_port"] or 0)
     if not 0 <= port < 65536:
         raise ValueError(f"telemetry.metrics_port must be in [0, 65536), got {port!r}")
@@ -534,21 +522,15 @@ def validate_training_config(trainer: Optional[Dict[str, Any]]) -> Dict[str, Any
 # this port does not have yet, with their defaults: set away from the
 # default, each raises NotImplementedError naming the slice it belongs to.
 TRAINING_UNPORTED: Dict[str, Any] = {
-    "tuning.profile_dir": (None, "tuned trainer profiles (slice 11)"),
+    "tuning.profile_dir": (None, "tuned trainer profiles (slice 12)"),
 }
 
 
 def check_training_unported(cfg: Dict[str, Any]) -> None:
     """Raise for a key of :data:`TRAINING_UNPORTED` set away from its
-    default; log that the run-dir sinks (``events.jsonl``, heartbeat,
-    ``telemetry.json``) are not written."""
+    default."""
     for dotted, (default, what) in TRAINING_UNPORTED.items():
         section, key = dotted.split(".")
         value = (cfg.get(section) or {}).get(key)
         if value is not None and value != default:
             raise NotImplementedError(f"{dotted}={value!r}: {what} is not ported yet (ROADMAP.md)")
-    if (cfg.get("telemetry") or {}).get("enabled", True):
-        logging.getLogger(__name__).info(
-            "telemetry: the events.jsonl/heartbeat sinks are not ported; the run dir gets "
-            "config.json, checkpoints, metrics and the archive"
-        )

@@ -17,8 +17,10 @@ file name ("golden"/"test_"/"validation_").  Scoring streams take a
 ``quarantine`` (:class:`~memvul_tpu_torch.resilience.journal.DeadLetter`):
 a record that does not parse, fails to prepare or is over-long is
 dead-lettered with its reason and the stream goes on; without one such a
-record raises, and training keeps that fail-fast rule.  The chaos fault
-points belong to slice 11.  :class:`SingleReader` streams
+record raises, and training keeps that fail-fast rule.  The chaos point
+``data.read`` fires once per raw record, inside the quarantined window
+(a firing is dead-lettered like a malformed record, or raises without a
+quarantine).  :class:`SingleReader` streams
 single-text instances for the MemVul-m and TextCNN classifiers.
 """
 
@@ -30,6 +32,7 @@ import random
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional
 
+from ..resilience import faults
 from .normalize import normalize_text
 
 logger = logging.getLogger(__name__)
@@ -52,23 +55,37 @@ def detect_split(file_path: str) -> str:
 
 def _iter_corpus(file_path: str, quarantine=None) -> Iterator[Dict]:
     """Raw sample dicts: ``.jsonl`` streams one record per line, a ``.json``
-    array loads at once.  With a ``quarantine`` a ``.jsonl`` line that does
-    not parse is dead-lettered and skipped; without one it raises."""
+    array loads at once.  The ``data.read`` fault point fires per record.
+    With a ``quarantine`` a ``.jsonl`` line that does not parse, or a
+    record whose fault point fires, is dead-lettered and skipped; without
+    one it raises."""
     if str(file_path).endswith(".jsonl"):
         with open(file_path, encoding="utf-8") as f:
             for lineno, line in enumerate(f):
                 if not line.strip():
                     continue
                 try:
+                    faults.fault_point("data.read")
                     record = json.loads(line)
-                except ValueError as e:
+                except Exception as e:  # a malformed line or an injected fault
                     if quarantine is None:
                         raise
                     quarantine.record(f"line {lineno}: {type(e).__name__}: {e}", raw=line)
                     continue
                 yield record
     else:
-        yield from json.loads(Path(file_path).read_text())
+        for i, record in enumerate(json.loads(Path(file_path).read_text())):
+            try:
+                faults.fault_point("data.read")
+            except Exception as e:
+                if quarantine is None:
+                    raise
+                quarantine.record(
+                    f"record {i}: {type(e).__name__}: {e}",
+                    meta={"Issue_Url": record.get("Issue_Url")} if isinstance(record, dict) else None,
+                )
+                continue
+            yield record
 
 
 class MemoryReader:

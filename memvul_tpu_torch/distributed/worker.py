@@ -110,9 +110,8 @@ def run_worker(spec_path: str) -> int:
             max_length=int(ev["max_length"]),
             buckets=ev["buckets"],
             tokens_per_batch=ev["tokens_per_batch"],
-            anchor_match_impl=ev["anchor_match_impl"],
+            anchor_match_impl=ev["anchor_match_impl"], telemetry=tel,
         )
-        predictor.telemetry = tel
         predictor.encode_anchors(reader.read_anchors(spec["golden_file"]))
         if ev["aot_warmup"]:
             predictor.warmup_compile()

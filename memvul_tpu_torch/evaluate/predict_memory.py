@@ -34,10 +34,11 @@ uninterrupted run; ``quarantine`` dead-letters records the stream cannot
 score; ``retry_policy`` retries a batch's transient failures (never
 rerouting it to a plain version); ``heartbeat_batches`` logs progress;
 ``attribute_anchors`` adds the winning anchor to every output record.
-The counters go to the predictor's ``telemetry`` registry (and, when it has
-a run directory, the heartbeat to its ``HEARTBEAT.json``: the sharded
-scorer's workers); each batch passes the ``score.batch`` fault point inside
-its retried window.
+The counters, the ``anchor_encode``, ``aot_warmup`` and ``score_stream``
+spans and the heartbeat go to the predictor's ``telemetry`` registry (a run
+directory's sinks for ``evaluate``, the trainers' validation and the
+sharded scorer's workers); each batch passes the ``score.batch`` fault
+point inside its retried window.
 
 PyTorch runs eagerly, so the JAX package's AOT compile and its trace
 counter have no counterpart here; :meth:`SiamesePredictor.
@@ -116,6 +117,7 @@ class SiamesePredictor:
         cascade_high: float = 0.7,
         stream: Optional["torch.cuda.Stream"] = None,
         program_registry=None,
+        telemetry: Optional[Registry] = None,
     ) -> None:
         if score_impl not in ("bucketed", "ragged", "continuous", "cascade"):
             raise ValueError(
@@ -173,7 +175,9 @@ class SiamesePredictor:
         # what the last run did: anchor chunks and seconds, scored batches,
         # and device seconds per bucket length
         self.stats: Dict = {}
-        self.telemetry = Registry()
+        # counters, spans and heartbeats: a registry of its own unless the
+        # caller passes one (evaluate and the trainers: the run's sinks)
+        self.telemetry = telemetry if telemetry is not None else Registry()
         self.int8_model = _int8_twin(self.model) if encoder_precision == "int8" else None
         self.programs = program_registry if program_registry is not None \
             else get_program_registry()
@@ -260,8 +264,9 @@ class SiamesePredictor:
         """Encode anchors in chunks of ``anchor_chunk`` rows padded to
         ``max_length`` and keep the bank on the device."""
         start = time.perf_counter()
-        bank, labels, n_anchors = self.encode_bank(anchor_instances)
-        self._wait()
+        with self.telemetry.span("anchor_encode"):
+            bank, labels, n_anchors = self.encode_bank(anchor_instances)
+            self._wait()
         self.anchor_bank, self.anchor_labels, self.n_anchors = bank, labels, n_anchors
         self.stats["anchor_encode_s"] = time.perf_counter() - start
         self.stats["anchor_chunks"] = -(-n_anchors // self.anchor_chunk)
@@ -401,12 +406,14 @@ class SiamesePredictor:
         shapes = self.stream_shapes()
         tiers = [self.score_block] + ([self.score_block_int8] if self.int8_model else [])
         for score in tiers:
-            for rows, length in shapes:
-                score(
-                    {"input_ids": np.zeros((rows, length), np.int32),
-                     "attention_mask": np.ones((rows, length), np.int32)},
-                    bank,
-                )
+            with self.telemetry.span("aot_warmup", shapes=len(shapes)):
+                for rows, length in shapes:
+                    self.telemetry.progress()
+                    score(
+                        {"input_ids": np.zeros((rows, length), np.int32),
+                         "attention_mask": np.ones((rows, length), np.int32)},
+                        bank,
+                    )
         self.programs.mark_warm("score")
         return len(shapes) * len(tiers)
 
@@ -753,6 +760,9 @@ class SiamesePredictor:
         writer.start()
         start = time.perf_counter()
         batches_done = 0
+        # an explicit ExitStack keeps the span's exit inside the finally
+        span = contextlib.ExitStack()
+        span.enter_context(tel.span("score_stream"))
         try:
             for probs, metas in self.score_instances(
                 instances, inflight=inflight, retry_policy=retry_policy,
@@ -785,6 +795,7 @@ class SiamesePredictor:
                 journal.close()
             if dead is not None:
                 dead.close()
+            span.close()
             # after the writer drained: the counters match what is on disk
             tel.heartbeat(force=True, rows_scored=n)
         if writer_error:
@@ -853,6 +864,7 @@ def test_siamese(
     heartbeat_batches: int = 0,
     score_retries: int = 0,
     attribute_anchors: bool = False,
+    telemetry: Optional[Registry] = None,
 ) -> Dict[str, float]:
     """End-to-end evaluation: encode the anchor bank, run every stream
     shape once (``aot_warmup``), score the corpus, then ``cal_metrics``.
@@ -860,7 +872,8 @@ def test_siamese(
     ``cal_metrics`` dict.  ``resume``, ``quarantine``,
     ``heartbeat_batches`` and ``attribute_anchors`` go to
     :meth:`SiamesePredictor.predict_file`; ``score_retries`` > 0 retries
-    transient batch failures that many times.  Runs on ``device``
+    transient batch failures that many times; ``telemetry`` is the
+    predictor's registry (evaluate passes the run's).  Runs on ``device``
     (the card unless the caller asks for the CPU)."""
     from ..build import resolve_device
 
@@ -870,7 +883,7 @@ def test_siamese(
     predictor = SiamesePredictor(
         model, tokenizer, batch_size=batch_size, max_length=max_length,
         buckets=buckets, tokens_per_batch=tokens_per_batch,
-        anchor_match_impl=anchor_match_impl,
+        anchor_match_impl=anchor_match_impl, telemetry=telemetry,
     )
     predictor.encode_anchors(reader.read_anchors(str(golden_file)))
     if aot_warmup:

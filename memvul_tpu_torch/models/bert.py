@@ -15,9 +15,18 @@ when the module is in training mode (``model.train()``, the JAX
 ``deterministic=False``), with masks drawn from the ``generator`` passed
 down the forward call; ``model.eval()`` makes it the identity.
 
-``scan_layers`` and ``remat`` are layout and memory knobs of the JAX
-package with no effect on the forward: they are accepted and ignored
-(``remat``, recomputing activations in the backward, is still to port).
+``scan_layers`` is a layout knob of the JAX package with no effect on the
+forward.  ``remat`` is the JAX package's ``nn.remat`` per layer: while
+training with grad enabled, each :class:`BertLayer` runs under
+``torch.utils.checkpoint`` (non-reentrant), which keeps only the layer's
+input for the backward and runs the layer's forward again there, so the
+attention kernel's forward launches twice a step.  The recompute must
+draw the same dropout masks: ``checkpoint`` replays the default CPU and
+CUDA generators but not a generator passed down the forward, so
+:func:`_checkpointed_layer` snapshots that generator before the layer,
+runs both passes on a generator restored from the snapshot, and leaves
+the caller's generator where an un-rematted forward would leave it.
+Scoring (``eval()`` or no grad) never rematerialises.
 
 ``quant`` (``"int8_dynamic"`` or ``"int8"``) makes the six projections
 of every layer (q, k, v, the attention output, the FFN's intermediate and
@@ -34,6 +43,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import dot_product_attention, mask_to_bias
@@ -206,19 +216,49 @@ class BertLayer(nn.Module):
         return layer_norm(hidden + out, self.output.LayerNorm, dt)
 
 
+def _checkpointed_layer(layer: "BertLayer", hidden, bias, segment_ids, generator):
+    """``layer(hidden, bias, segment_ids, generator)`` under
+    ``torch.utils.checkpoint``, its dropout masks replayed in the recompute:
+    both passes draw from a generator restored from a snapshot of
+    ``generator`` taken here, and ``generator`` then advances as the plain
+    forward would have advanced it."""
+    if generator is None:  # dropout draws from the default generators, which checkpoint replays
+        return torch.utils.checkpoint.checkpoint(
+            layer, hidden, bias, segment_ids, None, use_reentrant=False)
+    snapshot = generator.get_state()
+    first_pass = []
+
+    def run(h, b):
+        replay = torch.Generator(device=generator.device)
+        replay.set_state(snapshot)
+        first_pass.append(replay)
+        return layer(h, b, segment_ids, replay)
+
+    out = torch.utils.checkpoint.checkpoint(run, hidden, bias, use_reentrant=False)
+    generator.set_state(first_pass[0].get_state())
+    return out
+
+
 class BertEncoderStack(nn.Module):
     """The last layer's hidden states, or every layer's output stacked
-    ``[L, B, T, H]`` when ``config.last_layer_only`` is False."""
+    ``[L, B, T, H]`` when ``config.last_layer_only`` is False; with
+    ``config.remat``, each layer rematerialised in the backward while
+    training (:func:`_checkpointed_layer`)."""
 
     def __init__(self, c: BertConfig) -> None:
         super().__init__()
         self.collect = not c.last_layer_only
+        self.remat = c.remat
         self.layer = nn.ModuleList(BertLayer(c) for _ in range(c.num_layers))
 
     def forward(self, hidden, bias, segment_ids=None, generator=None):
         outputs = []
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for layer in self.layer:
-            hidden = layer(hidden, bias, segment_ids, generator)
+            if remat:
+                hidden = _checkpointed_layer(layer, hidden, bias, segment_ids, generator)
+            else:
+                hidden = layer(hidden, bias, segment_ids, generator)
             if self.collect:
                 outputs.append(hidden)
         return torch.stack(outputs) if self.collect else hidden

@@ -20,7 +20,9 @@ and loads the resulting encoder into the classifiers.  Here:
   stacks that hold a masked token, and steps the optax chain
   ``clip_by_global_norm(1.0) → scale_by_adam → linear_with_warmup →
   scale(-lr)`` (AdamW without weight decay).  Losses stay on the device
-  for ``sync_every`` updates, then one transfer with the NaN guard.
+  for ``sync_every`` updates, then one transfer with the NaN guard;
+  ``debug_checks`` checks each update finite first, and
+  ``step.<global step>`` is a chaos point.
   ``output_dir`` checkpoints every epoch and resumes; a non-empty
   directory without checkpoints is refused unless
   ``overwrite_output_dir``;
@@ -47,7 +49,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.bert import BertConfig, BertEncoder, init_weights, layer_norm, linear
-from ..training.metrics import drain_pending
+from ..resilience import faults
+from ..training.metrics import check_finite, drain_pending
 
 logger = logging.getLogger(__name__)
 
@@ -206,12 +209,14 @@ def transplant_encoder(classifier: nn.Module, encoder: Dict[str, torch.Tensor]) 
 def mlm_train_step(
     model: MLMModel, optimizer, ids: torch.Tensor, mask: torch.Tensor, labels: torch.Tensor,
     generator: Optional[torch.Generator] = None,
+    debug_checks: bool = False,
 ) -> torch.Tensor:
     """One optimizer update over a [K, B, L] stack: each microbatch's
     forward and backward (gradients summed), the sum divided by the number
     of microbatches that hold a masked token (an epoch tail's all-padding
-    microbatches do not dilute it), then the clipped update.  Returns the
-    mean loss over those microbatches, on the device."""
+    microbatches do not dilute it), then the clipped update (with
+    ``debug_checks``, checked finite first).  Returns the mean loss over
+    those microbatches, on the device."""
     optimizer.zero_grad()
     loss_sum = torch.zeros((), dtype=torch.float32, device=ids.device)
     real = torch.zeros((), dtype=torch.float32, device=ids.device)
@@ -224,6 +229,8 @@ def mlm_train_step(
     with torch.no_grad():
         for p in optimizer.params:
             p.grad.div_(real)
+        if debug_checks:
+            check_finite(loss_sum / real, model.named_parameters())
         optimizer.step()
     return loss_sum / real
 
@@ -250,7 +257,7 @@ class MLMTrainerConfig:
     # updates run ahead before their losses are pulled to the host (the
     # NaN guard fires there); 1 syncs every update
     sync_every: int = 32
-    # the JAX package's checkify mode: not ported
+    # the JAX package's checkify float checks (check_finite before each update)
     debug_checks: bool = False
     # stacks masked and copied to the device ahead of the update (>= 1)
     prefetch_depth: int = 4
@@ -282,11 +289,6 @@ class MLMTrainer:
 
         self.device = resolve_device(device)
         c = self.c = trainer_config or MLMTrainerConfig()
-        if c.debug_checks:
-            raise NotImplementedError(
-                "debug_checks (checkify) belongs to slice 11, not ported yet; "
-                "leave it False"
-            )
         if config.quant is not None:
             raise ValueError(
                 f"encoder quant={config.quant!r} is inference-only: pretrain full precision"
@@ -470,9 +472,12 @@ class MLMTrainer:
                     break
                 padded += ids.numel()
                 real += live
+                # chaos: "step.<global step>" fires as the update starts
+                faults.fault_point(f"step.{self.step}")
                 with timer.step():
                     pending.append({"loss": mlm_train_step(
-                        self.model, self.optimizer, ids, mask, labels, self.generator)})
+                        self.model, self.optimizer, ids, mask, labels, self.generator,
+                        c.debug_checks)})
                     self.step += 1
                 if len(pending) >= max(1, c.sync_every):
                     with timer.distribute_over_last(len(pending)):

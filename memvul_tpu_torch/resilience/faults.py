@@ -46,11 +46,20 @@ point              fires
 ``incident.dump``  once per incident bundle, on the recorder's worker
                    (``serving/incident.py``): counted in
                    ``incident.dump_errors``, never seen by a request
+``data.read``      once per raw corpus record (``data/readers.py``), inside
+                   the quarantined window: a firing is dead-lettered like
+                   a malformed record, or raises without a quarantine
+``ckpt.write``     in ``resilience/io.atomic_write_text``'s torn-write
+                   window and at the start of a step checkpoint
+                   (``training/checkpoint.py``): the previous file or
+                   checkpoint stays readable
+``step.N``         at the start of global step ``N`` of the memory,
+                   classifier and MLM trainers; ``step.N=sigterm`` preempts
+                   the memory trainer through its signal handler
 =================  ==========================================================
 
-The JAX package's other points (``data.read``, ``ckpt.write``,
-``step.N``) belong to slice 11 (ROADMAP.md); ``kernel.lower`` exercises
-the JAX package's fall-back to XLA, which the port does not have.
+The JAX package's ``kernel.lower`` exercises its fall-back to XLA, which
+the port does not have.
 
 With no configuration every point is a near-zero-cost no-op.  Arming is by
 the ``MEMVUL_FAULTS`` environment variable (read once, at the first

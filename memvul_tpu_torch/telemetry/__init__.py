@@ -26,6 +26,13 @@ Unlike the JAX package's, the default process-wide registry counts in
 memory (no sinks) instead of discarding, so ``router.*`` is readable
 without a :func:`configure`.
 
+``train`` and ``evaluate`` configure the process-wide registry over their
+run dir, as the JAX package's do: ``enabled`` attaches the sinks and
+``step_events`` gates the trainers' per-step ``train_step`` events (read
+once per drained window).  Events carry the liveness ``phase``, the
+innermost open :meth:`Registry.span` (a ``span_start`` event opens one);
+:mod:`.report` renders a run dir's sinks (``telemetry-report``).
+
 The ops plane: the program registry and its ``program.*`` rows
 (:mod:`.programs`), the metrics history (:mod:`.timeseries`), the alert
 rules (:mod:`.alerts`) and the live exposition server of a run
@@ -130,8 +137,16 @@ class Registry:
         run_dir: Optional[Union[str, Path]] = None,
         heartbeat_every_s: float = 30.0,
         events: bool = True,
+        enabled: bool = True,
+        step_events: bool = True,
     ) -> None:
         self._lock = threading.Lock()
+        # enabled=False keeps the in-memory counting and writes no sinks
+        if not enabled:
+            run_dir = None
+        # the trainers' per-step train_step events (with sinks only)
+        self.step_events = bool(step_events) and run_dir is not None
+        self._phase_stack: List[str] = []
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
@@ -170,6 +185,11 @@ class Registry:
     def histogram(self, name: str) -> Histogram:
         return self._get(self._histograms, name, Histogram)
 
+    @property
+    def phase(self) -> str:
+        """The innermost open span, else ``"idle"``."""
+        return self._phase_stack[-1] if self._phase_stack else "idle"
+
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
             counters = dict(self._counters)
@@ -191,6 +211,7 @@ class Registry:
             "t": round(time.time(), 3),
             "mono": round(time.monotonic() - self.started_monotonic, 6),
             "kind": kind,
+            "phase": self.phase,
         }
         record.update(fields)
         self._events.emit(record)
@@ -207,13 +228,19 @@ class Registry:
 
     @contextlib.contextmanager
     def span(self, name: str, **fields: Any) -> Iterator[None]:
-        """A timed scope: ``span.<name>`` timing stats and a ``span`` event."""
+        """A timed scope: the liveness phase while it is open, a
+        ``span_start`` and a ``span`` event and ``span.<name>`` timing
+        stats."""
+        self._phase_stack.append(name)
         self.progress()
+        self.event("span_start", name=name, **fields)
         start = time.perf_counter()
         try:
             yield
         finally:
             dur = time.perf_counter() - start
+            if self._phase_stack and self._phase_stack[-1] == name:
+                self._phase_stack.pop()
             self.histogram(f"span.{name}").observe(dur)
             self.event("span", name=name, dur_s=round(dur, 6), **fields)
             self.heartbeat()
@@ -230,10 +257,12 @@ class Registry:
             return
         self._last_heartbeat = now
         payload: Dict[str, Any] = {
+            "phase": self.phase,
             "pid": os.getpid(),
             "written_wall": time.time(),
             "uptime_s": round(now - self.started_monotonic, 3),
             "last_progress_wall": self.last_progress_wall,
+            "last_progress_monotonic": self.last_progress_monotonic,
             "counters": self.snapshot()["counters"],
         }
         payload.update(extra)
@@ -245,6 +274,7 @@ class Registry:
             return
         payload: Dict[str, Any] = {
             "run_dir": str(self.run_dir),
+            "phase": self.phase,
             "started_wall": self.started_wall,
             "written_wall": time.time(),
             "uptime_s": round(time.monotonic() - self.started_monotonic, 3),
@@ -263,6 +293,7 @@ class Registry:
         self.heartbeat(force=True)
         self.write_summary()
         self._closed = True
+        self.step_events = False
         if self._events is not None:
             self._events.close()
 
@@ -284,15 +315,20 @@ def get_registry() -> Registry:
 def configure(
     run_dir: Optional[Union[str, Path]] = None,
     *,
+    enabled: bool = True,
     events: bool = True,
     heartbeat_every_s: float = 30.0,
+    step_events: bool = True,
 ) -> Registry:
     """Install a fresh process-wide registry (closing a configured one
-    before it) and return it; with ``run_dir`` it writes that run's sinks."""
+    before it) and return it; with ``run_dir`` and ``enabled`` it writes
+    that run's sinks, and ``step_events`` adds the per-step trainer
+    events."""
     global _current
     if _current is not _default:
         _current.close()
-    _current = Registry(run_dir=run_dir, heartbeat_every_s=heartbeat_every_s, events=events)
+    _current = Registry(run_dir=run_dir, heartbeat_every_s=heartbeat_every_s, events=events,
+                        enabled=enabled, step_events=step_events)
     return _current
 
 

@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from ..resilience import faults
 from ..resilience.io import atomic_write_text
 
 logger = logging.getLogger(__name__)
@@ -203,7 +204,9 @@ class TrainCheckpointer:
         self, step: int, state: Dict[str, Any], metadata: Optional[Dict[str, Any]] = None
     ) -> None:
         """Commit a step checkpoint, manifest and metadata included, before
-        returning (a preemption save must be on disk before the exit)."""
+        returning (a preemption save must be on disk before the exit).  The
+        ``ckpt.write`` fault point fires first, as in the JAX package."""
+        faults.fault_point("ckpt.write")
         self._commit("steps", step, state)
         if metadata is not None:
             atomic_write_text(

@@ -5,13 +5,14 @@
   C² numbers instead of logits;
 * :func:`drain_pending` — one host transfer for a window of per-step
   stats, where the NaN guard fires;
+* :func:`check_finite` — the ``debug_checks`` step check;
 * :class:`RunningClassification` — streaming accuracy and per-class and
   weighted P/R/F1 from a confusion matrix.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +27,26 @@ def device_confusion(logits: torch.Tensor, labels: torch.Tensor, weights: torch.
     keep = (weights.reshape(-1) > 0).to(torch.float32)
     counts = torch.zeros(n_classes * n_classes, dtype=torch.float32, device=logits.device)
     return counts.scatter_add_(0, cells, keep).reshape(n_classes, n_classes)
+
+
+def check_finite(loss: torch.Tensor, named_params: Iterable[Tuple[str, torch.Tensor]]) -> None:
+    """``debug_checks``, the JAX package's checkify float checks, before an
+    optimizer step: every parameter, the loss and every gradient must be
+    finite.  Raises FloatingPointError naming the first that is not (the
+    parameters first: a non-finite weight is the cause, the loss and its
+    gradients the effect).  Called before ``optimizer.step()``, so the
+    parameters and the optimizer state stay the pre-step ones.  One host
+    sync per step; all three trainers share it."""
+    named = list(named_params)
+    tensors = [(f"parameter {name!r}", p) for name, p in named]
+    tensors.append(("the loss", loss))
+    tensors += [(f"the gradient of {name!r}", p.grad) for name, p in named if p.grad is not None]
+    finite = torch.stack([torch.isfinite(t.detach()).all() for _, t in tensors]).cpu()
+    if not bool(finite.all()):
+        first = int((~finite).nonzero()[0])
+        raise FloatingPointError(
+            f"debug_checks: non-finite values (NaN or inf) in {tensors[first][0]} before the "
+            "optimizer step; the parameters and optimizer state are the pre-step ones")
 
 
 def drain_pending(

@@ -173,6 +173,10 @@ class GroupedAdamW:
         """Updates taken so far (optax's schedule count)."""
         return int(self.scheduler.last_epoch)
 
+    def scale(self, step: int) -> float:
+        """The learning-rate schedule's scale at update ``step``."""
+        return float(self.scheduler.lr_lambdas[0](step))
+
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=False)
 

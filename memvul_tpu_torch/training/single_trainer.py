@@ -15,7 +15,10 @@ alone).  After each epoch the validation corpus is scored through
 ``MetricTracker`` keeps the best epoch (``+pos_f1-score``), patience stops
 early, and ``TrainCheckpointer`` saves every epoch and resumes.  Dropout
 masks come from the trainer's ``torch.Generator``, whose state is in
-every checkpoint.
+every checkpoint.  As in the memory trainer, the process-wide telemetry
+registry gets the ``train_epoch`` and ``validate`` spans and the per-step
+``train_step`` events, ``step.<global step>`` is a chaos point, and
+``debug_checks`` checks each update finite.
 """
 
 from __future__ import annotations
@@ -40,10 +43,12 @@ from ..data.batching import (
 )
 from ..models.losses import masked_cross_entropy
 from .checkpoint import MetricTracker, TrainCheckpointer
-from .metrics import RunningClassification, device_confusion, drain_pending
+from .metrics import RunningClassification, check_finite, device_confusion, drain_pending
 from .optim import GroupedAdamW, make_optimizer
+from ..resilience import faults
+from ..telemetry import get_registry
 from ..utils.profiling import StepTimer, trace_context
-from .trainer import _fetch_stats, host_tree, to_device
+from .trainer import _fetch_stats, book_epoch, host_tree, to_device
 
 logger = logging.getLogger(__name__)
 
@@ -51,14 +56,18 @@ logger = logging.getLogger(__name__)
 def classifier_step(
     model: torch.nn.Module, optimizer: GroupedAdamW, batch: Dict,
     generator: Optional[torch.Generator] = None,
+    debug_checks: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """One cross-entropy step over a batch of device tensors; returns the
+    """One cross-entropy step over a batch of device tensors (with
+    ``debug_checks``, checked finite before the update); returns the
     step's stats as device tensors: loss, pre-clip grad norm, confusion."""
     optimizer.zero_grad()
     logits = model(batch["sample1"], generator=generator)
     loss = masked_cross_entropy(logits.to(torch.float32), batch["label"], batch["weight"])
     loss.backward()
     with torch.no_grad():
+        if debug_checks:
+            check_finite(loss, model.named_parameters())
         grad_norm = optimizer.step()
         confusion = device_confusion(logits.detach(), batch["label"], batch["weight"])
     return {"loss": loss.detach(), "grad_norm": grad_norm, "confusion": confusion}
@@ -98,8 +107,8 @@ class ClassifierTrainerConfig:
     # steps run ahead before a window of stats is pulled to the host; the
     # NaN guard fires there.  1 syncs every step
     sync_every: int = 32
-    # the JAX package's checkify mode: not ported (slice 11); a profiler
-    # trace of epoch 0 (utils/profiling.trace_context)
+    # the JAX package's checkify float checks (metrics.check_finite before
+    # each update); a profiler trace of epoch 0 (utils/profiling.trace_context)
     debug_checks: bool = False
     profile_dir: Optional[str] = None
 
@@ -127,9 +136,6 @@ class ClassifierTrainer:
         c = self.config = config or ClassifierTrainerConfig()
         if mesh is not None:
             raise NotImplementedError("training on a mesh (DDP) belongs to the multi-device slice")
-        if c.debug_checks:
-            raise NotImplementedError(
-                "debug_checks (checkify) belongs to slice 11, not ported yet; leave it False")
         quant = getattr(getattr(model, "config", None), "quant", None)
         if quant is not None:
             raise ValueError(f"encoder quant={quant!r} is inference-only")
@@ -192,6 +198,7 @@ class ClassifierTrainer:
         return prefetch(
             self._raw_batches(), depth=int(self.config.prefetch_depth),
             commit=lambda item: (to_device(item[0], self.device), item[1]),
+            occupancy=get_registry().gauge("train.feed_occupancy"),
         )
 
     # -- epochs --------------------------------------------------------------
@@ -212,24 +219,46 @@ class ClassifierTrainer:
         if on_card:
             torch.cuda.reset_peak_memory_stats(self.device)
 
+        tel = get_registry()
+
         def drain() -> None:
+            # the train_step events ride the drained window, as the JAX
+            # classifier trainer's do (step, loss, grad_norm)
+            n_before = len(losses)
             drain_pending(pending, _fetch_stats, self.step, losses, running,
                           extras={"grad_norm": grad_norms})
+            new = losses[n_before:]
+            if not new:
+                return
+            tel.counter("train.steps").inc(len(new))
+            if tel.step_events:
+                first = self.step - len(new)
+                new_norms = grad_norms[n_before:]
+                for offset, loss in enumerate(new):
+                    fields = {"step": first + offset, "loss": round(loss, 6)}
+                    if offset < len(new_norms):
+                        fields["grad_norm"] = round(new_norms[offset], 6)
+                    tel.event("train_step", **fields)
+            tel.heartbeat()
 
-        for i, (batch, info) in enumerate(self._batches()):
-            if c.steps_per_epoch is not None and i >= c.steps_per_epoch:
-                break
-            padded_tokens += info["padded_tokens"]
-            real_tokens += info["real_tokens"]
-            with timer.step():
-                pending.append(classifier_step(self.model, self.optimizer, batch, self.generator))
-                self.step += 1
-            if len(pending) >= max(1, c.sync_every):
+        with tel.span("train_epoch", epoch=self.epoch):
+            for i, (batch, info) in enumerate(self._batches()):
+                if c.steps_per_epoch is not None and i >= c.steps_per_epoch:
+                    break
+                padded_tokens += info["padded_tokens"]
+                real_tokens += info["real_tokens"]
+                # chaos: "step.<global step>" fires as the step starts
+                faults.fault_point(f"step.{self.step}")
+                with timer.step():
+                    pending.append(classifier_step(self.model, self.optimizer, batch,
+                                                   self.generator, c.debug_checks))
+                    self.step += 1
+                if len(pending) >= max(1, c.sync_every):
+                    with timer.distribute_over_last(len(pending)):
+                        drain()
+            if pending:
                 with timer.distribute_over_last(len(pending)):
                     drain()
-        if pending:
-            with timer.distribute_over_last(len(pending)):
-                drain()
         metrics: Dict[str, Any] = running.compute()
         seconds = time.perf_counter() - started
         metrics.update({
@@ -247,6 +276,7 @@ class ClassifierTrainer:
         metrics.update(timer.summary())
         if on_card:
             metrics["memory_peak_bytes_in_use"] = float(torch.cuda.max_memory_allocated(self.device))
+        book_epoch(tel, self.epoch, metrics, timer.durations)
         return metrics
 
     def validate(self) -> Dict[str, float]:
@@ -286,7 +316,8 @@ class ClassifierTrainer:
             with trace_context(c.profile_dir if self.epoch == 0 else None):
                 train_metrics = self.train_epoch()
             epoch_metrics.update({f"training_{k}": v for k, v in train_metrics.items()})
-            val = self.validate()
+            with get_registry().span("validate", epoch=self.epoch):
+                val = self.validate()
             epoch_metrics.update({f"validation_{k}": v for k, v in val.items()})
             self.metrics_history.append(epoch_metrics)
             logger.info("epoch %d: loss %.6f, %s", self.epoch, epoch_metrics["training_loss"],

@@ -13,7 +13,14 @@ The semantics kept from the reference trainer:
 * gradient accumulation over a stack of K microbatches, grad-norm
   clipping, the warmup schedule, the NaN guard, patience-based early
   stopping on ``+s_f1-score``, best-model selection, checkpoint and
-  resume, SIGTERM/SIGINT preemption with a mid-epoch resume.
+  resume, SIGTERM/SIGINT preemption with a mid-epoch resume;
+* the run sinks: the process-wide telemetry registry gets the
+  ``train_epoch``, ``validate`` and ``checkpoint`` spans, a ``train_step``
+  event per step (``step``, ``loss``, ``lr``, ``grad_norm``) as each window
+  of stats drains, a ``train_epoch`` event and the ``train.*`` counters;
+* the chaos point ``step.<global step>`` at the start of each step
+  (``step.N=sigterm`` preempts through the signal handler) and
+  ``debug_checks`` (:func:`~.metrics.check_finite` before each update).
 
 One optimizer step (:func:`train_step`) runs the K microbatches' forward
 and backward, accumulating gradients, divides them by K (dead
@@ -54,11 +61,12 @@ from ..data.batching import (
 )
 from ..data.readers import MemoryReader
 from ..models.memory import MemoryModel, pair_loss
+from ..resilience import faults
 from ..resilience.io import atomic_write_text
-from ..telemetry import Registry
+from ..telemetry import get_registry
 from ..utils.profiling import StepTimer, trace_context
 from .checkpoint import MetricTracker, TrainCheckpointer
-from .metrics import RunningClassification, device_confusion, drain_pending
+from .metrics import RunningClassification, check_finite, device_confusion, drain_pending
 from .optim import GroupedAdamW, make_optimizer
 
 logger = logging.getLogger(__name__)
@@ -118,11 +126,14 @@ def train_step(
     generator: Optional[torch.Generator] = None,
     ema_model: Optional[MemoryModel] = None,
     ema_decay: Optional[float] = None,
+    debug_checks: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """One optimizer step over a [K, B, ...] stack of device tensors:
     forward and backward per microbatch (gradients summed, then divided by
     K), the pre-clip global norm, the clipped AdamW update and, with
-    ``ema_model``, ``ema = ema·decay + params·(1 − decay)``.  Returns the
+    ``ema_model``, ``ema = ema·decay + params·(1 − decay)``.  With
+    ``debug_checks`` the parameters, loss and gradients are checked finite
+    before the update (:func:`~.metrics.check_finite`).  Returns the
     step's stats as device tensors: mean loss, grad norm, confusion."""
     k = stack["label"].shape[0]
     optimizer.zero_grad()
@@ -139,6 +150,8 @@ def train_step(
     with torch.no_grad():
         for p in optimizer.params:
             p.grad.div_(k)
+        if debug_checks:
+            check_finite(loss_sum / k, model.named_parameters())
         grad_norm = optimizer.step()
         if ema_model is not None:
             decay = float(ema_decay)
@@ -146,6 +159,22 @@ def train_step(
                 e.mul_(decay).add_(p.to(e.dtype), alpha=1.0 - decay)
         confusion = device_confusion(torch.stack(logits), stack["label"], stack["weight"])
     return {"loss": loss_sum / k, "grad_norm": grad_norm, "confusion": confusion}
+
+
+def book_epoch(tel, epoch: int, metrics: Dict[str, Any], durations: Sequence[float]) -> None:
+    """An epoch's telemetry, as the JAX trainers book it: the step times in
+    ``train.step_s``, the token counters and rates, and a ``train_epoch``
+    event with the epoch's scalar metrics."""
+    step_hist = tel.histogram("train.step_s")
+    for d in durations:
+        step_hist.observe(d)
+    tel.counter("train.tokens").inc(metrics["padded_tokens"])
+    tel.counter("train.tokens_real").inc(metrics["real_tokens"])
+    tel.gauge("train.tokens_per_sec").set(metrics["tokens_per_sec"])
+    tel.gauge("train.real_tokens_per_sec").set(metrics["real_tokens_per_sec"])
+    tel.event("train_epoch", epoch=epoch,
+              **{k: v for k, v in metrics.items()
+                 if isinstance(v, (int, float)) and not isinstance(v, bool)})
 
 
 @dataclasses.dataclass
@@ -191,9 +220,11 @@ class TrainerConfig:
     steps_per_epoch: Optional[int] = None
     # False freezes epoch 0's pair sample for every epoch
     online_resample: bool = True
-    # a profiler trace of epoch 0 (utils/profiling.trace_context); the JAX
-    # package's checkify mode is not ported (slice 11)
+    # a profiler trace of epoch 0 (utils/profiling.trace_context)
     profile_dir: Optional[str] = None
+    # the JAX package's checkify float checks: every step checks its
+    # parameters, loss and gradients finite before the update (one host
+    # sync a step) and raises FloatingPointError naming the first that is not
     debug_checks: bool = False
     ema_decay: Optional[float] = None
     # steps run ahead before a window of stats is pulled to the host; the
@@ -225,9 +256,6 @@ class MemoryTrainer:
         c = self.config = config or TrainerConfig()
         if mesh is not None:
             raise NotImplementedError("training on a mesh (DDP) belongs to the multi-device slice")
-        if c.debug_checks:
-            raise NotImplementedError(
-                "debug_checks (checkify) belongs to slice 11, not ported yet; leave it False")
         if model.config.quant is not None:
             raise ValueError(f"encoder quant={model.config.quant!r} is inference-only")
         if int(c.prefetch_depth) < 1:
@@ -271,8 +299,6 @@ class MemoryTrainer:
             if c.serialization_dir else None
         )
         self.metrics_history: List[Dict[str, Any]] = []
-        # train.* counters and the feed-occupancy gauge
-        self.registry = Registry()
         # the EMA weights live in a module of their own, which validation
         # scores with; the live model is never swapped
         self.ema_model: Optional[MemoryModel] = None
@@ -356,8 +382,15 @@ class MemoryTrainer:
 
     # -- epoch orchestration ---------------------------------------------------
 
+    def _lr_at(self, step: int) -> float:
+        """The default group's learning rate at ``step`` (the schedule's
+        scale times ``base_lr``), for the ``train_step`` events."""
+        return self.optimizer.scale(step) * self.config.base_lr
+
     def _drain_stats(self, pending, running, losses, grad_norms=None) -> None:
-        """One host transfer per window; the NaN guard fires here."""
+        """One host transfer per window; the NaN guard fires here.  The
+        ``train_step`` events ride the drained window, so a registry
+        without ``step_events`` costs the step loop nothing."""
         n_before = len(losses)
         drain_pending(
             pending, _host_fetch, self.step, losses, running,
@@ -371,11 +404,21 @@ class MemoryTrainer:
             with open(self.config.step_loss_log, "a") as f:
                 for offset, loss in enumerate(new):
                     f.write(json.dumps({"step": first + offset, "loss": loss}) + "\n")
-        self.registry.counter("train.steps").inc(len(new))
+        tel = get_registry()
+        tel.counter("train.steps").inc(len(new))
+        if tel.step_events:
+            new_norms = grad_norms[n_before:] if grad_norms is not None else []
+            for offset, loss in enumerate(new):
+                fields = {"step": first + offset, "loss": round(loss, 6),
+                          "lr": self._lr_at(first + offset)}
+                if offset < len(new_norms):
+                    fields["grad_norm"] = round(new_norms[offset], 6)
+                tel.event("train_step", **fields)
+        tel.heartbeat()
 
     def train_epoch(self) -> Dict[str, float]:
         c = self.config
-        tel = self.registry
+        tel = get_registry()
         # the validation predictor puts the shared module in eval mode:
         # every epoch starts in training mode again, or dropout is off
         self.model.train()
@@ -396,38 +439,41 @@ class MemoryTrainer:
             self._microbatch_stacks(), depth=int(c.prefetch_depth), commit=self._commit_stack,
             occupancy=tel.gauge("train.feed_occupancy"),
         )
-        for i, (stack, info) in enumerate(feed):
-            if c.steps_per_epoch is not None and i >= c.steps_per_epoch:
-                break
-            if i < skip:
-                continue
-            padded_tokens += info["padded_tokens"]
-            real_tokens += info["real_tokens"]
-            with timer.step():
-                pending.append(train_step(
-                    self.model, self.optimizer, stack, self.generator,
-                    self.ema_model, c.ema_decay,
-                ))
-                self.step += 1
-            self._epoch_stacks_done = i + 1
-            if len(pending) >= max(1, c.sync_every):
+        with tel.span("train_epoch", epoch=self.epoch):
+            for i, (stack, info) in enumerate(feed):
+                if c.steps_per_epoch is not None and i >= c.steps_per_epoch:
+                    break
+                if i < skip:
+                    continue
+                padded_tokens += info["padded_tokens"]
+                real_tokens += info["real_tokens"]
+                # chaos: "step.<global step>" fires as the step starts
+                faults.fault_point(f"step.{self.step}")
+                with timer.step():
+                    pending.append(train_step(
+                        self.model, self.optimizer, stack, self.generator,
+                        self.ema_model, c.ema_decay, c.debug_checks,
+                    ))
+                    self.step += 1
+                self._epoch_stacks_done = i + 1
+                if len(pending) >= max(1, c.sync_every):
+                    with timer.distribute_over_last(len(pending)):
+                        self._drain_stats(pending, running, losses, grad_norms)
+                if c.save_every_steps and self.checkpointer is not None \
+                        and self.step % c.save_every_steps == 0:
+                    with timer.distribute_over_last(max(1, len(pending))):
+                        self._drain_stats(pending, running, losses, grad_norms)
+                    self._save_step_checkpoint()
+                if self._stop_signal is not None:
+                    logger.warning(
+                        "stop signal %s: halting after step %d (%d/%s stacks of epoch %d)",
+                        self._stop_signal, self.step - 1, self._epoch_stacks_done,
+                        c.steps_per_epoch or "?", self.epoch,
+                    )
+                    break
+            if pending:
                 with timer.distribute_over_last(len(pending)):
                     self._drain_stats(pending, running, losses, grad_norms)
-            if c.save_every_steps and self.checkpointer is not None \
-                    and self.step % c.save_every_steps == 0:
-                with timer.distribute_over_last(max(1, len(pending))):
-                    self._drain_stats(pending, running, losses, grad_norms)
-                self._save_step_checkpoint()
-            if self._stop_signal is not None:
-                logger.warning(
-                    "stop signal %s: halting after step %d (%d/%s stacks of epoch %d)",
-                    self._stop_signal, self.step - 1, self._epoch_stacks_done,
-                    c.steps_per_epoch or "?", self.epoch,
-                )
-                break
-        if pending:
-            with timer.distribute_over_last(len(pending)):
-                self._drain_stats(pending, running, losses, grad_norms)
         metrics: Dict[str, Any] = running.compute()
         metrics["loss"] = float(np.mean(losses)) if losses else 0.0
         metrics["losses"] = losses
@@ -442,8 +488,7 @@ class MemoryTrainer:
         metrics.update(timer.summary())
         if on_card:
             metrics["memory_peak_bytes_in_use"] = float(torch.cuda.max_memory_allocated(self.device))
-        tel.counter("train.tokens").inc(padded_tokens)
-        tel.counter("train.tokens_real").inc(real_tokens)
+        book_epoch(tel, self.epoch, metrics, timer.durations)
         return metrics
 
     def validate(self) -> Dict[str, float]:
@@ -458,7 +503,7 @@ class MemoryTrainer:
             from ..evaluate.predict_memory import SiamesePredictor
 
             self._val_predictor = SiamesePredictor(
-                target, self.tokenizer,
+                target, self.tokenizer, telemetry=get_registry(),
                 batch_size=c.eval_batch_size,
                 max_length=c.eval_max_length,
                 buckets=tuple(c.eval_buckets) if c.eval_buckets else None,
@@ -533,7 +578,10 @@ class MemoryTrainer:
             }, indent=2))
         logger.warning("preempted by signal %s at step %d: resumable state saved",
                        self._stop_signal, self.step)
-        self.registry.counter("train.preemptions").inc()
+        tel = get_registry()
+        tel.counter("train.preemptions").inc()
+        tel.event("preempted", signal=self._stop_signal, epoch=self.epoch, step=self.step)
+        tel.heartbeat(force=True)
 
     def train(self) -> Dict[str, Any]:
         c = self.config
@@ -557,7 +605,8 @@ class MemoryTrainer:
                     self._save_preemption_state()
                     break
                 epoch_metrics.update({f"training_{k}": v for k, v in train_metrics.items()})
-                val = self.validate()
+                with get_registry().span("validate", epoch=self.epoch):
+                    val = self.validate()
                 epoch_metrics.update({f"validation_{k}": v for k, v in val.items()})
                 self.metrics_history.append(epoch_metrics)
                 logger.info("epoch %d: loss %.6f, %s", self.epoch, train_metrics["loss"],
@@ -570,9 +619,11 @@ class MemoryTrainer:
                         self.epoch,
                     )
                 if self.checkpointer is not None:
-                    self.checkpointer.save(
-                        self.epoch, self._state_dict(), is_best=is_best, metadata=epoch_metrics,
-                    )
+                    with get_registry().span("checkpoint", epoch=self.epoch):
+                        self.checkpointer.save(
+                            self.epoch, self._state_dict(), is_best=is_best,
+                            metadata=epoch_metrics,
+                        )
                 self.epoch += 1
                 self._epoch_stacks_done = 0
                 if val and self.tracker.should_stop():

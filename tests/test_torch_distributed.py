@@ -397,7 +397,7 @@ def test_quarantine_partial_completion_exit_3(setup, tmp_path, monkeypatch, caps
 @pytest.mark.parametrize("overrides,needle", [
     ({"evaluation": {"shards": 0}}, "shards must be >= 1"),
     ({"telemetry": {"metrics_port": -1}}, "metrics_port"),
-    ({"telemetry": {"step_events": False}}, "telemetry.step_events"),
+    ({"telemetry": {"step_events": "yes"}}, "telemetry.step_events"),
     ({"telemetry": {"hbm_gauges": "yes"}}, "telemetry.hbm_gauges"),
     ({"model": {"type": "model_single"}}, "memory-model archives only"),
 ])

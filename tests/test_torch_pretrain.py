@@ -236,9 +236,8 @@ def test_mlm_resume_clobber_refusal_and_evaluate(tokenizers, ws, tmp_path):
     assert got["eval_lines"] == want["eval_lines"] == 12
     assert got["eval_loss"] == pytest.approx(want["eval_loss"], rel=1e-5)
     assert got["perplexity"] == pytest.approx(want["perplexity"], rel=1e-5)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        mlm.MLMTrainer(_tiny(False, vocab), ptok, mlm.MLMTrainerConfig(debug_checks=True),
-                       device="cpu")
+    assert mlm.MLMTrainer(_tiny(False, vocab), ptok, mlm.MLMTrainerConfig(debug_checks=True),
+                          device="cpu").c.debug_checks
     with pytest.raises(ValueError, match="inference-only"):
         mlm.MLMTrainer(_tiny(False, vocab, quant="int8"), ptok, device="cpu")
 

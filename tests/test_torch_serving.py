@@ -441,27 +441,22 @@ def test_unported_serving_key_raises_naming_its_slice(key, tmp_path):
         balancer.drain(timeout=1.0)
 
 
-# the telemetry keys the ops-plane slice ported, and the one left to slice 11
+# the telemetry keys the ops-plane slice and slice 11 (step_events) ported
 TELEMETRY_KEYS = ("hbm_gauges", "metrics_port", "step_events", "trace_dir", "tsdb_cadence_s",
                   "tsdb_resolution_s", "tsdb_retention_s")
 
 
 @pytest.mark.parametrize("key", TELEMETRY_KEYS)
 def test_unported_telemetry_key_raises_naming_its_slice(key):
-    """``step_events`` still raises, naming slice 11; the ops-plane keys are
-    honoured with the JAX package's defaults."""
+    """Every telemetry key is honoured with the JAX package's default; none
+    raises any more (``step_events`` was the last, ported in slice 11)."""
     from memvul_tpu.config import TELEMETRY_DEFAULTS as JAX_TELEMETRY_DEFAULTS
-    from memvul_tpu_torch.config import TELEMETRY_UNPORTED, telemetry_config
+    from memvul_tpu_torch.config import telemetry_config
 
     default = JAX_TELEMETRY_DEFAULTS[key]
     assert telemetry_config({"telemetry": {key: default}})["enabled"] is True
     changed = "trace/" if default is None else \
         (not default if isinstance(default, bool) else default + 1)
-    if key in TELEMETRY_UNPORTED:
-        assert TELEMETRY_UNPORTED[key][0] == default
-        with pytest.raises(NotImplementedError, match=f"telemetry.{key}.*slice 11"):
-            telemetry_config({"telemetry": {key: changed}})
-        return
     assert telemetry_config({})[key] == default
     assert telemetry_config({"telemetry": {key: changed}})[key] == changed
 

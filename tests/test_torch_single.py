@@ -279,11 +279,13 @@ def test_classifier_trajectory_matches_jax(ws, tmp_path, monkeypatch, kind):
 def test_classifier_trainer_refusals(ws):
     _, _, pmodel, _, ptok, _ = _models("single", ws)
     reader = SingleReader()
-    for kw, err in ((dict(debug_checks=True), NotImplementedError),
-                    (dict(prefetch_depth=0), ValueError)):
-        with pytest.raises(err):
-            ClassifierTrainer(pmodel, ptok, reader, ws["paths"]["train"],
-                              config=ClassifierTrainerConfig(**kw), device="cpu")
+    with pytest.raises(ValueError):
+        ClassifierTrainer(pmodel, ptok, reader, ws["paths"]["train"],
+                          config=ClassifierTrainerConfig(prefetch_depth=0), device="cpu")
+    # debug_checks is ported (slice 11): it constructs, and checks each step
+    assert ClassifierTrainer(pmodel, ptok, reader, ws["paths"]["train"],
+                             config=ClassifierTrainerConfig(debug_checks=True),
+                             device="cpu").config.debug_checks
     with pytest.raises(NotImplementedError, match="multi-device"):
         ClassifierTrainer(pmodel, ptok, reader, ws["paths"]["train"], device="cpu", mesh=object())
     with pytest.raises(ValueError, match="unknown key"):

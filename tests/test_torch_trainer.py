@@ -292,7 +292,7 @@ def test_port_archive_scores_the_same_in_the_jax_package(ws, tmp_path):
 
 def test_unported_knobs_raise_naming_their_slice(ws, tmp_path):
     cfg = selfcheck_config(ws)
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    with pytest.raises(NotImplementedError, match="slice 12"):
         build.train_from_config(dict(cfg, tuning={"profile_dir": "profiles/"}), tmp_path,
                                 device="cpu")
     with pytest.raises(ValueError, match="unknown model type"):
@@ -300,9 +300,6 @@ def test_unported_knobs_raise_naming_their_slice(ws, tmp_path):
                                 tmp_path, device="cpu")
     with pytest.raises(NotImplementedError, match="multi-device"):
         build.train_from_config(cfg, tmp_path, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="checkify"):
-        build.train_from_config(dict(cfg, trainer=dict(cfg["trainer"], debug_checks=True)),
-                                tmp_path, device="cpu")
     with pytest.raises(ValueError, match="prefetch_depth"):
         build.train_from_config(dict(cfg, trainer=dict(cfg["trainer"], prefetch_depth=0)),
                                 tmp_path, device="cpu")
