@@ -92,7 +92,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  one weight raises FloatingPointError naming it, the
                  parameters and optimizer state untouched;
    ``train_faults`` ``train`` subprocesses under ``step.3=sigterm``,
-                 resumed to an uninterrupted run's losses (f32 1e-5);
+                 resumed to an uninterrupted run's losses (f32 1e-5; the
+                 two first runs at once, ``selfcheck`` beside them);
                  ``ckpt.write`` and ``data.read`` in process;
    ``baseline_path`` ``python -m memvul_tpu_torch baseline`` over 8192 +
                  2048 ``generate_corpus`` reports: each learner's seconds,
@@ -161,6 +162,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  device-memory gauge and ``program.mfu`` in (0, 1]; and a
                  ``POST /profilez`` capture under load whose trace names
                  the K3 and K1 kernels;
+   ``bench_path`` ``python -m memvul_tpu_torch bench`` through its
+                 supervisor (and its CUDA probe child) at BERT-base width:
+                 the main pass with flash at cap 512 over 4096 reports (K2
+                 and K1 launches from the child's ``telemetry.json``
+                 against its chunks, warmup shapes and batches), the anchor
+                 micro at B = 512 (K1's device time beside its wall), serve
+                 ab with 256 requests from 16 clients (K3 = 12 × packs),
+                 the train-step micro, and the phase watchdog ending a
+                 child wedged in a CUDA synchronize (exit 124, the
+                 supervisor's error);
+   ``tune_path`` ``tune --mode all --model base --seq-len 128 --cascade``:
+                 the ``nvidia_h100_80gb_hbm3`` class, a prune decision and
+                 a parity verdict for every candidate, the profile and its
+                 manifest; ``train_from_config`` and ``serve_from_archive``
+                 reading it under their explicit keys; ``--device-class
+                 tpu_v9`` exits 2;
+   ``doctor_path`` ``doctor`` on a workspace config (exit 0: cuda, the
+                 card count, the native normalizer, ``build/kernels/``) and
+                 on one with a missing anchor file (exit 1); native
+                 against Python normalization, the same strings, each's
+                 documents per second;
 6. ``main_path_profile`` / ``serve_pack_profile``
                  device time by kernel (torch.profiler) for one batch of the
                  main path's 2048 bucket and for one serve pack's round trip
@@ -174,7 +196,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  trained a few steps on both from the same weights and
                  stacks; ``pretrain_reference`` a small f32 MLM trained on
                  both from the same weights and masks;
-8. ``kernels``   one line per ported kernel, then the card's nvidia-smi line,
+8. ``timing``    seconds since the previous line, by the line's phase;
+9. ``kernels``   one line per ported kernel, then the card's nvidia-smi line,
                  then ``{"ok": true, "device": {...}}`` as the last line.
 
 Every f32 comparison runs with TF32 off for matmuls and convolutions
@@ -205,7 +228,15 @@ F32_FLOPS = 67e12  # non-tensor f32: an FFMA is two operations
 F32_INSTRUCTIONS_PER_S = F32_FLOPS / 2  # FP32 instructions: 132 SMs × 128 lanes × the clock
 
 
+# seconds since the previous line, by the line's phase: the ``timing`` line
+SECONDS_BY_LINE: dict = {}
+_last_emit = [time.perf_counter()]
+
+
 def emit(phase: str, **fields) -> None:
+    now = time.perf_counter()
+    SECONDS_BY_LINE[phase] = SECONDS_BY_LINE.get(phase, 0.0) + now - _last_emit[0]
+    _last_emit[0] = now
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -4658,10 +4689,12 @@ def phase_train_faults(workdir: Path) -> None:
     from memvul_tpu_torch.resilience.journal import DeadLetter
     from memvul_tpu_torch.training.checkpoint import TrainCheckpointer
 
+    from concurrent.futures import ThreadPoolExecutor
+
     ws = build_workspace(workdir / "faults_ws", seed=5)
     logs = {}
-    t0 = time.perf_counter()
-    for name, spec in (("uninterrupted", ""), ("preempted", "step.3=sigterm")):
+
+    def run(name: str, spec: str) -> None:
         out, log = workdir / f"faults_{name}", workdir / f"faults_{name}.jsonl"
         cfg_path = workdir / f"faults_{name}.json"
         cfg_path.write_text(json.dumps(_faults_config(ws, out, log)))
@@ -4677,6 +4710,13 @@ def phase_train_faults(workdir: Path) -> None:
             logs[name]["resumed_marker_gone"] = not (out / "PREEMPTED.json").exists()
         logs[name]["losses"] = {r["step"]: r["loss"] for r in
                                 (json.loads(x) for x in log.read_text().splitlines())}
+
+    t0 = time.perf_counter()
+    # the two trains are independent processes: run them at once
+    with ThreadPoolExecutor(2) as pool:
+        for future in [pool.submit(run, "uninterrupted", ""),
+                       pool.submit(run, "preempted", "step.3=sigterm")]:
+            future.result()
     subprocess_s = time.perf_counter() - t0
     want, got = logs["uninterrupted"]["losses"], logs["preempted"]["losses"]
     loss_err = max((abs(got[s] - want[s]) for s in want), default=float("inf"))
@@ -4804,14 +4844,22 @@ def phase_baseline_path(workdir: Path) -> None:
         raise SystemExit(f"baseline_path failed: {checks}\n{proc.stderr[-3000:]}")
 
 
-def phase_selfcheck(workdir: Path) -> None:
-    """``python -m memvul_tpu_torch selfcheck`` on the card, as a user runs
-    it: a synthetic workspace, a tiny train, the archive, ``evaluate``."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+def start_selfcheck(workdir: Path):
+    """``python -m memvul_tpu_torch selfcheck`` started (it runs beside
+    ``train_faults``' tiny trains); :func:`phase_selfcheck` collects it."""
+    return time.perf_counter(), subprocess.Popen(
         [sys.executable, "-m", "memvul_tpu_torch", "selfcheck", "--dir", str(workdir / "sc")],
-        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
+
+
+def phase_selfcheck(workdir: Path, started=None) -> None:
+    """``python -m memvul_tpu_torch selfcheck`` on the card, as a user runs
+    it: a synthetic workspace, a tiny train, the archive, ``evaluate``
+    (``started``: a run :func:`start_selfcheck` began)."""
+    t0, running = started or start_selfcheck(workdir)
+    stdout, stderr = running.communicate(timeout=600)
+    proc = subprocess.CompletedProcess(running.args, running.returncode, stdout, stderr)
     wall = time.perf_counter() - t0
     lines = proc.stdout.strip().splitlines()
     report = json.loads(lines[-1]) if lines else {}
@@ -4819,6 +4867,395 @@ def phase_selfcheck(workdir: Path) -> None:
     emit("selfcheck", ok=ok, wall_s=wall, report=report, card=nvidia_smi_line())
     if not ok:
         raise SystemExit(f"selfcheck failed ({proc.returncode}): {proc.stderr[-2000:]}")
+
+
+# -- slice 12: the bench harness, the tuner and the doctor -----------------------
+
+
+def _bench_env(run: str, **knobs) -> dict:
+    """The environment of one ``python -m memvul_tpu_torch bench``: this
+    process's without any ``BENCH_*`` or ``MEMVUL_*`` knob, a telemetry run
+    dir under ``build/bench_path/<run>``, one attempt, and ``knobs``."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("BENCH_", "MEMVUL_"))}
+    tel = ROOT / "build" / "bench_path" / run
+    shutil.rmtree(tel, ignore_errors=True)
+    env.update(BENCH_TELEMETRY_DIR=str(tel), BENCH_ATTEMPTS="1", BENCH_DEVICE_WAIT="0",
+               BENCH_PHASE_TIMEOUT="600")
+    env.update({k: str(v) for k, v in knobs.items()})
+    return env
+
+
+def _bench_run(run: str, **knobs):
+    """(exit code, the records printed on stdout, the child's telemetry
+    counters, wall seconds) of one ``python -m memvul_tpu_torch bench``;
+    stderr goes to ``build/bench_path/<run>.err``."""
+    env = _bench_env(run, **knobs)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "memvul_tpu_torch", "bench"], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    (ROOT / "build" / "bench_path" / f"{run}.err").write_text(proc.stderr)
+    records = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    tel_file = Path(env["BENCH_TELEMETRY_DIR"]) / "telemetry.json"
+    counters = json.loads(tel_file.read_text())["counters"] if tel_file.exists() else {}
+    return proc.returncode, records, counters, wall
+
+
+WEDGED_CHILD = (
+    "import sys, torch\n"
+    "import memvul_tpu_torch.bench as bench\n"
+    "def wedged(*args, **kw):  # a device call that never returns\n"
+    "    while True:\n"
+    "        torch.cuda._sleep(1 << 30)\n"
+    "        torch.cuda.synchronize()\n"
+    "bench.bench_model = wedged\n"
+    "sys.exit(bench.main())\n"
+)
+
+
+def phase_bench_path(records: dict) -> None:
+    """``python -m memvul_tpu_torch bench`` as a user runs it, through its
+    supervisor, on the card at BERT-base width (random weights from seed
+    0, the synthetic workspace):
+
+    1. the main scoring pass with ``BENCH_ATTENTION=flash``,
+       ``BENCH_SEQ_LEN=512``, ``BENCH_REPORTS=4096`` (auto-8 buckets, the
+       default token budget), with the CUDA probe child: K2's launches in
+       the child's ``telemetry.json`` are 12 layers × (anchor chunks +
+       warmup shapes + scored batches), K1's warmup shapes + batches;
+    2. ``BENCH_MICRO=anchor_match`` at B = 512, A = 129, D = 512, bf16: K1
+       launched once to warm, 3 × ``iters`` timed and ``iters`` under the
+       profiler, the kernel's device time beside its wall per call;
+    3. ``BENCH_MICRO=serve BENCH_SERVE_IMPL=ab``, 256 requests from 16
+       clients: K3's launches 12 × the ragged and continuous legs' packs,
+       K1's one a block or pack of every leg;
+    4. ``BENCH_MICRO=train_step``, 4 steps of batch 8 (grad_accum 2);
+    5. the watchdog: a bench child whose model build blocks in a
+       ``torch.cuda.synchronize()`` behind a spinning kernel, under
+       ``BENCH_PHASE_TIMEOUT=2``: alone it exits 124 with the watchdog's
+       record naming ``model_init``; under the supervisor (one attempt) the
+       result is the watchdog's error.
+
+    Each record must carry no ``error``; the children's launches are added to
+    the kernels' totals."""
+    phase_t0 = time.perf_counter()
+    iters = 50
+    runs, checks, launches = {}, {}, collections.Counter()
+
+    def kernels(counters):
+        return {k: int(counters.get(f"kernels.launches.{k}", 0))
+                for k in ("anchor_match", "flash_attention", "ragged_attention")}
+
+    rc, recs, c, wall = _bench_run(
+        "main", BENCH_ATTENTION="flash", BENCH_SEQ_LEN=512, BENCH_REPORTS=4096,
+        BENCH_DEVICE_WAIT=300, BENCH_PROBE_TIMEOUT=120)
+    got = kernels(c)
+    blocks = int(c.get("bench.warmup_shapes", 0)) + int(c.get("score.batches", 0))
+    want = {"flash_attention": 12 * (int(c.get("bench.anchor_chunks", 0)) + blocks),
+            "anchor_match": blocks, "ragged_attention": 0}
+    rec = recs[-1] if recs else {}
+    runs["main"] = {"rc": rc, "wall_s": wall, "value": rec.get("value"), "unit": rec.get("unit"),
+                    "vs_baseline": rec.get("vs_baseline"), "config": rec.get("config"),
+                    "mfu": (rec.get("xla") or {}).get("mfu"), "launches": got,
+                    "want_launches": want, "batches": int(c.get("score.batches", 0))}
+    checks["main"] = (rc == 0 and len(recs) == 1 and "error" not in rec and rec["value"] > 0
+                      and got == want and blocks > 0)
+    launches.update(got)
+
+    rc, recs, c, wall = _bench_run("anchor_match", BENCH_MICRO="anchor_match",
+                                        BENCH_MICRO_ITERS=iters)
+    got = kernels(c)
+    rec = recs[-1] if recs else {}
+    want = {"anchor_match": 1 + 3 * iters + iters, "flash_attention": 0, "ragged_attention": 0}
+    runs["anchor_match"] = {"rc": rc, "wall_s": wall, **{k: rec.get(k) for k in (
+        "value", "fused_ms", "decomposed_ms", "fused_device_ms", "decomposed_device_ms",
+        "config")}, "launches": got, "want_launches": want}
+    checks["anchor_match"] = (rc == 0 and "error" not in rec and got == want
+                              and (rec.get("config") or {}).get("fused_backend") == "cuda"
+                              and (rec.get("config") or {}).get("dtype") == "bfloat16"
+                              and (rec.get("fused_device_ms") or 0) > 0)
+    launches.update(got)
+
+    rc, recs, c, wall = _bench_run("serve_ab", BENCH_MICRO="serve", BENCH_SERVE_IMPL="ab",
+                                        BENCH_MICRO_REQUESTS=256, BENCH_MICRO_CLIENTS=16)
+    got = kernels(c)
+    rec = recs[-1] if recs else {}
+    packs = sum(int(c.get(f"bench.serve.{impl}.batches", 0)) for impl in ("ragged", "continuous"))
+    legs = sum(int(c.get(f"bench.serve.{impl}.batches", 0))
+               for impl in ("bucketed", "ragged", "continuous", "cascade"))
+    want = {"ragged_attention": 12 * packs, "anchor_match": legs, "flash_attention": 0}
+    runs["serve_ab"] = {"rc": rc, "wall_s": wall, "value": rec.get("value"),
+                        "legs": {impl: {k: leg.get(k) for k in (
+                            "requests_per_sec", "latency_ms", "errors",
+                            "real_token_utilization", "queue_wait_ms")}
+                            for impl, leg in (rec.get("ab") or {}).items()},
+                        "utilization_gain": rec.get("utilization_gain"),
+                        "queue_wait_gain": rec.get("queue_wait_gain"),
+                        "cascade_rescore_rate": rec.get("cascade_rescore_rate"),
+                        "launches": got, "want_launches": want}
+    checks["serve_ab"] = (rc == 0 and "error" not in rec and got == want and packs > 0
+                          and all(leg.get("errors") == 0 for leg in (rec.get("ab") or {}).values())
+                          and len(rec.get("ab") or {}) == 4)
+    launches.update(got)
+
+    rc, recs, c, wall = _bench_run("train_step", BENCH_MICRO="train_step",
+                                        BENCH_TRAIN_STEPS=4, BENCH_TRAIN_BATCH=8,
+                                        BENCH_TRAIN_REPORTS=64)
+    rec = recs[-1] if recs else {}
+    runs["train_step"] = {"rc": rc, "wall_s": wall, "value": rec.get("value"),
+                          "pad_to_max": rec.get("pad_to_max"),
+                          "bucketed_dedup": rec.get("bucketed_dedup"), "config": rec.get("config")}
+    checks["train_step"] = (rc == 0 and "error" not in rec
+                            and rec["pad_to_max"]["steps"] == rec["bucketed_dedup"]["steps"] == 4)
+    launches.update(kernels(c))
+
+    # a bench child whose model build blocks in a CUDA synchronize behind a
+    # spinning kernel: alone it exits 124 with the watchdog's record, under
+    # the supervisor the result is the watchdog's error
+    from memvul_tpu_torch.bench import _error_record, _supervise
+
+    wedged = _bench_env("watchdog", MEMVUL_BENCH_CHILD=1, BENCH_MICRO="train_step",
+                        BENCH_TRAIN_REPORTS=8, BENCH_PHASE_TIMEOUT=2)
+    # (the lone child and the supervised one run at once)
+    t0 = time.perf_counter()
+    lone = subprocess.Popen([sys.executable, "-c", WEDGED_CHILD], cwd=ROOT, env=wedged,
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    line, error = _supervise([sys.executable, "-c", WEDGED_CHILD], attempts=1,
+                             attempt_timeout=180, backoff=0, env=wedged)
+    runs["watchdog"] = {"wall_s": time.perf_counter() - t0,
+                        "record": _error_record(error) if line is None else json.loads(line)}
+    checks["watchdog"] = line is None and "watchdog" in error and "model_init" in error
+    out, _ = lone.communicate(timeout=180)
+    child = json.loads(out.strip().splitlines()[-1]) if out.strip() else {}
+    runs["watchdog_child"] = {"rc": lone.returncode, "wall_s": time.perf_counter() - t0,
+                              "record": child}
+    checks["watchdog_child"] = (lone.returncode == 124 and child.get("watchdog_timeout") is True
+                                and child.get("phase") == "model_init")
+
+    ok = all(checks.values())
+    emit("bench_path", ok=ok, checks=checks, runs=runs, launches=dict(launches),
+         wall_s=time.perf_counter() - phase_t0, card=nvidia_smi_line())
+    if not ok:
+        raise SystemExit(f"bench_path failed: {checks}; see build/bench_path/*.err")
+    records["anchor_match"]["launches"] += launches["anchor_match"]
+    records["flash_attention"]["launches"] += launches["flash_attention"]
+    records["ragged_flash_attention"]["launches"] += launches["ragged_attention"]
+
+
+def phase_tune_path(workdir: Path, records: dict) -> None:
+    """``python -m memvul_tpu_torch tune --mode all --model base --seq-len
+    128 --cascade --out <dir>`` on the card (the slim grids: 4 training
+    and 10 serving candidates), then the build entry points reading its
+    profile:
+
+    * the record names ``nvidia_h100_80gb_hbm3`` and its ``PEAK_SPECS``
+      row; every candidate has a prune decision and (when feasible) a parity
+      verdict, each refusal's ``observed`` delta kept for PERF.md; the
+      profile and ``MANIFEST.json`` are written, the manifest's sha256 that
+      of the document;
+    * ``train_from_config`` (2 steps, the configuration at full width) with
+      ``tuning.profile_dir`` set and ``prefetch_depth`` explicit: the trainer
+      gets the profile's other training knobs and the explicit depth;
+    * ``serve_from_archive`` of the main path's archive with
+      ``tuning.profile_dir`` set and ``max_length`` / ``max_wait_ms``
+      explicit: the service gets the profile's serving knobs (and cascade
+      band) where the overrides left them unset, and serves 16 requests;
+    * ``tune --device-class tpu_v9`` (the CLI in this process) exits 2 with
+      the machine-readable refusal.
+
+    The in-process service's K1 and K3 launches, checked against its packs
+    or blocks, add to the kernels' totals."""
+    import hashlib
+
+    from memvul_tpu_torch import telemetry
+    from memvul_tpu_torch.build import serve_from_archive, train_from_config
+    from memvul_tpu_torch.data.synthetic import build_workspace, corpus_texts
+    from memvul_tpu_torch.ops import anchor_match as am
+    from memvul_tpu_torch.ops import ragged_attention as ra
+    from memvul_tpu_torch.training import trainer as trainer_mod
+
+    phase_t0 = time.perf_counter()
+    out = workdir / "tuned_profiles"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "memvul_tpu_torch", "tune", "--mode", "all", "--model", "base",
+         "--seq-len", "128", "--cascade", "--out", str(out)],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    tune_wall = time.perf_counter() - t0
+    (ROOT / "build" / "tune_path.err").write_text(proc.stderr)
+    record = json.loads(proc.stdout) if proc.stdout.strip().startswith("{") else {}
+    cls = "nvidia_h100_80gb_hbm3"
+    rows = {sec: (record.get(sec) or {}).get("candidates", []) for sec in ("train", "serve")}
+    verdicts = {sec: [{"name": r["prune"]["candidate"]["name"],
+                       "feasible": r["prune"]["feasible"],
+                       "notes": r["prune"]["notes"],
+                       "parity": (r.get("parity") or {}).get("passed"),
+                       "max_abs_delta": (r.get("parity") or {}).get("max_abs_delta"),
+                       "refusals": (r.get("parity") or {}).get("reasons"),
+                       "bench": r.get("bench")} for r in rs] for sec, rs in rows.items()}
+    class_dir = out / cls
+    manifest = json.loads((class_dir / "MANIFEST.json").read_text()) \
+        if (class_dir / "MANIFEST.json").exists() else {}
+    doc = class_dir / str(manifest.get("active") or "missing")
+    tuned = json.loads(doc.read_text()) if doc.exists() else {}
+    checks = {
+        "tune_rc": proc.returncode == 0,
+        "device_class": record.get("device_class") == cls
+        and (record.get("peak_spec") or {}).get("hbm_bytes") == 80e9,
+        "every_candidate_pruned_and_gated": all(
+            "feasible" in r["prune"] and (not r["prune"]["feasible"] or "parity" in r)
+            for rs in rows.values() for r in rs) and len(rows["train"]) == 4
+        and len(rows["serve"]) == 10,
+        "profile_written": doc.exists() and manifest.get("sha256")
+        == hashlib.sha256(doc.read_text().encode()).hexdigest(),
+    }
+
+    # train_from_config reads the profile under the explicit trainer section
+    seen = []
+    original = trainer_mod.MemoryTrainer
+
+    class _Spy(original):
+        def __init__(self, *args, **kw):
+            seen.append(kw["config"])
+            super().__init__(*args, **kw)
+
+    ws = build_workspace(workdir / "tune_ws", seed=4, num_projects=8, reports_per_project=16)
+    cfg = _train_config(ws, steps_per_epoch=2, num_epochs=1, batch_size=8, grad_accum=1,
+                        prefetch_depth=3)
+    cfg["validation_data_path"] = None  # the knobs are the point, not the metric
+    cfg["tuning"] = {"profile_dir": str(out)}
+    trainer_mod.MemoryTrainer = _Spy
+    telemetry.reset()
+    try:
+        train_from_config(cfg, workdir / "tune_train", device="cuda")
+    finally:
+        trainer_mod.MemoryTrainer = original
+    gauge = telemetry.get_registry().snapshot()["gauges"].get(f"tune.device_class.{cls}")
+    train_tuned = tuned.get("train") or {}
+    got_train = {k: getattr(seen[0], k) for k in ("train_buckets", "dedup_anchors",
+                                                  "prefetch_depth")} if seen else {}
+    want_train = dict(train_tuned, prefetch_depth=3)
+    checks["train_reads_profile"] = bool(train_tuned) and got_train == {
+        k: (list(v) if isinstance(v, tuple) else v) for k, v in want_train.items()} \
+        and gauge == 1.0
+
+    # serve_from_archive reads the profile under the explicit serving keys
+    serve_tuned = tuned.get("serving") or {}
+    explicit = {"max_length": 128, "max_wait_ms": 3.0, "default_deadline_ms": 60000}
+    service = serve_from_archive(workdir / "model.tar.gz", device="cuda", overrides={
+        "tuning": {"profile_dir": str(out)}, "serving": explicit})
+    ra.launches = am.launches = 0
+    try:
+        texts = corpus_texts(json.loads((workdir / "test_project.json").read_text()))[:16]
+        answers = [service.submit(t).result(120.0) for t in texts]
+        pred = service.predictor
+        got_serve = {"score_impl": pred.score_impl, "max_batch": service.config.max_batch,
+                     "max_wait_ms": service.config.max_wait_ms,
+                     "cascade_low": pred.cascade_band[0], "cascade_high": pred.cascade_band[1]}
+        if pred.score_impl in ("ragged", "continuous"):
+            got_serve.update(token_budget=pred.token_budget,
+                             max_rows_per_pack=pred.max_rows_per_pack)
+    finally:
+        service.drain()
+    serve_launches = {"ragged": ra.launches, "anchor_match": am.launches}
+    packs = service.registry.snapshot()["counters"].get("serve.batches", 0)
+    want_serve = {k: serve_tuned[k] for k in got_serve if k in serve_tuned}
+    want_serve["max_wait_ms"] = 3.0
+    checks["serve_reads_profile"] = bool(serve_tuned) and all(
+        got_serve[k] == v for k, v in want_serve.items()) \
+        and all(a["status"] == "ok" for a in answers)
+    # K3 runs 12 layers a pack on the packed impls only; K1 once a pack or block
+    packed = got_serve["score_impl"] in ("ragged", "continuous")
+    checks["serve_launches_eq_packs"] = packs > 0 \
+        and serve_launches["ragged"] == (12 * packs if packed else 0) \
+        and serve_launches["anchor_match"] == packs
+
+    rc_refused, refusal = _cli_json(["tune", "--device-class", "tpu_v9"])
+    checks["unknown_class_refused"] = rc_refused == 2 \
+        and refusal.get("error") == "unknown_device_class"
+
+    records["ragged_flash_attention"]["launches"] += serve_launches["ragged"]
+    records["anchor_match"]["launches"] += serve_launches["anchor_match"]
+    ok = all(checks.values())
+    emit("tune_path", ok=ok, checks=checks, tune_wall_s=tune_wall,
+         device_class=record.get("device_class"),
+         profile={"train": tuned.get("train"), "serving": tuned.get("serving")},
+         train=dict((record.get("train") or {}), candidates=verdicts["train"]),
+         serve=dict((record.get("serve") or {}), candidates=verdicts["serve"]),
+         cascade=record.get("cascade"), got_train=got_train, got_serve=got_serve,
+         serve_launches=serve_launches, serve_packs=packs,
+         wall_s=time.perf_counter() - phase_t0,
+         card=nvidia_smi_line())
+    if not ok:
+        raise SystemExit(f"tune_path failed: {checks}\n{proc.stderr[-3000:]}")
+
+
+def phase_doctor_path(workdir: Path) -> None:
+    """``python -m memvul_tpu_torch doctor`` on the card (the CLI in this
+    process; its device probe is its own child): a complete
+    ``build_workspace`` config exits 0 with ``backend.platform`` "cuda", the
+    card count, the native normalizer "ok" and ``compile_cache`` naming
+    ``build/kernels/`` with this tree's library built; a config whose anchor
+    file is missing exits 1 (``--skip-device``).  Then ``normalize_batch`` natively (the
+    library's thread pool) against the Python pass table over a synthetic
+    raw corpus: the same strings, and each one's documents per second."""
+    import os
+
+    import torch
+
+    from memvul_tpu_torch.data import native
+    from memvul_tpu_torch.data.normalize import normalize_text
+    from memvul_tpu_torch.data.synthetic import (build_workspace, corpus_texts, generate_corpus,
+                                                 selfcheck_config)
+
+    phase_t0 = time.perf_counter()
+    ws = build_workspace(workdir / "doctor_ws", seed=6)
+    good = workdir / "doctor_ok.json"
+    good.write_text(json.dumps(selfcheck_config(ws)))
+    bad_cfg = selfcheck_config(ws)
+    bad_cfg["dataset_reader"] = dict(bad_cfg["dataset_reader"],
+                                     anchor_path=str(workdir / "no_such_anchors.json"))
+    bad = workdir / "doctor_missing.json"
+    bad.write_text(json.dumps(bad_cfg))
+
+    rc_ok, report = _cli_json(["doctor", "--config", str(good)])
+    rc_bad, report_bad = _cli_json(["doctor", "--config", str(bad), "--skip-device"])
+    cache = report.get("compile_cache") or {}
+    checks = {
+        "ok_config_exit_0": rc_ok == 0 and report.get("ok") is True,
+        "backend_cuda": (report.get("backend") or {}).get("platform") == "cuda"
+        and report["backend"].get("devices") == torch.cuda.device_count(),
+        "mesh": (report.get("mesh") or {}).get("ok") is True,
+        "native_ok": (report.get("native_normalizer") or {}).get("state") == "ok",
+        "compile_cache_is_kernel_dir": str(cache.get("dir", "")).endswith("build/kernels")
+        and cache.get("built") is True,
+        "missing_anchor_exit_1": rc_bad == 1
+        and "anchor_path" in (report_bad.get("data_artifacts") or {}).get("missing", []),
+    }
+
+    reports, _ = generate_corpus(seed=0, num_projects=16, reports_per_project=64,
+                                 realistic_lengths=True)
+    texts = corpus_texts(reports)
+    t0 = time.perf_counter()
+    native_out = native.normalize_batch(texts)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python_out = [normalize_text(t) for t in texts]
+    python_s = time.perf_counter() - t0
+    checks["native_equals_python"] = native_out == python_out
+    ok = all(checks.values())
+    emit("doctor_path", ok=ok, checks=checks, report=report,
+         missing_report={k: report_bad.get(k) for k in ("ok", "data_artifacts")},
+         normalize={"documents": len(texts), "bytes": sum(len(t) for t in texts),
+                    "native_s": native_s, "python_s": python_s,
+                    "native_docs_per_s": len(texts) / native_s,
+                    "python_docs_per_s": len(texts) / python_s,
+                    "speedup": python_s / native_s, "host_cpus": os.cpu_count()},
+         wall_s=time.perf_counter() - phase_t0, card=nvidia_smi_line())
+    if not ok:
+        raise SystemExit(f"doctor_path failed: {checks}")
 
 
 def main() -> int:
@@ -4869,25 +5306,31 @@ def main() -> int:
         # slice 11: remat, debug_checks, the trainers' fault points, the baseline
         phase_remat_path(records)
         phase_debug_checks(records)
+        selfcheck = start_selfcheck(Path(tmp))
         phase_train_faults(Path(tmp))
+        phase_selfcheck(Path(tmp), selfcheck)
         phase_baseline_path(Path(tmp))
         # the paper's other trained models: further pretraining, MemVul-m, TextCNN
         other = _other_workspace(Path(tmp))
         phase_pretrain_path(Path(tmp), other, records)
         phase_single_path(Path(tmp), other, records)
         phase_cnn_path(Path(tmp), other, records)
-        # slice 8: sharded scoring on the card, the bank lifecycle, selfcheck
+        # slice 8: sharded scoring on the card, the bank lifecycle
         corpus_result = phase_score_corpus_path(Path(tmp), records)
         phase_bank_path(Path(tmp), records, corpus_result)
-        phase_selfcheck(Path(tmp))
         # slice 9: the serving plane's fleet on one card
         fleet_rps = phase_fleet_path(Path(tmp), records, serve_runs)
         # the ops plane: serving processes, autoscaler, flight recorder, profiler
         phase_ops_plane_path(Path(tmp), records, serve_runs, fleet_rps)
+        # slice 12: the bench harness, the tuner with its profiles, the doctor
+        phase_bench_path(records)
+        phase_tune_path(Path(tmp), records)
+        phase_doctor_path(Path(tmp))
     phase_main_path_reference()
     phase_ragged_reference()
     phase_train_reference()
     phase_pretrain_reference()
+    emit("timing", seconds_by_line=SECONDS_BY_LINE, total_s=sum(SECONDS_BY_LINE.values()))
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]

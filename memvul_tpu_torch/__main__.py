@@ -26,6 +26,10 @@
     python -m memvul_tpu_torch selfcheck
     python -m memvul_tpu_torch telemetry-report out/ [--json]
     python -m memvul_tpu_torch baseline data/train_project.json data/test_project.json -o baseline_out/
+    BENCH_MICRO=serve BENCH_SERVE_IMPL=ab python -m memvul_tpu_torch bench
+    python -m memvul_tpu_torch tune --mode all --model base --out profiles/ [--cascade]
+    python -m memvul_tpu_torch tune --report out/ [--splice PERF.md]
+    python -m memvul_tpu_torch doctor --config configs/config_memory.json [--skip-device]
 
 ``pretrain`` further-pretrains the encoder with whole-word-mask MLM into
 ``<output_dir>/encoder.msgpack`` (``--export-hf`` adds an HF checkpoint
@@ -68,10 +72,16 @@ without sklearn and writes ``{learner}_result.json`` and
 ``{learner}_metric.json`` per learner.  ``train``, ``evaluate`` and
 ``serve`` take the reference's ``--no-mesh`` (one device, the default) and
 ``--mesh SPEC``, which exits 2: meshes belong to the multi-device slice.
+``bench`` runs the benchmark harness (``bench.py``, its env knobs) in a
+supervised child and prints its one JSON record; ``tune`` is the offline
+autotuner (exit 0 tuned, 1 no winner, 2 the ``unknown_device_class``
+refusal; ``--report`` renders the roofline table); ``doctor`` diagnoses
+the environment and a config's artifacts (exit 1 on a failed check).
 The commands that compute on a device (``pretrain``, ``train``,
 ``evaluate``, ``score-corpus``, ``serve``, ``bank shadow``, ``bank
-promote``, ``selfcheck``, ``baseline``) run on the card (``--device cuda``,
-the default) unless ``--device cpu`` is given.
+promote``, ``selfcheck``, ``baseline``, ``tune``, ``doctor``) run on the
+card (``--device cuda``, the default) unless ``--device cpu`` is given;
+``bench`` takes ``BENCH_DEVICE=cpu``.
 """
 
 from __future__ import annotations
@@ -526,6 +536,91 @@ def cmd_selfcheck(args) -> int:
     return 0 if ok else 1
 
 
+def cmd_bench(args) -> int:
+    """The benchmark harness (``bench.py``): its env knobs, one JSON
+    record, exit 0 measured / 1 failed / 2 ``BENCH_LINT`` refused."""
+    from .bench import main as bench_main
+
+    return int(bench_main() or 0)
+
+
+def cmd_tune(args) -> int:
+    """The offline autotuner (``tuning/``): sweep the knob space for this
+    device class, prune analytically, microbench the survivors behind the
+    parity gate, and persist the versioned tuned profile.  ``--report``
+    renders the roofline markdown instead.  Exit 0 tuned (the record on
+    stdout), 1 no usable winner, 2 a usage error or the machine-readable
+    ``unknown_device_class`` refusal."""
+    from pathlib import Path
+
+    if args.report is not None:
+        from .tuning.report import report_from_programs_json, splice_generated_section
+
+        path = Path(args.report)
+        if path.is_dir():
+            path = path / "programs.json"
+        if not path.is_file():
+            print(f"tune --report: {path} not found (pass a run dir that wrote "
+                  "programs.json, or the file itself)", file=sys.stderr)
+            return 2
+        md = report_from_programs_json(path)
+        if args.splice:
+            doc = Path(args.splice)
+            if not doc.is_file():
+                print(f"tune --splice: {doc} not found", file=sys.stderr)
+                return 2
+            doc.write_text(splice_generated_section(doc.read_text(), md))
+            print(f"tune: generated section spliced into {doc}", file=sys.stderr)
+        print(md)
+        return 0
+
+    from .tuning.autotune import run_tune
+
+    bench_kwargs = dict(
+        seed=args.seed, model_size=args.model, seq_len=args.seq_len,
+        batch_size=args.batch_size, steps_per_epoch=args.steps,
+        n_requests=args.requests, n_clients=args.clients, max_batch=args.max_batch,
+    )
+    # the full grids are a long sweep; the default is the slim grid (the
+    # same axes, fewer points)
+    train_space_kwargs = None if args.full_space else dict(
+        bucket_grids=[None, "pow2"], dedup_options=(True,), prefetch_depths=(2, 8),
+    )
+    serve_space_kwargs = None if args.full_space else dict(
+        wait_ms_options=(2.0, 5.0), budget_factors=(2, 4), rows_factors=(1,),
+    )
+    record = run_tune(
+        args.mode,
+        device_class=args.device_class,
+        allow_unknown_device=args.allow_unknown_device,
+        out_dir=args.out,
+        cascade=args.cascade,
+        target_rescore_rate=args.target_rescore_rate,
+        max_programs=args.max_programs,
+        hbm_fraction=args.hbm_fraction,
+        bench_kwargs=bench_kwargs,
+        train_space_kwargs=train_space_kwargs,
+        serve_space_kwargs=serve_space_kwargs,
+        device=args.device,
+    )
+    print(json.dumps(record, indent=2, default=float))
+    if record.get("error") == "unknown_device_class":
+        return 2
+    # no parity-passing winner anywhere leaves the defaults: a failed run
+    return 0 if record.get("profile") else 1
+
+
+def cmd_doctor(args) -> int:
+    """Environment and artifact self-diagnosis (``utils/doctor.py``): one
+    JSON report, exit 1 on any failed check."""
+    from .utils.doctor import run_doctor
+
+    report = run_doctor(config=args.config, device_timeout_s=args.device_timeout,
+                        skip_device=args.skip_device, device=args.device)
+    print(json.dumps(report, indent=2, default=str))
+    return 0 if report["ok"] else 1
+
+
 def _add_bank_parsers(sub) -> None:
     bank = sub.add_parser("bank", help="anchor-bank lifecycle: versioned store (build/diff/log), "
                           "offline shadow scoring of a candidate, the promotion gate")
@@ -726,6 +821,65 @@ def main(argv=None) -> int:
     bl.add_argument("--no-feature-selection", action="store_true")
     bl.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     bl.set_defaults(fn=cmd_baseline)
+    bn = sub.add_parser("bench", help="the benchmark harness: one JSON record (env knobs: "
+                        "memvul_tpu_torch/bench.py; BENCH_DEVICE=cpu runs it on the CPU)")
+    bn.set_defaults(fn=cmd_bench)
+    tu = sub.add_parser("tune", help="offline autotuner: sweep the training and serving knobs "
+                        "for this device class, prune infeasible points, microbench the "
+                        "survivors behind the parity gate, persist a versioned tuned profile; "
+                        "--cascade tunes the rescue band, --report renders the roofline table")
+    tu.add_argument("--mode", choices=("train", "serve", "all"), default="all",
+                    help="which knob families to sweep")
+    tu.add_argument("--out", default=None, metavar="DIR",
+                    help="tuned-profile store root (tuning.profile_dir / "
+                    "$MEMVUL_TUNED_PROFILES layout); omit for a dry run")
+    tu.add_argument("--cascade", action="store_true",
+                    help="also tune [cascade_low, cascade_high] from the golden set's int8 "
+                    "score distribution, gated through bankops.evaluate_cascade")
+    tu.add_argument("--target-rescore-rate", type=float, default=0.1,
+                    help="golden-set fraction the cascade band should rescore")
+    tu.add_argument("--report", default=None, metavar="PATH",
+                    help="render the roofline markdown from a run dir's programs.json "
+                    "instead of tuning")
+    tu.add_argument("--splice", default=None, metavar="DOC",
+                    help="with --report: splice the generated section into this document")
+    tu.add_argument("--device-class", default=None,
+                    help="tune for this device class instead of the card's")
+    tu.add_argument("--allow-unknown-device", action="store_true",
+                    help="tune a class with no PEAK_SPECS row in measurement-only mode "
+                    "instead of the unknown_device_class refusal")
+    tu.add_argument("--max-programs", type=int, default=64,
+                    help="prune ceiling: worst-case step-shape count per candidate")
+    tu.add_argument("--hbm-fraction", type=float, default=0.9,
+                    help="prune ceiling: fraction of the class's device memory")
+    tu.add_argument("--full-space", action="store_true",
+                    help="sweep the full knob grids instead of the slim default")
+    tu.add_argument("--model", choices=("tiny", "base"), default="tiny",
+                    help="microbench model geometry (base is the one that means "
+                    "something on the card)")
+    tu.add_argument("--seq-len", type=int, default=128)
+    tu.add_argument("--batch-size", type=int, default=8, help="training microbench batch size")
+    tu.add_argument("--steps", type=int, default=4,
+                    help="training microbench optimizer steps per epoch")
+    tu.add_argument("--requests", type=int, default=96, help="serving microbench requests")
+    tu.add_argument("--clients", type=int, default=4,
+                    help="serving microbench closed-loop client threads")
+    tu.add_argument("--max-batch", type=int, default=8,
+                    help="serving default micro-batch cap (the sweep's center)")
+    tu.add_argument("--seed", type=int, default=0)
+    tu.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    tu.set_defaults(fn=cmd_tune)
+    dr = sub.add_parser("doctor", help="environment/artifact self-diagnosis: device, mesh, "
+                        "vocabulary, data artifacts, native normalizer, kernel build dir "
+                        "(one JSON report; exit 1 on any failed check)")
+    dr.add_argument("--config", default="configs/config_memory.json",
+                    help="config whose tokenizer/data paths to check")
+    dr.add_argument("--device-timeout", type=float, default=90.0,
+                    help="seconds before the device probe counts as wedged")
+    dr.add_argument("--skip-device", action="store_true", help="skip the device probe")
+    dr.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="the device the probe runs on")
+    dr.set_defaults(fn=cmd_doctor)
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     if args.command in ("train", "evaluate"):

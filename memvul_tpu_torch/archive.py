@@ -44,8 +44,10 @@ def save_archive(
 ) -> Path:
     """Package config + a flax-layout param tree (numpy or torch leaves;
     bf16 tensors keep their dtype) + the tokenizer file into ``out_path``.
-    Members are written at gzip level 1: random or trained float weights
-    barely compress, and level 9 only costs time."""
+    Members are stored at gzip level 0: float weights, random or trained,
+    barely compress, so level 1 spends seconds writing and reading a
+    BERT-base archive to save a few percent (any gzip reader, the JAX
+    package's included, reads stored blocks)."""
     out_path = Path(out_path)
     out_path.parent.mkdir(parents=True, exist_ok=True)
     members = {
@@ -55,7 +57,7 @@ def save_archive(
     if tokenizer_file is not None and Path(tokenizer_file).exists():
         name = "vocab.txt" if str(tokenizer_file).endswith(".txt") else "tokenizer.json"
         members[name] = Path(tokenizer_file).read_bytes()
-    with tarfile.open(out_path, "w:gz", compresslevel=1) as tar:
+    with tarfile.open(out_path, "w:gz", compresslevel=0) as tar:
         for name, data in members.items():
             info = tarfile.TarInfo(name)
             info.size = len(data)

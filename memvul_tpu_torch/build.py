@@ -340,12 +340,12 @@ def train_from_config(
     import json
 
     from .archive import ARCHIVE_NAME, save_archive
-    from .config import check_training_unported, validate_classifier_config, validate_training_config
+    from .config import validate_classifier_config, validate_training_config
+    from .tuning.profile import apply_tuned_trainer
     from .models.convert import flax_from_params
 
     refuse_mesh(mesh)
     device = resolve_device(device)
-    check_training_unported(config)
     from .config import telemetry_config
     from .telemetry.live import start_run_exposition
 
@@ -354,55 +354,60 @@ def train_from_config(
     model_type = model_cfg.get("type", "model_memory")
     if model_type not in ("model_memory", "model_single", "model_cnn"):
         raise ValueError(f"unknown model type {model_type!r}")
-    if model_type == "model_memory":
-        trainer_cfg = validate_training_config(config.get("trainer"))
-    else:
-        trainer_cfg = validate_classifier_config(config.get("trainer"))
     serialization_dir = Path(serialization_dir)
     serialization_dir.mkdir(parents=True, exist_ok=True)
     (serialization_dir / "config.json").write_text(json.dumps(config, indent=2))
-
-    seed = int(config.get("random_seed", 2021))
-    tokenizer = build_tokenizer(config.get("tokenizer"))
-    reader = build_reader(config.get("dataset_reader"), seed=seed)
-    model = init_params(build_model(model_cfg, tokenizer.vocab_size), seed)
-    ckpt = model_cfg.get("pretrained_checkpoint")
-    if ckpt:
-        if Path(ckpt).exists():
-            load_pretrained_encoder(model, ckpt)
-            logger.info("loaded further-pretrained encoder from %s", ckpt)
-        else:
-            logger.warning("pretrained_checkpoint %s missing: training from scratch", ckpt)
-    trainer_cfg.setdefault("seed", seed)
-    trainer_cfg["serialization_dir"] = str(serialization_dir)
-    if tel_cfg["trace_dir"] and not trainer_cfg.get("profile_dir"):
-        # telemetry.trace_dir: the trainer's epoch-0 profiler trace
-        trainer_cfg["profile_dir"] = str(tel_cfg["trace_dir"])
-    if model_type == "model_memory":
-        from .training.trainer import MemoryTrainer, TrainerConfig
-
-        trainer = MemoryTrainer(
-            model, tokenizer, reader,
-            train_path=config["train_data_path"],
-            validation_path=config.get("validation_data_path"),
-            anchor_path=config.get("anchor_path")
-            or (config.get("dataset_reader") or {}).get("anchor_path"),
-            config=TrainerConfig(**trainer_cfg),
-            device=device,
-        )
-    else:
-        from .training.single_trainer import ClassifierTrainer, ClassifierTrainerConfig
-
-        trainer = ClassifierTrainer(
-            model, tokenizer, reader,
-            train_path=config["train_data_path"],
-            validation_path=config.get("validation_data_path"),
-            config=ClassifierTrainerConfig(**trainer_cfg),
-            device=device,
-        )
+    # the run sinks first, as the JAX package's train does: the tuned
+    # profile's tune.device_class.<class> gauge lands in the run's registry
     registry = configure_run_sinks(tel_cfg, serialization_dir)
     exposition = None
     try:
+        if model_type == "model_memory":
+            # the device class's tuned profile UNDER the explicit trainer
+            # section (no profile store: the section passes through
+            # unchanged), validated like any explicit knob
+            trainer_cfg = validate_training_config(
+                apply_tuned_trainer(dict(config.get("trainer") or {}), config))
+        else:
+            trainer_cfg = validate_classifier_config(config.get("trainer"))
+        seed = int(config.get("random_seed", 2021))
+        tokenizer = build_tokenizer(config.get("tokenizer"))
+        reader = build_reader(config.get("dataset_reader"), seed=seed)
+        model = init_params(build_model(model_cfg, tokenizer.vocab_size), seed)
+        ckpt = model_cfg.get("pretrained_checkpoint")
+        if ckpt:
+            if Path(ckpt).exists():
+                load_pretrained_encoder(model, ckpt)
+                logger.info("loaded further-pretrained encoder from %s", ckpt)
+            else:
+                logger.warning("pretrained_checkpoint %s missing: training from scratch", ckpt)
+        trainer_cfg.setdefault("seed", seed)
+        trainer_cfg["serialization_dir"] = str(serialization_dir)
+        if tel_cfg["trace_dir"] and not trainer_cfg.get("profile_dir"):
+            # telemetry.trace_dir: the trainer's epoch-0 profiler trace
+            trainer_cfg["profile_dir"] = str(tel_cfg["trace_dir"])
+        if model_type == "model_memory":
+            from .training.trainer import MemoryTrainer, TrainerConfig
+
+            trainer = MemoryTrainer(
+                model, tokenizer, reader,
+                train_path=config["train_data_path"],
+                validation_path=config.get("validation_data_path"),
+                anchor_path=config.get("anchor_path")
+                or (config.get("dataset_reader") or {}).get("anchor_path"),
+                config=TrainerConfig(**trainer_cfg),
+                device=device,
+            )
+        else:
+            from .training.single_trainer import ClassifierTrainer, ClassifierTrainerConfig
+
+            trainer = ClassifierTrainer(
+                model, tokenizer, reader,
+                train_path=config["train_data_path"],
+                validation_path=config.get("validation_data_path"),
+                config=ClassifierTrainerConfig(**trainer_cfg),
+                device=device,
+            )
         exposition = start_run_exposition(tel_cfg)
         result = trainer.train()
         archived = dict(config)
@@ -666,6 +671,7 @@ def serve_from_archive(
     from .evaluate.predict_memory import SiamesePredictor
     from .resilience.retry import RetryPolicy
     from .serving import Replica, ReplicaRouter, RouterConfig, ScoringService, ServiceConfig
+    from .tuning.profile import apply_tuned_serving
 
     refuse_mesh(mesh)
     device = resolve_device(device)
@@ -675,7 +681,11 @@ def serve_from_archive(
         raise ValueError(
             f"serving wraps the Siamese memory model; archive has model type {model_type!r}"
         )
-    serve_cfg = serving_config(arch.config)
+    # the device class's tuned profile UNDER the archive's explicit serving
+    # section (a key it or the overrides wrote non-null wins), before the
+    # checks below
+    serve_cfg = apply_tuned_serving(serving_config(arch.config),
+                                    arch.config.get("serving") or {}, arch.config)
     tel_cfg = telemetry_config(arch.config)
     max_length = int(serve_cfg["max_length"])
     model_positions = arch.model.config.max_position_embeddings

@@ -518,19 +518,36 @@ def validate_training_config(trainer: Optional[Dict[str, Any]]) -> Dict[str, Any
     return trainer
 
 
-# The JAX package's keys that a training run would act on, for features
-# this port does not have yet, with their defaults: set away from the
-# default, each raises NotImplementedError naming the slice it belongs to.
-TRAINING_UNPORTED: Dict[str, Any] = {
-    "tuning.profile_dir": (None, "tuned trainer profiles (slice 12)"),
+# The ``tuning`` section (the offline autotuner, ``tuning/``), with the JAX
+# package's defaults.  The build entry points load the device class's tuned
+# profile from ``profile_dir`` (else ``$MEMVUL_TUNED_PROFILES``, else
+# nothing) UNDER the explicit trainer and serving sections: an explicit key
+# always wins.  The sweep knobs are ``tune``'s flags (TUNING_CLI_ONLY), and
+# nothing reads them from a config: a config that changes one is refused.
+TUNING_DEFAULTS: Dict[str, Any] = {
+    "enabled": True,         # load tuned profiles in the build entry points
+    "profile_dir": None,     # <dir>/<device_class>/profile-NNNN.json + MANIFEST.json
+    "device_class": None,    # None: the card's (normalized device name)
+    "target_rescore_rate": 0.1,  # tune --cascade: golden-set share rescored
+    "max_programs": 64,      # prune ceiling: worst-case step-shape count
+    "hbm_fraction": 0.9,     # prune ceiling: of the class's PEAK_SPECS memory
+    "parity_probe": 32,      # the parity gate's probe-set size
 }
 
 
-def check_training_unported(cfg: Dict[str, Any]) -> None:
-    """Raise for a key of :data:`TRAINING_UNPORTED` set away from its
-    default."""
-    for dotted, (default, what) in TRAINING_UNPORTED.items():
-        section, key = dotted.split(".")
-        value = (cfg.get(section) or {}).get(key)
-        if value is not None and value != default:
-            raise NotImplementedError(f"{dotted}={value!r}: {what} is not ported yet (ROADMAP.md)")
+TUNING_CLI_ONLY: Dict[str, str] = {
+    "target_rescore_rate": "tune --target-rescore-rate",
+    "max_programs": "tune --max-programs",
+    "hbm_fraction": "tune --hbm-fraction",
+    "parity_probe": "tuning.microbench.TuneBench(probe_size=)",
+}
+
+
+def tuning_config(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """``cfg["tuning"]`` merged over :data:`TUNING_DEFAULTS`; a sweep knob
+    set away from its default raises, naming where it is set."""
+    merged = _section_over_defaults(cfg, "tuning", TUNING_DEFAULTS)
+    for key, where in TUNING_CLI_ONLY.items():
+        if merged[key] != TUNING_DEFAULTS[key]:
+            raise ValueError(f"tuning.{key} is not read from a config: set it with {where}")
+    return merged

@@ -5,7 +5,8 @@ cleaning, leak guards and project-level splits.
 2. drop positives created at or after their CVE's public disclosure (the
    temporal leak guard);
 3. drop projects left without any positive;
-4. normalize title and body text (:func:`~.normalize.normalize_text`);
+4. normalize title and body text (:func:`~.native.normalize_batch`, whose
+   specification is :func:`~.normalize.normalize_text`);
 5. split by project, not by report.
 
 Plain lists of dicts, one per issue report.
@@ -18,8 +19,6 @@ import random
 from collections import defaultdict
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
-
-from .normalize import normalize_text
 
 
 def extract_project(issue_url: str) -> str:
@@ -60,9 +59,15 @@ def preprocess(
     kept = [rec for rec in kept if by_project[rec["project"]] > 0]
 
     if normalize:
-        for rec in kept:
-            rec["Issue_Title"] = normalize_text(rec.get("Issue_Title") or "")
-            rec["Issue_Body"] = normalize_text(rec.get("Issue_Body") or "")
+        # batch through the parity-checked native normalizer when it builds
+        # (a thread pool over documents), else the Python pass table
+        from .native import normalize_batch
+
+        titles = normalize_batch([rec.get("Issue_Title") or "" for rec in kept])
+        bodies = normalize_batch([rec.get("Issue_Body") or "" for rec in kept])
+        for rec, title, body in zip(kept, titles, bodies):
+            rec["Issue_Title"] = title
+            rec["Issue_Body"] = body
     return kept
 
 

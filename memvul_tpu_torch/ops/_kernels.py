@@ -104,13 +104,19 @@ def _digest(files) -> str:
     return h.hexdigest()[:16]
 
 
+def library_path() -> Path:
+    """Where the library of the current sources, headers and flags lives
+    (built or not)."""
+    return BUILD_DIR / f"libmemvul_kernels_{_digest(sources() + headers())}.so"
+
+
 def build(force: bool = False) -> Path:
     """Compile every source in parallel and link them into one library;
     returns its path.  Reuses a finished build of the same sources."""
     global build_log
     srcs = sources()
-    digest = _digest(srcs + headers())
-    lib_path = BUILD_DIR / f"libmemvul_kernels_{digest}.so"
+    lib_path = library_path()
+    digest = lib_path.stem.rsplit("_", 1)[1]
     if lib_path.exists() and not force:
         return lib_path
     nvcc = find_nvcc()

@@ -334,6 +334,20 @@ class ProgramRegistry:
             records = [self._records[k] for k in reversed(self._order)]
             return [r.as_dict(peak_spec(r.device_kind)) for r in records]
 
+    def last_compile(self) -> Optional[Dict[str, Any]]:
+        """The most recently registered program (key, ``compile_s`` and its
+        age in seconds), or None: the bench watchdog's clue whether a hung
+        phase is stuck in or right after that build."""
+        with self._lock:
+            if not self._order:
+                return None
+            rec = self._records[self._order[-1]]
+            return {
+                "key": rec.key,
+                "compile_s": round(rec.compile_s, 6),
+                "age_s": time.monotonic() - rec.compiled_monotonic,
+            }
+
     def roofline(self) -> Dict[str, Any]:
         """Achieved against peak over every recorded program: the work of
         all calls, and the rates and utilizations of the timed ones

@@ -35,6 +35,12 @@ EXPECTED_MODULES = (
     "memvul_tpu_torch.telemetry.programs", "memvul_tpu_torch.telemetry.live",
     "memvul_tpu_torch.utils.profiling", "memvul_tpu_torch.serving.incident",
     "memvul_tpu_torch.serving.autoscaler", "memvul_tpu_torch.serving.fleet",
+    "memvul_tpu_torch.bench", "memvul_tpu_torch.data.native", "memvul_tpu_torch.utils.platform",
+    "memvul_tpu_torch.utils.doctor", "memvul_tpu_torch.tuning.knobs",
+    "memvul_tpu_torch.tuning.prune", "memvul_tpu_torch.tuning.parity",
+    "memvul_tpu_torch.tuning.profile", "memvul_tpu_torch.tuning.microbench",
+    "memvul_tpu_torch.tuning.cascade", "memvul_tpu_torch.tuning.autotune",
+    "memvul_tpu_torch.tuning.report",
 )
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_compare.py"]
 

@@ -44,7 +44,7 @@ from memvul_tpu.telemetry.registry import TelemetryRegistry
 from memvul_tpu.utils import profiling as jax_profiling
 from memvul_tpu_torch import build, telemetry
 from memvul_tpu_torch.archive import load_archive
-from memvul_tpu_torch.config import check_training_unported, telemetry_config
+from memvul_tpu_torch.config import telemetry_config, tuning_config
 from memvul_tpu_torch.evaluate.predict_memory import SiamesePredictor
 from memvul_tpu_torch.resilience import faults
 from memvul_tpu_torch.serving import ScoringService, ServiceConfig
@@ -564,7 +564,7 @@ def test_train_with_live_metrics_history_and_epoch_trace(tmp_path):
     with socket.socket() as s:  # the exposition released its port
         s.bind(("127.0.0.1", port))
     assert telemetry_config({"telemetry": {"step_events": False}})["step_events"] is False
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        check_training_unported({"tuning": {"profile_dir": "p/"}})
+    # tuned profiles are read since slice 12 (tests/test_torch_tuning.py)
+    assert tuning_config({"tuning": {"profile_dir": "p/"}})["profile_dir"] == "p/"
     with pytest.raises(ValueError, match="metrics_port"):
         telemetry_config({"telemetry": {"metrics_port": 70000}})

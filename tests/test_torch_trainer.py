@@ -291,10 +291,17 @@ def test_port_archive_scores_the_same_in_the_jax_package(ws, tmp_path):
 
 
 def test_unported_knobs_raise_naming_their_slice(ws, tmp_path):
+    from memvul_tpu_torch.tuning.profile import save_profile
+
     cfg = selfcheck_config(ws)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        build.train_from_config(dict(cfg, tuning={"profile_dir": "profiles/"}), tmp_path,
-                                device="cpu")
+    # tuned profiles are read since slice 12: a tuned knob answers to the
+    # validation an explicit one does
+    save_profile(tmp_path / "profiles", "cpu", {"train": {"prefetch_depth": 0}})
+    assert "prefetch_depth" not in cfg["trainer"]
+    with pytest.raises(ValueError, match="prefetch_depth"):
+        build.train_from_config(
+            dict(cfg, tuning={"profile_dir": str(tmp_path / "profiles"), "device_class": "cpu"}),
+            tmp_path, device="cpu")
     with pytest.raises(ValueError, match="unknown model type"):
         build.train_from_config(dict(cfg, model=dict(cfg["model"], type="model_folding")),
                                 tmp_path, device="cpu")
