@@ -183,6 +183,23 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  on one with a missing anchor file (exit 1); native
                  against Python normalization, the same strings, each's
                  documents per second;
+   ``parity_path`` ``python -m memvul_tpu_torch parity`` on the card over
+                 a reference-format ``model.tar.gz`` and an HF directory at
+                 BERT-base width (random weights from a seed, written with
+                 ``torch.save``), 320 synthetic reports at length 256 and
+                 129 anchors, twice: stage (a) against HF's ``BertModel``
+                 where ``transformers`` is installed (exit 0), then with
+                 it hidden (skipped with ``ok`` false, exit 1); each run's
+                 stage (b) metrics equal to the same archive's CPU
+                 scoring within ``F1_TOLERANCE`` (per-anchor probabilities
+                 within 1e-4), K1 launched once per batch and warmup
+                 shape, no ``memvul_tpu`` or ``jax`` module loaded; K1
+                 held against its plain version and timed at stage (b)'s
+                 f32 ``[64, 129, 512]``;
+   ``lint_path`` ``python -m memvul_tpu_torch lint --json`` from a copy of
+                 the tree (exit 0, no finding, every module parsed once)
+                 and ``BENCH_LINT=1`` through the bench's supervisor with a
+                 tiny main pass (the ``lint`` record before the bench's);
 6. ``main_path_profile`` / ``serve_pack_profile``
                  device time by kernel (torch.profiler) for one batch of the
                  main path's 2048 bucket and for one serve pack's round trip
@@ -5258,6 +5275,352 @@ def phase_doctor_path(workdir: Path) -> None:
         raise SystemExit(f"doctor_path failed: {checks}")
 
 
+# ``python -m memvul_tpu_torch parity ...`` as runpy runs it, with an exit
+# hook that reports the kernels' launches, the modules loaded and each
+# stage's wall on stderr; ``--hide-oracle`` (consumed here) makes
+# ``import transformers`` fail, as on a host without it
+PARITY_CHILD = (
+    "import atexit, json, runpy, sys, time\n"
+    "if '--hide-oracle' in sys.argv:\n"
+    "    sys.argv.remove('--hide-oracle')\n"
+    "    sys.modules['transformers'] = None\n"
+    "import memvul_tpu_torch.evaluate.parity as parity\n"
+    "walls = {}\n"
+    "def timed(stage, fn):\n"
+    "    def run(*args, **kw):\n"
+    "        t0 = time.perf_counter()\n"
+    "        try:\n"
+    "            return fn(*args, **kw)\n"
+    "        finally:\n"
+    "            walls[stage] = time.perf_counter() - t0\n"
+    "    return run\n"
+    "parity.convert_logit_parity = timed('a', parity.convert_logit_parity)\n"
+    "parity.archive_scoring = timed('b', parity.archive_scoring)\n"
+    "parity.metric_diff = timed('c', parity.metric_diff)\n"
+    "def report():\n"
+    "    from memvul_tpu_torch.ops import anchor_match, flash_attention, ragged_attention\n"
+    "    roots = ('memvul_tpu', 'jax', 'transformers')\n"
+    "    loaded = sorted({m.split('.')[0] for m in sys.modules\n"
+    "                     if m.split('.')[0] in roots and sys.modules[m] is not None})\n"
+    "    print('PARITY_CHILD ' + json.dumps({'anchor_match': anchor_match.launches,\n"
+    "        'flash_attention': flash_attention.launches,\n"
+    "        'ragged_attention': ragged_attention.launches, 'loaded': loaded,\n"
+    "        'stage_s': walls}), file=sys.stderr)\n"
+    "atexit.register(report)\n"
+    "sys.argv = ['memvul_tpu_torch', *sys.argv[1:]]\n"
+    "runpy.run_module('memvul_tpu_torch', run_name='__main__', alter_sys=True)\n"
+)
+PARITY_LENGTH, PARITY_BATCH = 256, 64
+
+
+def _reference_weights(config, seed: int) -> tuple:
+    """(an HF ``BertModel`` state dict, the reference ``model_memory``
+    state dict over the same encoder) at ``config``'s geometry, drawn with
+    numpy from ``seed``: N(0, 0.02) weights, LayerNorm scales 1, zero
+    biases; the pair classifier's report columns ±w, w of N(0, 0.5) made
+    zero-sum, so the reports' best scores spread about 0.5."""
+    import numpy as np
+    import torch
+
+    from memvul_tpu_torch.evaluate.reference_archive import HEADER_DIM, TRANSFORMER_PREFIX
+    from memvul_tpu_torch.models.convert import bert_encoder_shapes
+
+    rng = np.random.default_rng(seed)
+
+    def draw(shape, std=0.02):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * std)
+
+    h = config.hidden_size
+    hf = {}
+    for key, shape in bert_encoder_shapes(config).items():
+        if "LayerNorm.weight" in key:
+            hf[key] = torch.ones(shape)
+        elif key.endswith(".bias"):
+            hf[key] = torch.zeros(shape)
+        else:
+            hf[key] = draw(shape)
+    hf["pooler.dense.weight"], hf["pooler.dense.bias"] = draw((h, h)), torch.zeros(h)
+    projector = draw((2, 3 * HEADER_DIM))
+    report = draw((HEADER_DIM,), std=0.5)
+    report -= report.mean()  # zero-sum: no offset from the header's ReLU mean
+    projector[0, :HEADER_DIM], projector[1, :HEADER_DIM] = -report, report
+    reference = {TRANSFORMER_PREFIX + k: v for k, v in hf.items()}
+    reference.update({
+        "_bert_pooler.pooler.dense.weight": draw((h, h)),
+        "_bert_pooler.pooler.dense.bias": torch.zeros(h),
+        "_projector_single._linear_layers.0.weight": draw((HEADER_DIM, h)),
+        "_projector_single._linear_layers.0.bias": torch.zeros(HEADER_DIM),
+        "_projector.weight": projector,
+    })
+    return hf, reference
+
+
+def _write_parity_inputs(workdir: Path, reports_wanted: int) -> dict:
+    """A BERT-base-width HF dir (``config.json`` 768/12/12/3072, the
+    deterministic ``vocab.txt``, seeded ``pytorch_model.bin``) and a
+    reference-format ``model.tar.gz`` (``config.json`` + ``weights.th``)
+    over the same encoder weights, written with ``torch.save`` alone; the
+    synthetic corpus with each positive's ``CWE_ID`` on its record and the
+    129 anchors."""
+    import tarfile
+
+    import torch
+
+    from memvul_tpu_torch.evaluate.parity import hf_geometry
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    reports, anchors, tok, _ = _write_corpus(workdir, reports_wanted)
+    cve = json.loads((workdir / "CVE_dict.json").read_text())
+    for rec in reports:
+        if str(rec.get("Security_Issue_Full")) in ("1", "1.0"):
+            rec["CWE_ID"] = cve[rec["CVE_ID"]]["CWE_ID"]
+    corpus = workdir / "test_project.json"
+    corpus.write_text(json.dumps(reports))
+    hf_dir = workdir / "bert-base-random"
+    hf_dir.mkdir()
+    (hf_dir / "config.json").write_text(json.dumps({
+        "architectures": ["BertModel"], "model_type": "bert", "vocab_size": 30522,
+        "hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12,
+        "intermediate_size": 3072, "hidden_act": "gelu", "max_position_embeddings": 512,
+        "type_vocab_size": 2, "layer_norm_eps": 1e-12, "initializer_range": 0.02,
+        "pad_token_id": 0,
+    }))
+    (workdir / "vocab.txt").replace(hf_dir / "vocab.txt")
+    hf, reference = _reference_weights(hf_geometry(hf_dir), seed=13)
+    torch.save(hf, hf_dir / "pytorch_model.bin")
+    build = workdir / "archive_build"
+    build.mkdir()
+    (build / "config.json").write_text(json.dumps({"model": {
+        "type": "model_memory", "use_header": True, "temperature": 0.1,
+        "PTM": "bert-base-uncased"}}))
+    torch.save(reference, build / "weights.th")
+    archive = workdir / "model.tar.gz"
+    with tarfile.open(archive, "w:gz", compresslevel=0) as tar:
+        for name in ("config.json", "weights.th"):
+            tar.add(build / name, arcname=name)
+    shutil.rmtree(build)
+    return {"hf_dir": hf_dir, "archive": archive, "corpus": corpus,
+            "anchors": workdir / "CWE_anchor_golden_project.json", "reports": reports,
+            "vocab_size": tok.vocab_size, "n_anchors": len(anchors)}
+
+
+def _k1_at_stage_b(rows: int, a: int = 129, d: int = 512, c: int = 2) -> dict:
+    """K1 at stage (b)'s shape (``rows`` reports, ``a`` anchors, f32: the
+    HF geometry's dtype) against its plain version in f64 (1e-5), timed as
+    ``phase_anchor_match`` times it, beside the plain version and the
+    FP32-instruction bound."""
+    import torch
+
+    from memvul_tpu_torch.ops import anchor_match as am
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    u = torch.randn(rows, d, device="cuda", generator=gen)
+    v = torch.randn(a, d, device="cuda", generator=gen)
+    w = torch.randn(3 * d, c, device="cuda", generator=gen) * 0.1
+    got = am.fused_anchor_match(u, v, w)
+    want = am.anchor_match_reference(u.double(), v.double(), w.double())
+    torch.cuda.synchronize()
+    err, ok = max_err(got, want, 1e-5, 1e-5)
+    kernel = lambda: am.fused_anchor_match(u, v, w)  # noqa: E731
+    bound_ms, bound_by = bound((rows * d + a * d + 3 * d * c + rows * a * c) * 4,
+                               (c + 1) * rows * a * d, F32_INSTRUCTIONS_PER_S)
+    return {"shape": [rows, a, d, c], "dtype": "float32", "max_abs_err": err, "ok": ok,
+            "kernel_ms": device_ms(kernel, 50), "kernel_event_ms": time_ms(kernel, 50),
+            "plain_ms": time_ms(lambda: am.anchor_match_reference(u, v, w), 10),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _parity_child(argv: list, out: Path, hide_oracle: bool) -> dict:
+    """One ``parity`` command on the card in a child (``PARITY_CHILD``):
+    its exit code, report, exit hook and wall; stderr lands in
+    ``build/parity_path[_no_oracle].err``."""
+    argv = [*argv, "-o", str(out)] + (["--hide-oracle"] if hide_oracle else [])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", PARITY_CHILD, *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    err = ROOT / "build" / ("parity_path_no_oracle.err" if hide_oracle else "parity_path.err")
+    err.write_text(proc.stderr)
+    hook = [json.loads(line[len("PARITY_CHILD "):]) for line in proc.stderr.splitlines()
+            if line.startswith("PARITY_CHILD ")]
+    report = json.loads(proc.stdout) if proc.stdout.strip().startswith("{") else {}
+    return {"rc": proc.returncode, "report": report, "hook": hook[-1] if hook else {},
+            "wall_s": wall, "stderr": proc.stderr}
+
+
+def phase_parity_path(workdir: Path, records: dict, reports_wanted: int = 320) -> None:
+    """``python -m memvul_tpu_torch parity`` on the card over a
+    reference-format archive at BERT-base width (random weights from a
+    seed, 129 anchors, a few hundred synthetic reports at length 256):
+
+    1. the same archive scored by stage (b) on the CPU (the plain versions)
+       writes the ``--ref-metrics`` file, at the threshold that splits its
+       best scores in half;
+    2. the command runs in a child on the card, its flags as a user gives
+       them, with an exit hook that reports the kernels' launches, the
+       modules loaded and each stage's wall: stage (a) holds HF's encoder
+       within ``--atol`` where ``transformers`` is installed (exit 0);
+    3. the same with ``transformers`` hidden: stage (a) skipped with
+       ``ok`` false, the command exits 1.
+
+    Both runs: stage (b)'s metrics equal the CPU file's within
+    ``F1_TOLERANCE`` and its probabilities the CPU's within 1e-4, K1
+    launched once per scored batch and once per warmup shape and K2, K3
+    not at all, no ``memvul_tpu`` or ``jax`` module loaded.  Then K1 is
+    held against its plain version and timed at stage (b)'s shape."""
+    import importlib.util
+
+    from memvul_tpu_torch.evaluate.measure import cal_metrics
+    from memvul_tpu_torch.evaluate.parity import F1_TOLERANCE, NO_ORACLE, archive_scoring
+
+    phase_t0 = time.perf_counter()
+    inputs = _write_parity_inputs(workdir / "parity", reports_wanted)
+    setup_s = time.perf_counter() - phase_t0
+    t0 = time.perf_counter()
+    cpu = archive_scoring(inputs["archive"], inputs["hf_dir"], inputs["corpus"],
+                          inputs["anchors"], workdir / "parity" / "cpu",
+                          max_length=PARITY_LENGTH, batch_size=PARITY_BATCH, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    # random weights put every best score on one side of 0.5: the threshold
+    # is the midpoint of the CPU run's two middle best scores, so F1 splits
+    # the reports, and the reference metric file is the CPU results' at it
+    cpu_recs = {r["Issue_Url"]: r for r in _result_records(Path(cpu["result_file"]))}
+    best = sorted(max(r["predict"].values()) for r in cpu_recs.values())
+    thres = (best[len(best) // 2 - 1] + best[len(best) // 2]) / 2
+    ref_metrics = workdir / "parity" / "cpu" / "reference_metric.json"
+    reference = cal_metrics(cpu["result_file"], thres=thres, out_file=ref_metrics)
+    kept = [r for r in inputs["reports"]
+            if str(r.get("Security_Issue_Full")) not in ("1", "1.0") or r.get("CWE_ID")]
+
+    argv = ["parity", "--hf-dir", str(inputs["hf_dir"]), "--archive", str(inputs["archive"]),
+            "--corpus", str(inputs["corpus"]), "--anchors", str(inputs["anchors"]),
+            "--ref-metrics", str(ref_metrics), "--max-length", str(PARITY_LENGTH),
+            "--batch-size", str(PARITY_BATCH), "--threshold", repr(thres)]
+    oracle = importlib.util.find_spec("transformers") is not None
+    checks, runs = {}, {}
+    launches = collections.Counter()
+    for name, hide in (("card", False), ("card_no_oracle", True)):
+        run = _parity_child(argv, workdir / "parity" / name, hide)
+        report, child = run["report"], run["hook"]
+        scoring = report.get("archive_scoring") or {}
+        metrics = scoring.get("metrics") or {}
+        diff = report.get("metric_diff") or {}
+        stage_a = report.get("convert_parity") or {}
+        card_recs = ({r["Issue_Url"]: r for r in _result_records(Path(scoring["result_file"]))}
+                     if scoring.get("result_file") else {})
+        prob_err = max((abs(p - cpu_recs[url]["predict"][a]) for url, r in card_recs.items()
+                        for a, p in r["predict"].items()),
+                       default=float("inf")) if set(card_recs) == set(cpu_recs) else float("inf")
+        batches = int(metrics.get("s_batches", 0))
+        warm = len(metrics.get("s_stream_shapes") or []) if "s_warmup_s" in metrics else 0
+        with_oracle = oracle and not hide
+        checks[name] = {
+            "exit_code": run["rc"] == (0 if with_oracle else 1),
+            "stage_a": stage_a.get("ok") is True if with_oracle else (
+                stage_a == {"skipped": True, "reason": NO_ORACLE, "ok": False}
+                and report.get("ok") is False),
+            "metrics_within_f1_tolerance": diff.get("ok") is True and bool(diff.get("deltas"))
+            and all(abs(d["delta"]) <= F1_TOLERANCE for d in diff["deltas"].values()),
+            "records": len(card_recs) == len(kept),
+            "probabilities_within_1e-4": prob_err <= 1e-4,
+            "k1_launches": batches > 0 and child.get("anchor_match") == batches + warm,
+            "k2_k3_idle": child.get("flash_attention") == 0
+            and child.get("ragged_attention") == 0,
+            "no_jax_package": child.get("loaded") is not None
+            and not {"memvul_tpu", "jax"} & set(child["loaded"]),
+        }
+        runs[name] = {
+            "rc": run["rc"], "command_s": run["wall_s"], "stage_s": child.get("stage_s"),
+            "convert_parity": stage_a, "loaded": child.get("loaded"),
+            "reports_per_s": len(kept) / metrics["s_elapsed_s"]
+            if metrics.get("s_elapsed_s") else None,
+            "scoring_s": metrics.get("s_elapsed_s"),
+            "anchor_encode_s": metrics.get("s_anchor_encode_s"),
+            "warmup_s": metrics.get("s_warmup_s"),
+            "launches": {k: child.get(k) for k in ("anchor_match", "flash_attention",
+                                                   "ragged_attention")},
+            "want_k1": batches + warm, "batches": batches, "warmup_shapes": warm,
+            "max_abs_prob_err": prob_err, "f1": metrics.get("f1"), "auc": metrics.get("auc"),
+            "metric_deltas": {k: d.get("delta") for k, d in (diff.get("deltas") or {}).items()},
+        }
+        launches["anchor_match"] += int(child.get("anchor_match") or 0)
+    k1 = _k1_at_stage_b(PARITY_BATCH, inputs["n_anchors"])
+    checks["k1_at_stage_b_shape"] = {"matches_plain": k1["ok"]}
+    ok = all(all(c.values()) for c in checks.values())
+    emit("parity_path", ok=ok, checks=checks, oracle_installed=oracle, k1_at_stage_b=k1,
+         oracle_version=_module_version("transformers") if oracle else None,
+         reports=len(kept), anchors=inputs["n_anchors"], vocab_size=inputs["vocab_size"],
+         max_length=PARITY_LENGTH, batch_size=PARITY_BATCH, threshold=thres,
+         threshold_margin=min(abs(b - thres) for b in best), reference_f1=reference["f1"],
+         reference_auc=reference["auc"], cpu_reports_per_s=len(kept) / cpu["metrics"]["s_elapsed_s"],
+         cpu_scoring_s=cpu["metrics"]["s_elapsed_s"], cpu_stage_b_s=cpu_s, setup_s=setup_s,
+         runs=runs, wall_s=time.perf_counter() - phase_t0, card=nvidia_smi_line())
+    if not ok:
+        raise SystemExit(f"parity_path failed: {checks}; see build/parity_path*.err")
+    records["anchor_match"]["launches"] += launches["anchor_match"]
+
+
+def _module_version(name: str):
+    import importlib.metadata
+
+    try:
+        return importlib.metadata.version(name)
+    except importlib.metadata.PackageNotFoundError:
+        return None
+
+
+def phase_lint_path(workdir: Path, records: dict) -> None:
+    """The static-analysis engine on the card's host: ``python -m
+    memvul_tpu_torch lint --json`` from a copy of the tree (the package and
+    the port's tests) exits 0 with no active finding and parses every
+    module once; ``BENCH_LINT=1`` through the bench's supervisor with a tiny
+    main pass prints the ``lint`` record before the bench's own."""
+    phase_t0 = time.perf_counter()
+    copy = workdir / "lint_tree"
+    shutil.copytree(ROOT / "memvul_tpu_torch", copy / "memvul_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (copy / "tests").mkdir()
+    for test in (ROOT / "tests").glob("test_torch_*.py"):
+        shutil.copy(test, copy / "tests" / test.name)
+    modules = len(list((copy / "memvul_tpu_torch").rglob("*.py")))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "memvul_tpu_torch", "lint", "--json"],
+                          cwd=copy, capture_output=True, text=True, timeout=300)
+    lint_s = time.perf_counter() - t0
+    doc = json.loads(proc.stdout) if proc.stdout.strip().startswith("{") else {}
+    counts = doc.get("counts") or {}
+
+    rc, recs, counters, bench_s = _bench_run(
+        "lint", BENCH_LINT=1, BENCH_MODEL="tiny", BENCH_REPORTS=64, BENCH_TOKENS=2048,
+        BENCH_SEQ_LEN=128, BENCH_DEVICE_WAIT=300, BENCH_PROBE_TIMEOUT=120)
+    lint_rec = recs[0] if recs else {}
+    bench_rec = recs[-1] if recs else {}
+    launches = {k: int(counters.get(f"kernels.launches.{k}", 0))
+                for k in ("anchor_match", "flash_attention", "ragged_attention")}
+    checks = {
+        "lint_exit_0": proc.returncode == 0,
+        "no_active_findings": counts.get("active") == 0 and doc.get("findings") == [],
+        "no_stale_baseline": counts.get("stale_baseline") == 0,
+        "parsed_every_module_once": doc.get("files") == modules,
+        "bench_lint_record": rc == 0 and len(recs) == 2 and lint_rec.get("metric") == "lint"
+        and lint_rec.get("clean") is True and lint_rec.get("files") == modules,
+        "bench_record": "error" not in bench_rec and (bench_rec.get("value") or 0) > 0,
+        "bench_k1": launches["anchor_match"] > 0,
+    }
+    ok = all(checks.values())
+    emit("lint_path", ok=ok, checks=checks, modules=modules, engine_s=doc.get("elapsed_s"),
+         command_s=lint_s, suppressed=counts.get("suppressed"), codes=doc.get("codes"),
+         bench={"rc": rc, "wall_s": bench_s, "lint_engine_s": lint_rec.get("elapsed_s"),
+                "value": bench_rec.get("value"), "unit": bench_rec.get("unit"),
+                "launches": launches},
+         wall_s=time.perf_counter() - phase_t0, card=nvidia_smi_line())
+    if not ok:
+        raise SystemExit(f"lint_path failed: {checks}\n{proc.stderr[-2000:]}")
+    records["anchor_match"]["launches"] += launches["anchor_match"]
+    records["flash_attention"]["launches"] += launches["flash_attention"]
+    records["ragged_flash_attention"]["launches"] += launches["ragged_attention"]
+
+
 def main() -> int:
     import torch
 
@@ -5326,6 +5689,9 @@ def main() -> int:
         phase_bench_path(records)
         phase_tune_path(Path(tmp), records)
         phase_doctor_path(Path(tmp))
+        # slice 13: reference archives through the parity chain, the lint
+        phase_parity_path(Path(tmp), records)
+        phase_lint_path(Path(tmp), records)
     phase_main_path_reference()
     phase_ragged_reference()
     phase_train_reference()

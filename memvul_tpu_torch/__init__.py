@@ -6,3 +6,5 @@ card (``device="cuda"``) unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"
+
+from .registry import Registrable  # noqa: E402,F401

@@ -30,6 +30,10 @@
     python -m memvul_tpu_torch tune --mode all --model base --out profiles/ [--cascade]
     python -m memvul_tpu_torch tune --report out/ [--splice PERF.md]
     python -m memvul_tpu_torch doctor --config configs/config_memory.json [--skip-device]
+    python -m memvul_tpu_torch parity --hf-dir bert-base-uncased/ --archive model.tar.gz \\
+        --corpus data/test_project.json --anchors data/CWE_anchor_golden_project.json \\
+        [--ref-metrics reference_metric.json] [-o parity_out/]
+    python -m memvul_tpu_torch lint [--select MV101,MV201] [--json]
 
 ``pretrain`` further-pretrains the encoder with whole-word-mask MLM into
 ``<output_dir>/encoder.msgpack`` (``--export-hf`` adds an HF checkpoint
@@ -77,9 +81,15 @@ supervised child and prints its one JSON record; ``tune`` is the offline
 autotuner (exit 0 tuned, 1 no winner, 2 the ``unknown_device_class``
 refusal; ``--report`` renders the roofline table); ``doctor`` diagnoses
 the environment and a config's artifacts (exit 1 on a failed check).
+``parity`` runs the real-weights F1-parity chain (``evaluate/parity.py``:
+convert parity against HF's ``BertModel``, skipped with ``ok`` false where
+``transformers`` is missing; a reference archive scored on the device; the
+metric diff; exit 0 ok, 1 not ok, 2 usage or missing inputs).  ``lint``
+runs the static-analysis engine over the port's sources (exit 0 clean, 1
+findings, 2 usage; ``--json`` the machine-readable document).
 The commands that compute on a device (``pretrain``, ``train``,
 ``evaluate``, ``score-corpus``, ``serve``, ``bank shadow``, ``bank
-promote``, ``selfcheck``, ``baseline``, ``tune``, ``doctor``) run on the
+promote``, ``selfcheck``, ``baseline``, ``tune``, ``doctor``, ``parity``) run on the
 card (``--device cuda``, the default) unless ``--device cpu`` is given;
 ``bench`` takes ``BENCH_DEVICE=cpu``.
 """
@@ -538,7 +548,8 @@ def cmd_selfcheck(args) -> int:
 
 def cmd_bench(args) -> int:
     """The benchmark harness (``bench.py``): its env knobs, one JSON
-    record, exit 0 measured / 1 failed / 2 ``BENCH_LINT`` refused."""
+    record (``BENCH_LINT=1`` prints the lint record before it), exit 0
+    measured / 1 failed."""
     from .bench import main as bench_main
 
     return int(bench_main() or 0)
@@ -619,6 +630,40 @@ def cmd_doctor(args) -> int:
                         skip_device=args.skip_device, device=args.device)
     print(json.dumps(report, indent=2, default=str))
     return 0 if report["ok"] else 1
+
+
+def cmd_parity(args) -> int:
+    """The real-weights F1-parity chain (``evaluate/parity.py``) on
+    ``--device``: convert parity at the checkpoint's geometry, reference
+    archive scoring, the metric diff against the reference pipeline's own
+    file.  Exit 0 ok, 1 not ok, 2 usage or missing inputs."""
+    from .evaluate.parity import run_parity
+
+    try:
+        report = run_parity(
+            args.hf_dir, archive=args.archive, corpus=args.corpus, anchors=args.anchors,
+            ref_metrics=args.ref_metrics, out_dir=args.out_dir, max_length=args.max_length,
+            batch_size=args.batch_size, thres=args.threshold, atol=args.atol,
+            seq_len=args.seq_len, device=args.device,
+        )
+    except (ValueError, FileNotFoundError) as e:
+        # usage or missing-artifact problems exit 2, apart from exit 1:
+        # parity ran and failed its tolerance
+        print(f"parity: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps(report, indent=2, default=float))
+    return 0 if report["ok"] else 1
+
+
+def cmd_lint(args) -> int:
+    """The static-analysis engine (``analysis/``) over the port's own
+    sources: one AST parse per file shared by every checker (bare print,
+    handler and router blocking, artifact writes, forward purity, lock
+    discipline, the fault/metric/config/kernel-build drift checks).  Exit 0
+    clean, 1 findings, 2 usage."""
+    from .analysis.cli import run_lint
+
+    return run_lint(args)
 
 
 def _add_bank_parsers(sub) -> None:
@@ -880,6 +925,35 @@ def main(argv=None) -> int:
     dr.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="the device the probe runs on")
     dr.set_defaults(fn=cmd_doctor)
+    pa = sub.add_parser("parity", help="real-weights parity chain: HF convert check, reference-"
+                        "archive scoring, metric diff (run on a machine that has the genuine "
+                        "bert-base-uncased dir / reference model.tar.gz)")
+    pa.add_argument("--hf-dir", required=True,
+                    help="local HF checkpoint dir (config.json + torch weights + vocab.txt), "
+                    "e.g. bert-base-uncased")
+    pa.add_argument("--archive", default=None, help="reference-trained model.tar.gz")
+    pa.add_argument("--corpus", default=None, help="test_project.json")
+    pa.add_argument("--anchors", default=None, help="CWE_anchor_golden_project.json")
+    pa.add_argument("--ref-metrics", default=None,
+                    help="metric file the reference pipeline wrote, to diff")
+    pa.add_argument("-o", "--out-dir", default="parity_out")
+    pa.add_argument("--max-length", type=int, default=512)
+    pa.add_argument("--batch-size", type=int, default=512)
+    pa.add_argument("--threshold", type=float, default=0.5)
+    pa.add_argument("--atol", type=float, default=5e-4,
+                    help="convert-parity max-abs-error acceptance")
+    pa.add_argument("--seq-len", type=int, default=128,
+                    help="convert-parity probe sequence length")
+    pa.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    pa.set_defaults(fn=cmd_parity)
+    li = sub.add_parser("lint", help="static analysis over the port's sources: forward purity, "
+                        "lock discipline, handler/artifact hygiene, and fault/metric/config/"
+                        "kernel-build drift checks; one AST parse per file, inline "
+                        "suppressions + committed baseline")
+    from .analysis.cli import add_lint_arguments
+
+    add_lint_arguments(li)
+    li.set_defaults(fn=cmd_lint)
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     if args.command in ("train", "evaluate"):

@@ -47,8 +47,8 @@ deadline inside the child, 600 s, 0 disables), BENCH_TELEMETRY_DIR (the
 child's run dir: phase spans in events.jsonl, HEARTBEAT.json,
 telemetry.json with the kernels' launch counts ``kernels.launches.*``
 and the batches that explain them, ``bench.*``), BENCH_LINT=1 (the
-static-analysis record; its engine is not ported yet, so the supervisor
-prints an ``error`` record and exits 2).  BENCH_MICRO_INTERPRET has no
+supervisor first prints one ``{"metric": "lint"}`` record of the
+static-analysis engine over the port's tree, then runs the bench).  BENCH_MICRO_INTERPRET has no
 meaning without Pallas interpret mode and is refused.
 
 Supervision.  ``main`` first waits for the device with cheap probe
@@ -1643,6 +1643,25 @@ def _error_record(error: str) -> dict:
             "vs_baseline": 0.0, "error": error}
 
 
+def _lint_record() -> dict:
+    """BENCH_LINT=1: run the static-analysis engine over the port's tree
+    and return one parseable JSON record.  The supervisor prints it as its
+    own line before the bench result, so a sweep harness collects code
+    health beside throughput without a second process."""
+    from memvul_tpu_torch.analysis import analyze_repo
+
+    result = analyze_repo()
+    return {
+        "metric": "lint",
+        "clean": not result.active,
+        "findings": [f.to_json() for f in result.active],
+        "suppressed": len(result.suppressed),
+        "baselined": len(result.baselined),
+        "files": result.parse_count,
+        "elapsed_s": round(result.elapsed_s, 3),
+    }
+
+
 def main() -> int:
     if os.environ.get(_CHILD_ENV_FLAG) == "1":
         # BENCH_TELEMETRY_DIR=<dir>: the child keeps a telemetry run dir
@@ -1666,14 +1685,10 @@ def main() -> int:
         return 0
 
     if os.environ.get("BENCH_LINT") == "1":
-        # the static-analysis engine (analysis/) is slice 13 of the port:
-        # refuse in the bench's own record shape rather than skip silently
-        print(json.dumps({
-            "metric": "lint",
-            "error": "BENCH_LINT=1: the static-analysis engine (analysis/, lint) is not "
-                     "ported yet (slice 13, ROADMAP.md)",
-        }))
-        return 2
+        # surfaced by the supervisor (one JSON line of its own) so the
+        # record rides the same stdout contract as the bench result
+        print(json.dumps(_lint_record()))
+        sys.stdout.flush()
 
     attempts = max(1, int(os.environ.get("BENCH_ATTEMPTS", "3")))
     attempt_timeout = float(os.environ.get("BENCH_ATTEMPT_TIMEOUT", "1500"))

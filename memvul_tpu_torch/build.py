@@ -75,31 +75,25 @@ def encoder_config(cfg: Optional[Dict[str, Any]], vocab_size: Optional[int] = No
 
 
 def build_tokenizer(cfg: Optional[Dict[str, Any]]):
-    """``type`` "wordpiece" (the default) or "word" (TextCNN's)."""
-    from .data.tokenizer import WordPieceTokenizer, WordTokenizer
+    """The registered ``TextTokenizer`` a config names: ``type``
+    "wordpiece" (the default) or "word" (TextCNN's)."""
+    from .data.tokenizer import TextTokenizer
 
-    cfg = dict(cfg or {})
-    kind = cfg.pop("type", "wordpiece")
-    tokenizers = {"wordpiece": WordPieceTokenizer, "word": WordTokenizer}
-    if kind not in tokenizers:
-        raise ValueError(f"unknown tokenizer type {kind!r} (want {sorted(tokenizers)})")
-    return tokenizers[kind](**cfg)
+    return TextTokenizer.from_config(cfg or {})
 
 
 def build_reader(cfg: Optional[Dict[str, Any]], seed: Optional[int] = None):
-    """The reader (``reader_memory`` by default, or ``reader_single``);
-    ``seed`` (the config's ``random_seed``) reaches its sampling RNG unless
-    the reader section pins its own."""
-    from .data.readers import MemoryReader, SingleReader
+    """The registered ``DatasetReader`` a config names (``reader_memory``
+    by default, or ``reader_single``); ``seed`` (the config's
+    ``random_seed``) reaches its sampling RNG unless the reader section
+    pins its own."""
+    from .data.readers import DatasetReader
 
     cfg = dict(cfg or {})
+    cfg.setdefault("type", "reader_memory")
     if seed is not None:
         cfg.setdefault("seed", seed)
-    kind = cfg.pop("type", "reader_memory")
-    readers = {"reader_memory": MemoryReader, "reader_single": SingleReader}
-    if kind not in readers:
-        raise ValueError(f"unknown reader type {kind!r} (want {sorted(readers)})")
-    return readers[kind](**cfg)
+    return DatasetReader.from_config(cfg)
 
 
 def build_model(model_cfg: Dict[str, Any], vocab_size: int):

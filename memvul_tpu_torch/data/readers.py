@@ -32,6 +32,7 @@ import random
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional
 
+from ..registry import Registrable
 from ..resilience import faults
 from .normalize import normalize_text
 
@@ -88,7 +89,16 @@ def _iter_corpus(file_path: str, quarantine=None) -> Iterator[Dict]:
             yield record
 
 
-class MemoryReader:
+class DatasetReader(Registrable):
+    """Base of the registered readers (``dataset_reader.type``):
+    "reader_memory" and "reader_single"."""
+
+    def read(self, file_path: str, split: Optional[str] = None) -> Iterator[Dict]:
+        raise NotImplementedError
+
+
+@DatasetReader.register("reader_memory")
+class MemoryReader(DatasetReader):
     def __init__(
         self,
         cve_path: Optional[str] = None,
@@ -279,7 +289,8 @@ class MemoryReader:
         }
 
 
-class SingleReader:
+@DatasetReader.register("reader_single")
+class SingleReader(DatasetReader):
     """The single-text classifiers' reader (MemVul-m, TextCNN): each
     report as ``text1`` = "title. body" with a "pos"/"neg" label from
     ``target``.  On the train split a negative survives with probability

@@ -43,6 +43,8 @@ from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
+from ..registry import Registrable
+
 PAD, UNK, CLS, SEP, MASK = "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"
 SPECIAL_TOKENS = [PAD, UNK, CLS, SEP, MASK]
 
@@ -152,7 +154,15 @@ def bert_pre_tokenize(text: str) -> List[str]:
     return words
 
 
-class WordPieceTokenizer:
+class TextTokenizer(Registrable):
+    """Base of the registered tokenizers (``tokenizer.type`` in a config):
+    "wordpiece" (the default) and "word"."""
+
+    default_implementation = "wordpiece"
+
+
+@TextTokenizer.register("wordpiece")
+class WordPieceTokenizer(TextTokenizer):
     """BERT-style wordpiece tokenizer, the port's counterpart of
     ``memvul_tpu.data.tokenizer.WordPieceTokenizer``."""
 
@@ -425,7 +435,8 @@ class WordPieceTokenizer:
         Path(path).write_text("\n".join(t for t, _ in ordered) + "\n", encoding="utf-8")
 
 
-class WordTokenizer:
+@TextTokenizer.register("word")
+class WordTokenizer(TextTokenizer):
     """Word-level tokenizer of the TextCNN baseline, the port's counterpart
     of ``memvul_tpu.data.tokenizer.WordTokenizer``: lowercased runs of
     letters, runs of digits and single other non-space characters, looked

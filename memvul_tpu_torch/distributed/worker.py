@@ -145,7 +145,9 @@ def run_worker(spec_path: str) -> int:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if len(argv) != 1:
-        print("usage: python -m memvul_tpu_torch.distributed.worker <spec.json>", file=sys.stderr)
+        # CLI usage text belongs on stderr, not in a logger
+        print(  # lint: disable=MV101
+            "usage: python -m memvul_tpu_torch.distributed.worker <spec.json>", file=sys.stderr)
         return 2
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")

@@ -27,11 +27,17 @@ under ``encoder/layers/layer``, otherwise they sit at ``encoder/layer_{i}``
 (:func:`encoder_layout` names which).  A ScalarMix encoder
 (``last_layer_only=False``) carries ``bert/scalar_mix/{scalar_weights,
 gamma}`` ↔ ``bert.scalar_mix.*``.
+
+:func:`convert_bert_state_dict` takes an HF ``BertModel`` state dict (the
+counterpart of ``memvul_tpu.models.convert.convert_bert_state_dict``):
+the port's encoder already uses HF's keys, so it strips a ``bert.``
+prefix, checks every key and shape against the geometry, and hands the
+HF pooler back beside the encoder rather than loading it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -134,7 +140,7 @@ def flax_encoder(sd: Dict[str, torch.Tensor], config: BertConfig) -> Dict:
     def ln(pre):
         return {"scale": _np(sd[pre + ".weight"]), "bias": _np(sd[pre + ".bias"])}
 
-    def layer(i):
+    def layer_tree(i):
         pre = f"encoder.layer.{i}."
 
         def qkv(name):
@@ -157,7 +163,7 @@ def flax_encoder(sd: Dict[str, torch.Tensor], config: BertConfig) -> Dict:
             "output_LayerNorm": ln(pre + "output.LayerNorm"),
         }
 
-    layers = [layer(i) for i in range(config.num_layers)]
+    layers = [layer_tree(i) for i in range(config.num_layers)]
     if config.scan_layers:
 
         def stack(*xs):
@@ -259,3 +265,65 @@ def flax_from_params(
                                          "bias": _np(sd["transform_LayerNorm.bias"])}
         params["decoder_bias"] = _np(sd["decoder_bias"])
     return {"params": params}
+
+
+def bert_encoder_shapes(config: BertConfig) -> Dict[str, Tuple[int, ...]]:
+    """Key → shape of the port's ``BertEncoder`` state dict (HF
+    ``BertModel``'s keys, no pooler) at ``config``'s geometry."""
+    h, inter = config.hidden_size, config.intermediate_size
+    shapes: Dict[str, Tuple[int, ...]] = {
+        "embeddings.word_embeddings.weight": (config.vocab_size, h),
+        "embeddings.position_embeddings.weight": (config.max_position_embeddings, h),
+        "embeddings.token_type_embeddings.weight": (config.type_vocab_size, h),
+        "embeddings.LayerNorm.weight": (h,),
+        "embeddings.LayerNorm.bias": (h,),
+    }
+    for i in range(config.num_layers):
+        pre = f"encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            shapes[pre + f"attention.self.{name}.weight"] = (h, h)
+            shapes[pre + f"attention.self.{name}.bias"] = (h,)
+        shapes[pre + "attention.output.dense.weight"] = (h, h)
+        for name in ("attention.output.dense.bias", "attention.output.LayerNorm.weight",
+                     "attention.output.LayerNorm.bias", "output.dense.bias",
+                     "output.LayerNorm.weight", "output.LayerNorm.bias"):
+            shapes[pre + name] = (h,)
+        shapes[pre + "intermediate.dense.weight"] = (inter, h)
+        shapes[pre + "intermediate.dense.bias"] = (inter,)
+        shapes[pre + "output.dense.weight"] = (h, inter)
+    return shapes
+
+
+def convert_bert_state_dict(
+    state_dict: Dict, config: BertConfig
+) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
+    """HF ``BertModel`` state dict → (the port's ``BertEncoder`` state
+    dict, the HF pooler's ``{"dense.weight", "dense.bias"}`` or None), f32.
+
+    Keys may carry a leading ``bert.``; values may be tensors or numpy
+    arrays.  Every key of the geometry must be present with its shape
+    (else ``KeyError`` or ``ValueError`` naming the key), and a checkpoint
+    deeper than ``config.num_layers`` raises rather than truncating.  The
+    pooler is returned, not loaded (the memory model trains its own)."""
+    sd = {(k[len("bert."):] if k.startswith("bert.") else k): v for k, v in state_dict.items()}
+    depth = {int(k.split(".")[2]) for k in sd if k.startswith("encoder.layer.")}
+    if depth and max(depth) + 1 != config.num_layers:
+        raise ValueError(
+            f"checkpoint has {max(depth) + 1} encoder layers but config.num_layers="
+            f"{config.num_layers}: a depth mismatch would truncate the converted model"
+        )
+    encoder: Dict[str, torch.Tensor] = {}
+    for key, shape in bert_encoder_shapes(config).items():
+        if key not in sd:
+            raise KeyError(f"HF state dict lacks {key!r}")
+        value = _f32(sd[key])
+        if tuple(value.shape) != shape:
+            raise ValueError(
+                f"HF state dict {key!r} has shape {tuple(value.shape)}, the geometry wants {shape}"
+            )
+        encoder[key] = value
+    pooler = None
+    if "pooler.dense.weight" in sd:
+        pooler = {"dense.weight": _f32(sd["pooler.dense.weight"]),
+                  "dense.bias": _f32(sd["pooler.dense.bias"])}
+    return encoder, pooler

@@ -87,6 +87,37 @@ from typing import Dict, List, Optional
 
 _ENV_VAR = "MEMVUL_FAULTS"
 
+# Machine-readable registry of the injection points in the table above
+# (the JAX package's set without ``kernel.lower``).  The static-analysis
+# engine (``analysis/``, checker MV401) reconciles every
+# ``fault_point(...)`` call site and every point named in a test's
+# MEMVUL_FAULTS spec against it: a typo'd chaos spec otherwise arms
+# nothing and silently tests nothing.  Dynamic families (``step.<n>``,
+# ``replica.kill.<name>``) register their prefix in
+# REGISTERED_POINT_PREFIXES.
+REGISTERED_POINTS = frozenset({
+    "data.read",
+    "ckpt.write",
+    "score.batch",
+    "serve.batch",
+    "serve.cascade",
+    "replica.kill",
+    "bank.shadow",
+    "shard.kill",
+    "shard.stall",
+    "merge.verify",
+    "host.kill",
+    "host.stall",
+    "scaler.spawn",
+    "incident.dump",
+    "cache.lookup",
+    "bank.resolve",
+})
+REGISTERED_POINT_PREFIXES = (
+    "step.", "replica.kill.", "shard.kill.", "shard.stall.",
+    "host.kill.", "host.stall.",
+)
+
 _lock = threading.Lock()
 _faults: Dict[str, List["_Fault"]] = {}
 _armed = False  # fast-path gate: fault_point returns at once when False

@@ -17,7 +17,9 @@ def atomic_write_text(path: Union[str, Path], text: str) -> Path:
     path = Path(path)
     tmp = path.with_name(f"{path.name}.tmp.{os.getpid()}")
     try:
-        tmp.write_text(text)
+        # this IS the committed helper: the tmp write precedes the
+        # atomic os.replace commit below
+        tmp.write_text(text)  # lint: disable=MV103
         faults.fault_point("ckpt.write")
         os.replace(tmp, path)
     finally:

@@ -362,7 +362,9 @@ class ProcessHost:
         t0 = time.monotonic()
         stderr = subprocess.DEVNULL
         if self._log_path:
-            stderr = open(self._log_path, "ab")
+            # the child's stderr log, not a committed artifact: the child
+            # appends to it directly and no reader parses it
+            stderr = open(self._log_path, "ab")  # lint: disable=MV103
         try:
             self.proc = subprocess.Popen(
                 self.argv,

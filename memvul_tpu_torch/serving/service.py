@@ -547,14 +547,19 @@ class ScoringService:
         tenant = str(tenant) if tenant else DEFAULT_TENANT
         instances = list(anchor_instances)
         with self._swap_lock:
-            bank, labels, n_anchors = self.predictor.encode_bank(instances)
+            # the swap lock is control-plane-only (it serializes concurrent
+            # swaps); the request path never takes it, so encoding and
+            # warming under it is deliberate, not a batcher stall
+            bank, labels, n_anchors = self.predictor.encode_bank(instances)  # lint: disable=MV301
             weights = _bank_weights(instances, n_anchors)
             shape = tuple(bank.shape)
             if shape not in self._warmed_bank_shapes:
                 logger.info("bank swap introduces shape %s: warming the serving shapes first",
                             shape)
                 with self._tel.span("serve.bank_warmup"):
-                    self.predictor.warmup_bank_shapes(bank)
+                    # same contract as the encode above: a control-plane
+                    # lock, never contended by the request path
+                    self.predictor.warmup_bank_shapes(bank)  # lint: disable=MV301
                 self._warmed_bank_shapes.add(shape)
             with self._bank_lock:
                 current = self._bank if tenant == DEFAULT_TENANT else self._banks.get(tenant)
@@ -697,10 +702,11 @@ class ScoringService:
         if self._thread.is_alive():  # pragma: no cover - defensive
             logger.warning("serve batcher did not exit within %ss", timeout)
         if self.out_dir is not None:
+            from ..resilience.io import atomic_write_text
+
             self.out_dir.mkdir(parents=True, exist_ok=True)
-            (self.out_dir / "telemetry.json").write_text(
-                json.dumps(self._tel.snapshot(), indent=2)
-            )
+            atomic_write_text(self.out_dir / "telemetry.json",
+                              json.dumps(self._tel.snapshot(), indent=2))
 
 
     def hard_kill(self) -> None:

@@ -31,7 +31,9 @@ class JsonlSink:
         with self._lock:
             if self._f is None:
                 self.path.parent.mkdir(parents=True, exist_ok=True)
-                self._f = open(self.path, "a", encoding="utf-8")
+                # JsonlSink IS the sanctioned append-only writer (one
+                # flushed line per event, torn-tail-tolerant readers)
+                self._f = open(self.path, "a", encoding="utf-8")  # lint: disable=MV103
             self._f.write(line + "\n")
             self._f.flush()
 

@@ -8,8 +8,9 @@ package's (``memvul_tpu/bench.py``), on the CPU.
   device probe), plus the watchdog record naming the program registry's
   last build, a real bench child wedged in a phase (exit 124 alone, the
   watchdog's error under the supervisor), the
-  refusals (no CUDA and no ``BENCH_DEVICE=cpu``; ``BENCH_LINT=1``;
-  ``BENCH_MICRO_INTERPRET``);
+  refusals (no CUDA and no ``BENCH_DEVICE=cpu``;
+  ``BENCH_MICRO_INTERPRET``), and ``BENCH_LINT=1``'s lint record before
+  the bench's own;
 * **records**: the main pass and every micro (``anchor_match``,
   ``train_step``, ``serve`` ab, the router and autoscale records,
   ``corpus``, ``tune``) at tiny geometry with ``BENCH_DEVICE=cpu`` carry
@@ -320,11 +321,13 @@ def test_refusals_without_cuda_lint_and_interpret():
     assert len(lines) == 1
     record = json.loads(lines[0])
     assert record["value"] == 0.0 and "no CUDA device" in record["error"]
-    # BENCH_LINT: the analysis engine is slice 13
-    proc = _bench_cli({"BENCH_LINT": "1", "BENCH_DEVICE": "cpu"})
-    assert proc.returncode == 2
-    record = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert record["metric"] == "lint" and "slice 13" in record["error"]
+    # BENCH_LINT: the lint record of the port's tree first, then the bench
+    # (here its refusal without CUDA), as the JAX package's supervisor does
+    proc = _bench_cli({"BENCH_LINT": "1", "BENCH_MODEL": "tiny"})
+    assert proc.returncode == 1
+    lint, refusal = [json.loads(line) for line in proc.stdout.strip().splitlines()]
+    assert lint["metric"] == "lint" and lint["clean"] is True and lint["findings"] == []
+    assert "error" not in lint and "no CUDA device" in refusal["error"]
     # BENCH_MICRO_INTERPRET has no meaning without Pallas
     proc = _bench_cli({"BENCH_DEVICE": "cpu", "BENCH_MICRO": "anchor_match",
                        "BENCH_MICRO_INTERPRET": "1", "BENCH_ATTEMPTS": "1"})

@@ -96,8 +96,28 @@ def test_doctor_missing_config_reports_cleanly(tmp_path, capsys):
     assert "FileNotFoundError" in report["vocabulary"]["error"]
 
 
+@pytest.fixture
+def fresh_normalizers():
+    """Both packages' native normalizers in a new process's state (probed
+    again at first use), restored afterwards: a test of another file in the
+    same worker may leave one disabled or with a stale ``_kind``, and the
+    reports compared here read those module globals."""
+    from memvul_tpu.data import native as jax_native
+    from memvul_tpu_torch.data import native as port_native
+
+    names = ("_lib", "_state", "_reason", "_kind")
+    saved = [(mod, {n: getattr(mod, n) for n in names}) for mod in (jax_native, port_native)]
+    for mod, _ in saved:
+        for n in names:
+            setattr(mod, n, None)
+    yield
+    for mod, values in saved:
+        for n, value in values.items():
+            setattr(mod, n, value)
+
+
 @pytest.mark.parametrize("variant", ["complete", "missing", "absent"])
-def test_config_sections_equal_the_jax_report(variant, ws, tmp_path, capsys):
+def test_config_sections_equal_the_jax_report(variant, ws, tmp_path, capsys, fresh_normalizers):
     cfg_dict = selfcheck_config(ws)
     if variant == "missing":
         cfg_dict["validation_data_path"] = str(tmp_path / "gone.json")

@@ -41,23 +41,61 @@ EXPECTED_MODULES = (
     "memvul_tpu_torch.tuning.profile", "memvul_tpu_torch.tuning.microbench",
     "memvul_tpu_torch.tuning.cascade", "memvul_tpu_torch.tuning.autotune",
     "memvul_tpu_torch.tuning.report",
+    "memvul_tpu_torch.registry", "memvul_tpu_torch.evaluate.reference_archive",
+    "memvul_tpu_torch.evaluate.parity", "memvul_tpu_torch.analysis",
+    "memvul_tpu_torch.analysis.engine", "memvul_tpu_torch.analysis.cli",
+    "memvul_tpu_torch.analysis.checkers", "memvul_tpu_torch.analysis.checkers.prints",
+    "memvul_tpu_torch.analysis.checkers.handlers", "memvul_tpu_torch.analysis.checkers.artifacts",
+    "memvul_tpu_torch.analysis.checkers.purity", "memvul_tpu_torch.analysis.checkers.locks",
+    "memvul_tpu_torch.analysis.checkers.drift",
 )
+# the one sanctioned import of a forbidden library: HF's BertModel as the
+# oracle of parity's stage (a), imported lazily inside that function
+ORACLE_IMPORT = (PORT / "evaluate" / "parity.py", "convert_logit_parity", "transformers")
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_compare.py"]
 
 
-def _imported_roots(path: Path):
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+def _import_nodes(tree):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
-                yield alias.name.split(".")[0]
+                yield node, alias.name.split(".")[0]
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            yield node.module.split(".")[0]
+            yield node, node.module.split(".")[0]
+
+
+def _sanctioned(path: Path, tree) -> set:
+    """The import nodes of ``ORACLE_IMPORT`` in ``path``: those inside the
+    named function's body."""
+    oracle_path, function, library = ORACLE_IMPORT
+    if path != oracle_path:
+        return set()
+    return {
+        node for fn in ast.walk(tree)
+        if isinstance(fn, ast.FunctionDef) and fn.name == function
+        for node, root in _import_nodes(fn) if root == library
+    }
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_imports(path):
-    bad = sorted({root for root in _imported_roots(path) if root in FORBIDDEN})
+    tree = ast.parse(path.read_text(), filename=str(path))
+    allowed = _sanctioned(path, tree)
+    bad = sorted({root for node, root in _import_nodes(tree)
+                  if root in FORBIDDEN and node not in allowed})
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_transformers_only_inside_parity_stage_a():
+    """``transformers`` is imported in exactly one place: lazily, in
+    ``evaluate/parity.py::convert_logit_parity`` (stage (a)'s oracle)."""
+    sites = []
+    for path in PORT_FILES:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        allowed = _sanctioned(path, tree)
+        sites += [(path, node in allowed) for node, root in _import_nodes(tree)
+                  if root == "transformers"]
+    assert sites == [(ORACLE_IMPORT[0], True)]
 
 
 def test_port_imports_with_forbidden_modules_blocked():
