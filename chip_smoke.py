@@ -227,6 +227,7 @@ from __future__ import annotations
 
 import collections
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -5621,6 +5622,366 @@ def phase_lint_path(workdir: Path, records: dict) -> None:
     records["ragged_flash_attention"]["launches"] += launches["ragged_attention"]
 
 
+# The mesh comparisons run with deterministic kernels (the dedup gather's
+# backward is an index_add_, whose default CUDA version adds in any order,
+# and the first AdamW update turns such last-bit differences into signs)
+DETERMINISTIC_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+# ``python -m memvul_tpu_torch ...`` as runpy runs it, deterministic, with
+# an exit hook that reports the process's K1 and K2 launches on stderr
+MESH_CHILD = (
+    "import atexit, json, runpy, sys\n"
+    "import torch\n"
+    "torch.use_deterministic_algorithms(True, warn_only=True)\n"
+    "def report():\n"
+    "    from memvul_tpu_torch.ops import anchor_match, flash_attention\n"
+    "    print('MESH_CHILD ' + json.dumps({'anchor_match': anchor_match.launches,\n"
+    "        'flash_attention': flash_attention.launches}), file=sys.stderr)\n"
+    "atexit.register(report)\n"
+    "sys.argv = ['memvul_tpu_torch', *sys.argv[1:]]\n"
+    "runpy.run_module('memvul_tpu_torch', run_name='__main__', alter_sys=True)\n"
+)
+
+
+def _mesh_cli_start(argv: list):
+    """One CLI command on the card in a child (``MESH_CHILD``), started."""
+    return (subprocess.Popen([sys.executable, "-c", MESH_CHILD, *map(str, argv)], cwd=ROOT,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                             env=dict(os.environ, **DETERMINISTIC_ENV)),
+            time.perf_counter())
+
+
+def _mesh_cli_finish(started, name: str) -> dict:
+    """The child's exit code, the JSON lines it printed, its launches and
+    wall; its stderr lands in ``build/mesh_path_<name>.err``."""
+    proc, t0 = started
+    out, err = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t0
+    (ROOT / "build" / f"mesh_path_{name}.err").write_text(err)
+    hook = [json.loads(line[len("MESH_CHILD "):]) for line in err.splitlines()
+            if line.startswith("MESH_CHILD ")]
+    lines = [line for line in out.splitlines() if line.startswith("{")]
+    return {"rc": proc.returncode, "json_lines": len(lines), "hook": hook[-1] if hook else {},
+            "wall_s": wall}
+
+
+def _records_by_url(path: Path) -> dict:
+    return {r["Issue_Url"]: r for line in path.read_text().splitlines() if line.strip()
+            for r in json.loads(line)}
+
+
+def _max_param_diff(archive_a: Path, archive_b: Path) -> float:
+    from memvul_tpu_torch.archive import load_archive
+
+    a = load_archive(archive_a, device="cpu").model.state_dict()
+    b = load_archive(archive_b, device="cpu").model.state_dict()
+    if a.keys() != b.keys():
+        return float("inf")
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def _epoch0(run_dir: Path, key: str) -> list:
+    """``training_<key>`` of a train run's first epoch (``metrics.json``)."""
+    metrics = run_dir / "metrics.json"
+    if not metrics.exists():
+        return []
+    return json.loads(metrics.read_text())["history"][0][f"training_{key}"]
+
+
+def mesh_shared_card(work: str, cfg_file: str, archive: str, test_path: str, overrides: dict):
+    """One of two ranks sharing ``cuda:0`` over gloo (NCCL refuses two ranks
+    on one device), deterministic: ``data=2`` training, then ``data=1 ×
+    model=2`` scoring with the bank split over the two ranks; each stage's
+    K1/K2 launches."""
+    import torch
+
+    from memvul_tpu_torch.build import evaluate_from_archive, train_from_config
+    from memvul_tpu_torch.ops import anchor_match as am
+    from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.parallel import create_mesh
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    work = Path(work)
+    out = {}
+    dp = create_mesh({"data": 2}, device="cuda:0", backend="gloo")
+    out["rank"], out["backend"] = dp.rank, dp.backend
+    fa.launches = am.launches = 0
+    t0 = time.perf_counter()
+    result = train_from_config(json.loads(Path(cfg_file).read_text()), work / "train",
+                               device="cuda", mesh=dp)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["step_s"] = result["history"][0]["training_step_durations_s"]
+    out["losses"] = result["history"][0]["training_losses"]
+    out["train_launches"] = {"flash_attention": fa.launches, "anchor_match": am.launches}
+    bank = create_mesh({"data": 1, "model": 2}, device="cuda:0", backend="gloo")
+    fa.launches = am.launches = 0
+    metrics = evaluate_from_archive(archive, test_path, work / "eval", overrides=overrides,
+                                    device="cuda", mesh=bank)
+    torch.cuda.synchronize()
+    out["eval_launches"] = {"flash_attention": fa.launches, "anchor_match": am.launches}
+    out["batches"] = int(metrics["s_batches"])
+    out["shapes"] = len(metrics["s_stream_shapes"])
+    out["chunks"] = int(metrics["s_anchor_chunks"])
+    out["tp"] = _tp_forward(bank)
+    return out
+
+
+def _tp_forward(mesh, rows: int = 8, length: int = 512) -> dict:
+    """A tensor-parallel BERT-base forward (bf16, flash) over ``mesh``'s
+    model axis: K2 on this rank's local heads, held against one device's
+    bf16 forward, both measured from the same weights in f32 (the TP
+    error at most twice one device's, plus 1e-3)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from memvul_tpu_torch.models.bert import BertConfig
+    from memvul_tpu_torch.models.memory import MemoryModel
+    from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.parallel.sharding import shard_params
+
+    torch.manual_seed(0)
+    cfg = BertConfig.base(dtype=torch.bfloat16, attention_impl="flash")
+    one = MemoryModel(cfg).to(mesh.device).eval()
+    ref = copy.deepcopy(one)
+    ref.config = ref.bert.config = cfg.replace(dtype=torch.float32, attention_impl="xla")
+    for m in ref.modules():
+        if hasattr(m, "config"):
+            m.config = ref.config
+    tp = shard_params(copy.deepcopy(one), mesh)
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(1, 30522, (rows, length))).to(mesh.device)
+    mask = torch.ones((rows, length), dtype=torch.int32, device=mesh.device)
+    mask[1::2, length // 3:] = 0
+    with torch.no_grad():
+        f0 = fa.launches
+        got = tp.encode(ids, mask).float()
+        torch.cuda.synchronize()
+        launches = fa.launches - f0
+        want = ref.encode(ids, mask).float()
+        single = one.encode(ids, mask).float()
+    tp_err = float((got - want).abs().max())
+    one_err = float((single - want).abs().max())
+    heads = tp.bert.encoder.layer[0].attention.self.query.weight.shape[0] // 64
+    return {"local_heads": int(heads), "k2_launches": int(launches), "max_abs_err": tp_err,
+            "single_bf16_max_abs_err": one_err,
+            "ok": heads == 12 // mesh.size("model") and launches == 12
+            and tp_err <= 2 * one_err + 1e-3}
+
+
+def _ring_full_width(seq_len: int = 4096) -> dict:
+    """``encode_sequence_parallel`` at BERT-base, bf16, T = 4096 on a NCCL
+    world of one.  The ring attention op against K2 on one layer's q/k/v
+    (bf16's 3e-2); the whole bf16 encoder against the same weights in f32
+    ("xla" attention), its error held to at most twice the dense bf16
+    encoder's (K2, ``attention_impl="flash"``) against that reference: 12
+    layers of bf16 drift, not the ring, set the encoder's error."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from memvul_tpu_torch.models.bert import BertConfig, BertEncoder
+    from memvul_tpu_torch.ops.attention import mask_to_bias
+    from memvul_tpu_torch.ops.flash_attention import flash_attention
+    from memvul_tpu_torch.parallel import create_mesh, encode_sequence_parallel, ring_attention
+
+    mesh = create_mesh({"seq": 1}, device="cuda")
+    torch.manual_seed(0)
+    cfg = BertConfig.base(max_position_embeddings=seq_len, dtype=torch.bfloat16,
+                          attention_impl="ring")
+    ring = BertEncoder(cfg).to("cuda").eval()
+    dense = BertEncoder(cfg.replace(attention_impl="flash")).to("cuda").eval()
+    ref = BertEncoder(cfg.replace(attention_impl="xla", dtype=torch.float32)).to("cuda").eval()
+    dense.load_state_dict(ring.state_dict())
+    ref.load_state_dict(ring.state_dict())
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(1, 30522, (1, seq_len))).to("cuda")
+    mask = torch.ones((1, seq_len), dtype=torch.int32, device="cuda")
+    mask[:, seq_len - 300:] = 0
+    q, k, v = (torch.randn((1, seq_len, 12, 64), device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    with torch.no_grad():
+        op_err = float((ring_attention(q, k, v, key_mask=mask, group=mesh["seq"]).float()
+                        - flash_attention(q, k, v, mask_to_bias(mask, torch.bfloat16)).float())
+                       .abs().max())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = encode_sequence_parallel(ring, ids, mask, mesh)
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    with torch.no_grad():
+        flash_out = dense(ids, mask)
+        want = ref(ids, mask)
+    torch.cuda.synchronize()
+    live = mask[0].bool()
+    w = want[0][live].float()
+    ring_err = (got[0][live].float() - w).abs()
+    flash_err = (flash_out[0][live].float() - w).abs()
+    out = {"backend": mesh.backend, "world": mesh.world_size, "seq_len": seq_len,
+           "live_tokens": int(live.sum()), "op_max_abs_err": op_err,
+           "max_abs_err": float(ring_err.max()), "mean_abs_err": float(ring_err.mean()),
+           "dense_bf16_max_abs_err": float(flash_err.max()),
+           "dense_bf16_mean_abs_err": float(flash_err.mean()),
+           "finite": bool(torch.isfinite(got).all()), "ring_s": ring_s}
+    out["ok"] = (op_err <= 3e-2 and out["finite"]
+                 and out["max_abs_err"] <= 2 * out["dense_bf16_max_abs_err"]
+                 and out["mean_abs_err"] <= 2 * out["dense_bf16_mean_abs_err"])
+    dist.destroy_process_group()
+    return out
+
+
+def phase_mesh_path(workdir: Path, records: dict, train_steps: int = 4, eval_reports: int = 128,
+                    shared_steps: int = 3, shared_reports: int = 64) -> None:
+    """Slice 14, multi-device, on one card.
+
+    1. A NCCL world of one through the CLI: ``train --mesh data=1`` (the
+       smoke's memory config at BERT-base in f32, dropout 0,
+       ``train_steps`` steps, no validation) against the same command
+       without a mesh, both deterministic (losses and final params within
+       1e-5; bitwise expected); ``evaluate --mesh data=1,model=1`` over
+       ``eval_reports`` of ``main_path``'s corpus, whose result lines must
+       equal the run without a mesh and whose K1 and K2 launches must match
+       it; the doctor's mesh probe.
+    2. Two ranks sharing ``cuda:0`` over gloo (passed explicitly): ``data=2``
+       training (``shared_steps``) held against step 1's losses (1e-5), and
+       ``data=1 × model=2`` scoring of ``shared_reports`` against step 1's
+       probabilities (1e-4), each rank's K1 and K2 launches counted; a
+       tensor-parallel BERT-base forward over the same two ranks, K2 on
+       each rank's 6 heads (:func:`_tp_forward`).
+    3. The ring at full width on a world of one (:func:`_ring_full_width`).
+
+    The three CLI children and the two-rank world run at once.
+    """
+    import numpy as np
+    import torch
+
+    from memvul_tpu_torch.build import evaluate_from_archive
+    from memvul_tpu_torch.data.synthetic import build_workspace
+    from memvul_tpu_torch.ops import anchor_match as am
+    from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.parallel.launch import run_ranks
+    from memvul_tpu_torch.utils.doctor import _check_device_and_mesh
+
+    phase_t0 = time.perf_counter()
+    ws = build_workspace(workdir / "mesh_ws", seed=0, num_projects=8, reports_per_project=32,
+                         realistic_lengths=True)
+
+    def config(steps):
+        # f32: a split batch changes the bf16 GEMMs' tiling, which 1e-5 would see
+        cfg = _train_config(ws, num_epochs=1, steps_per_epoch=steps, warmup_steps=1, sync_every=1)
+        cfg["validation_data_path"] = None
+        cfg["model"]["encoder"].update(hidden_dropout=0.0, attention_dropout=0.0,
+                                       dtype="float32")
+        return cfg
+
+    cfg_file = workdir / "mesh_train.json"
+    cfg_file.write_text(json.dumps(config(train_steps)))
+    shared_cfg = workdir / "mesh_shared.json"
+    shared_cfg.write_text(json.dumps(config(shared_steps)))
+    reports = json.loads((workdir / "test_project.json").read_text())
+    # the reader takes a file named "test_*" as a scoring corpus
+    test128, test64 = workdir / "test_mesh128.json", workdir / "test_mesh64.json"
+    test128.write_text(json.dumps(reports[:eval_reports]))
+    test64.write_text(json.dumps(reports[:shared_reports]))
+    overrides = {"evaluation": _train_config(ws)["evaluation"]}
+    archive = workdir / "model.tar.gz"  # main_path's
+
+    # the CLI children and the two-rank world, all at once
+    t0 = time.perf_counter()
+    children = {
+        "train_plain": _mesh_cli_start(["train", cfg_file, "-s", workdir / "mesh_plain_train"]),
+        "train": _mesh_cli_start(["train", cfg_file, "-s", workdir / "mesh_train",
+                                  "--mesh", "data=1"]),
+        "evaluate": _mesh_cli_start(["evaluate", archive, test128, "-o", workdir / "mesh_eval",
+                                     "--overrides", json.dumps(overrides),
+                                     "--mesh", "data=1,model=1"]),
+    }
+    shared: list = []
+
+    def shared_world():
+        shared.extend(run_ranks(
+            "chip_smoke:mesh_shared_card", 2, workdir / "mesh_shared",
+            {"work": str(workdir / "mesh_shared"), "cfg_file": str(shared_cfg),
+             "archive": str(archive), "test_path": str(test64), "overrides": overrides},
+            timeout_s=400, env=DETERMINISTIC_ENV, python_path=[ROOT]))
+
+    world = threading.Thread(target=shared_world)
+    world.start()
+    fa.launches = am.launches = 0
+    evaluate_from_archive(archive, test128, workdir / "mesh_plain_eval", overrides=overrides,
+                          device="cuda")
+    torch.cuda.synchronize()
+    plain_eval = {"flash_attention": fa.launches, "anchor_match": am.launches}
+    _, doctor_mesh = _check_device_and_mesh(180.0, "cuda")
+    runs = {name: _mesh_cli_finish(started, name) for name, started in children.items()}
+    world.join()
+    concurrent_s = time.perf_counter() - t0
+    train, ev = runs["train"], runs["evaluate"]
+    mesh_losses = _epoch0(workdir / "mesh_train", "losses")
+    plain_losses = _epoch0(workdir / "mesh_plain_train", "losses")
+    # the step medians of the two runs, which ran side by side
+    step_median = {name: float(np.median(_epoch0(workdir / name, "step_durations_s") or [0.0]))
+                   for name in ("mesh_train", "mesh_plain_train")}
+    loss_err = max((abs(a - b) for a, b in zip(mesh_losses, plain_losses)), default=float("inf"))
+    param_err = _max_param_diff(workdir / "mesh_train" / "model.tar.gz",
+                                workdir / "mesh_plain_train" / "model.tar.gz") \
+        if train["rc"] == 0 and runs["train_plain"]["rc"] == 0 else float("inf")
+    result = "model_memory_result.json"
+    plain_recs = _records_by_url(workdir / "mesh_plain_eval" / result)
+    mesh_recs = _records_by_url(workdir / "mesh_eval" / result) if ev["rc"] == 0 else {}
+    shared_recs = _records_by_url(workdir / "mesh_shared" / "eval" / result) if shared else {}
+    shared_err = max(
+        (abs(shared_recs[u]["predict"][a] - p)
+         for u, rec in plain_recs.items() if u in shared_recs
+         for a, p in rec["predict"].items()), default=float("inf"))
+    shared_loss_err = max(
+        (abs(a - b) for r in shared for a, b in zip(r["losses"], plain_losses)),
+        default=float("inf"))
+
+    ring = _ring_full_width()
+    k2_per_layer = 12
+    checks = {
+        "train_cli_exit_0": train["rc"] == 0 and train["json_lines"] == 1
+        and runs["train_plain"]["rc"] == 0,
+        "train_losses_match": len(mesh_losses) == train_steps and loss_err <= 1e-5,
+        "train_params_match": param_err <= 1e-5,
+        "train_launched_k2": train["hook"].get("flash_attention", 0) > 0
+        and train["hook"] == runs["train_plain"]["hook"],
+        "evaluate_cli_exit_0": ev["rc"] == 0 and ev["json_lines"] == 1,
+        "evaluate_result_equal": len(mesh_recs) == eval_reports and mesh_recs == plain_recs,
+        "evaluate_k1_k2_launches_equal": ev["hook"] == plain_eval and plain_eval["anchor_match"] > 0,
+        "doctor_mesh_probe": doctor_mesh.get("ok") is True,
+        "shared_backend_gloo": len(shared) == 2 and all(r["backend"] == "gloo" for r in shared),
+        "shared_train_losses": all(len(r["losses"]) == shared_steps for r in shared)
+        and shared_loss_err <= 1e-5,
+        "shared_train_k2_each_rank": all(r["train_launches"]["flash_attention"] > 0 for r in shared)
+        and shared[0]["train_launches"] == shared[1]["train_launches"],
+        "shared_scoring_matches": len(shared_recs) == shared_reports and shared_err <= 1e-4,
+        "shared_scoring_k1_k2_each_rank": all(
+            r["eval_launches"]["anchor_match"] == r["shapes"] + r["batches"]
+            and r["eval_launches"]["flash_attention"]
+            == k2_per_layer * (r["shapes"] + r["batches"] + r["chunks"]) for r in shared),
+        "shared_tp_forward_local_heads": all(r["tp"]["ok"] for r in shared),
+        "ring_backend_nccl": ring["backend"] == "nccl" and ring["world"] == 1,
+        "ring_matches_dense": ring["ok"],
+    }
+    ok = all(checks.values())
+    seconds = time.perf_counter() - phase_t0
+    emit("mesh_path", ok=ok, checks=checks, seconds=seconds, concurrent_s=concurrent_s,
+         one_rank={"losses": mesh_losses, "plain_losses": plain_losses, "loss_err": loss_err,
+                   "step_median_s": step_median,
+                   "param_err": param_err, "runs": runs, "plain_evaluate": plain_eval,
+                   "doctor_mesh": doctor_mesh},
+         shared_card={"ranks": shared, "loss_err": shared_loss_err, "prob_err": shared_err},
+         ring=ring, card=nvidia_smi_line())
+    if not ok:
+        raise SystemExit(f"mesh_path failed: {checks}")
+    for name in ("anchor_match", "flash_attention"):
+        records[name]["launches"] += train["hook"].get(name, 0) + ev["hook"].get(name, 0)
+
+
 def main() -> int:
     import torch
 
@@ -5692,6 +6053,8 @@ def main() -> int:
         # slice 13: reference archives through the parity chain, the lint
         phase_parity_path(Path(tmp), records)
         phase_lint_path(Path(tmp), records)
+        # slice 14: the mesh over torch.distributed, ring attention
+        phase_mesh_path(Path(tmp), records)
     phase_main_path_reference()
     phase_ragged_reference()
     phase_train_reference()

@@ -73,9 +73,17 @@ replica and shard subdirs, incident bundles) as text, or with ``--json``
 as the machine-readable report.  ``baseline`` runs the paper's classical
 baselines (bag of words, L1-SVC feature selection, RF, NB, MLP, LR, KNN)
 without sklearn and writes ``{learner}_result.json`` and
-``{learner}_metric.json`` per learner.  ``train``, ``evaluate`` and
-``serve`` take the reference's ``--no-mesh`` (one device, the default) and
-``--mesh SPEC``, which exits 2: meshes belong to the multi-device slice.
+``{learner}_metric.json`` per learner.  ``train`` and ``evaluate`` take
+``--mesh SPEC`` (axes ``data`` and ``model``, e.g. ``data=2`` or
+``data=2,model=2``): the command becomes rank 0 of a world of one process
+per card (``parallel/launch.py`` starts the others, their output in
+``<run dir>/rank-<r>.log``; under ``torchrun`` the existing world is
+used), and rank 0 alone writes the outputs and prints the JSON line.  A
+spec that needs more cards than are visible, or names another axis, exits
+2; ``train`` takes no ``model`` axis yet (exit 2).  ``evaluate`` takes a
+``data`` mesh over every visible card when there are several, unless
+``--no-mesh``.  ``serve --mesh`` exits 2: one service across a world is
+the next slice's (ROADMAP.md, item 5).
 ``bench`` runs the benchmark harness (``bench.py``, its env knobs) in a
 supervised child and prints its one JSON record; ``tune`` is the offline
 autotuner (exit 0 tuned, 1 no winner, 2 the ``unknown_device_class``
@@ -105,12 +113,12 @@ import sys
 import threading
 
 
-def _profiled(args):
+def _profiled(args, primary: bool = True):
     """``--profile DIR``: a profiler trace of the whole command
-    (``DIR/trace.json``); without it, nothing."""
+    (``DIR/trace.json``; a mesh's rank 0 only); without it, nothing."""
     from .utils.profiling import trace_context
 
-    return trace_context(getattr(args, "profile", None))
+    return trace_context(getattr(args, "profile", None) if primary else None)
 
 
 def cmd_pretrain(args) -> int:
@@ -134,29 +142,122 @@ def cmd_pretrain(args) -> int:
     return 0
 
 
+class MeshSpecError(ValueError):
+    """A ``--mesh`` spec the host cannot run: a usage error (exit 2)."""
+
+
+def _parse_mesh(spec):
+    """``"data=8"`` or ``"data=4,model=2"`` → the axes dict; a malformed
+    spec is a :class:`MeshSpecError` with the JAX package's usage message."""
+    allowed = {"data", "model"}  # the axes shard_batch and the bank act on
+    axes = {}
+    try:
+        for part in spec.split(","):
+            name, size = part.split("=")
+            name = name.strip()
+            if name not in allowed:
+                raise ValueError(f"unknown axis {name!r}")
+            axes[name] = int(size)
+            if axes[name] < 1:
+                raise ValueError(f"axis {name!r} needs a size >= 1")
+    except ValueError as e:
+        raise MeshSpecError(
+            f'--mesh {spec!r}: {e} (expected e.g. "data=8" or "data=4,model=2"; axes from '
+            f"{sorted(allowed)}; sizes must multiply to the device count)") from None
+    return axes
+
+
+def _open_mesh(args, run_dir, command: str):
+    """``--mesh`` (for ``evaluate`` also the automatic data mesh over
+    several visible cards) → (this rank's mesh, the launched world or
+    None); (None, None) without one.  Rank 0 of a new world starts the
+    other ranks here."""
+    spec = args.mesh
+    if spec is None and command == "evaluate" and not args.no_mesh and args.device == "cuda":
+        import torch
+
+        if torch.cuda.device_count() > 1:
+            spec = f"data={torch.cuda.device_count()}"
+    if spec is None:
+        return None, None
+    import numpy as np
+
+    from .parallel import create_mesh
+    from .parallel import launch
+
+    axes = _parse_mesh(spec)
+    n = int(np.prod(list(axes.values())))
+    if args.device == "cuda":
+        import torch
+
+        visible = torch.cuda.device_count()
+        if n > visible:
+            raise MeshSpecError(f"--mesh {spec!r}: mesh axes {axes} need {n} devices, "
+                                f"have {visible}")
+    if command == "train" and axes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"--mesh {spec!r}: training with a model (tensor-parallel) axis belongs to the "
+            "next slice (ROADMAP.md, item 5)")
+    world = None
+    if launch.is_launched_child():
+        launch.watch_parent()
+    elif n > 1 and not launch.in_world():
+        world = launch.spawn(args.argv, n, run_dir)
+    try:
+        return create_mesh(axes, device=args.device), world
+    except BaseException:
+        if world is not None:
+            world.close(ok=False)
+        raise
+
+
+def _run_on_mesh(args, run_dir, command: str, run):
+    """``run(mesh)`` on this rank, the world closed after it: a failure
+    anywhere ends every rank, and rank 0 exits 0 only when each rank
+    did.  Returns (result, exit code, primary)."""
+    mesh, world = _open_mesh(args, run_dir, command)
+    primary = mesh is None or mesh.is_primary
+    ok = False
+    try:
+        with _profiled(args, primary):
+            result = run(mesh)
+        ok = True
+    finally:
+        rc = world.close(ok) if world is not None else 0
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    return result, rc, primary
+
+
 def cmd_train(args) -> int:
     from .build import train_from_config
     from .config import load_config
 
     config = load_config(args.config, overrides=args.overrides)
-    with _profiled(args):
-        result = train_from_config(config, args.serialization_dir, device=args.device,
-                                   mesh=args.mesh)
-    print(json.dumps({k: result.get(k) for k in ("best_epoch", "best_validation", "archive")}))
-    return 0
+    result, rc, primary = _run_on_mesh(
+        args, args.serialization_dir, "train",
+        lambda mesh: train_from_config(config, args.serialization_dir, device=args.device,
+                                       mesh=mesh))
+    if primary:
+        print(json.dumps({k: result.get(k) for k in ("best_epoch", "best_validation", "archive")}))
+    return rc
 
 
 def cmd_evaluate(args) -> int:
     from .build import evaluate_from_archive
 
-    with _profiled(args):
-        metrics = evaluate_from_archive(
+    metrics, rc, primary = _run_on_mesh(
+        args, args.out_dir, "evaluate",
+        lambda mesh: evaluate_from_archive(
             args.archive, args.test_path, args.out_dir,
             overrides=args.overrides, golden_file=args.golden_file, name=args.name,
-            thres=args.threshold, device=args.device, mesh=args.mesh,
-        )
-    print(json.dumps(metrics, default=float))
-    return 0
+            thres=args.threshold, device=args.device, mesh=mesh, use_mesh=not args.no_mesh,
+        ))
+    if primary:
+        print(json.dumps(metrics, default=float))
+    return rc
 
 
 def cmd_telemetry_report(args) -> int:
@@ -735,13 +836,14 @@ def _add_bank_parsers(sub) -> None:
     b.set_defaults(fn=cmd_bank_promote)
 
 
-def _add_mesh_flags(p) -> None:
-    """The reference's ``--mesh SPEC`` and ``--no-mesh``: one device is what
-    every run uses, so ``--no-mesh`` changes nothing and ``--mesh`` exits 2
-    (the multi-device slice is not ported)."""
+def _add_mesh_flags(p, serve: bool = False) -> None:
+    """The reference's ``--mesh SPEC`` and ``--no-mesh``."""
     p.add_argument("--mesh", default=None, metavar="SPEC",
-                   help='a device mesh, e.g. "data=8": not ported (exit 2)')
-    p.add_argument("--no-mesh", action="store_true", help="run on one device (the default)")
+                   help='serving on a mesh is the next slice\'s (exit 2)' if serve else
+                   'a device mesh, one process per card: "data=2" or "data=2,model=2" '
+                   "(the model axis shards the scorer's anchor bank)")
+    p.add_argument("--no-mesh", action="store_true",
+                   help="run on one device (evaluate: no automatic data mesh over several cards)")
 
 
 def main(argv=None) -> int:
@@ -810,7 +912,7 @@ def main(argv=None) -> int:
                     help="named tenants, 'name=store_dir,...': each tenant's active bank "
                     "from its store; requests carry a 'tenant' field or an X-MemVul-Tenant "
                     "header (default: the config's serving.tenants)")
-    _add_mesh_flags(sv)
+    _add_mesh_flags(sv, serve=True)
     sv.set_defaults(fn=cmd_serve)
     sc = sub.add_parser("score-corpus", help="sharded corpus scoring: supervised worker "
                         "subprocesses, exactly-once merge (exit 3: partial)")
@@ -954,12 +1056,14 @@ def main(argv=None) -> int:
 
     add_lint_arguments(li)
     li.set_defaults(fn=cmd_lint)
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parser.parse_args(argv)
+    args.argv = argv  # a mesh's launched ranks run the same command
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     if args.command in ("train", "evaluate"):
         try:
             return args.fn(args)
-        except NotImplementedError as e:  # an unported setting (--mesh): a usage error
+        except (NotImplementedError, MeshSpecError) as e:  # a usage error
             print(f"{args.command}: {e}", file=sys.stderr)
             return 2
     if args.command != "bank":

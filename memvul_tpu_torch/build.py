@@ -263,13 +263,14 @@ def _pretrain_run(config, trainer, tokenizer, bert_cfg, out_dir: Path, export_hf
 
 
 def refuse_mesh(mesh) -> None:
-    """A device mesh (``mesh=``, the CLI's ``--mesh SPEC``) raises: runs
-    over several devices belong to the multi-device slice (ROADMAP.md).
-    ``--no-mesh``, the one device, is what every run does."""
+    """Serving on a mesh (``serve --mesh SPEC``) raises: one scoring
+    service across the ranks of a world (a leader that takes requests and
+    followers that join each forward) belongs to the next slice (ROADMAP.md,
+    item 5).  ``train`` and ``evaluate`` take a mesh."""
     if mesh is not None:
         raise NotImplementedError(
-            f"mesh {mesh!r}: training, scoring or serving on a mesh (DDP) belongs to the "
-            "multi-device slice, which is not ported yet (ROADMAP.md)")
+            f"mesh {mesh!r}: serving on a mesh (one service across the ranks of a "
+            "multi-device world) belongs to the next slice (ROADMAP.md, item 5)")
 
 
 def configure_run_sinks(tel_cfg: Dict[str, Any], run_dir):
@@ -293,7 +294,7 @@ def _end_run(tel_cfg: Dict[str, Any], run_dir, exposition, registry=None) -> Non
     from .telemetry.programs import write_programs
 
     try:
-        if tel_cfg["enabled"]:
+        if tel_cfg["enabled"] and run_dir is not None:  # None: a mesh rank past 0
             write_programs(run_dir)
     finally:
         try:
@@ -330,7 +331,12 @@ def train_from_config(
     missing one warns and trains from scratch.  The run sinks
     (``events.jsonl``, ``HEARTBEAT.json``, ``telemetry.json``) go to the
     serialization dir (:func:`configure_run_sinks`).  Returns the
-    trainer's result with the archive path."""
+    trainer's result with the archive path.
+
+    On a ``mesh`` (a data axis; :func:`~memvul_tpu_torch.parallel.
+    create_mesh`) every rank trains its slice of each batch on its own
+    device, and rank 0 alone writes the config, the run sinks, the
+    checkpoints, the archive and ``metrics.json``."""
     import json
 
     from .archive import ARCHIVE_NAME, save_archive
@@ -338,8 +344,8 @@ def train_from_config(
     from .tuning.profile import apply_tuned_trainer
     from .models.convert import flax_from_params
 
-    refuse_mesh(mesh)
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    primary = mesh is None or mesh.is_primary
     from .config import telemetry_config
     from .telemetry.live import start_run_exposition
 
@@ -350,10 +356,11 @@ def train_from_config(
         raise ValueError(f"unknown model type {model_type!r}")
     serialization_dir = Path(serialization_dir)
     serialization_dir.mkdir(parents=True, exist_ok=True)
-    (serialization_dir / "config.json").write_text(json.dumps(config, indent=2))
+    if primary:
+        (serialization_dir / "config.json").write_text(json.dumps(config, indent=2))
     # the run sinks first, as the JAX package's train does: the tuned
     # profile's tune.device_class.<class> gauge lands in the run's registry
-    registry = configure_run_sinks(tel_cfg, serialization_dir)
+    registry = configure_run_sinks(tel_cfg, serialization_dir if primary else None)
     exposition = None
     try:
         if model_type == "model_memory":
@@ -390,7 +397,7 @@ def train_from_config(
                 anchor_path=config.get("anchor_path")
                 or (config.get("dataset_reader") or {}).get("anchor_path"),
                 config=TrainerConfig(**trainer_cfg),
-                device=device,
+                device=device, mesh=mesh,
             )
         else:
             from .training.single_trainer import ClassifierTrainer, ClassifierTrainerConfig
@@ -400,22 +407,26 @@ def train_from_config(
                 train_path=config["train_data_path"],
                 validation_path=config.get("validation_data_path"),
                 config=ClassifierTrainerConfig(**trainer_cfg),
-                device=device,
+                device=device, mesh=mesh,
             )
-        exposition = start_run_exposition(tel_cfg)
+        if primary:
+            exposition = start_run_exposition(tel_cfg)
         result = trainer.train()
-        archived = dict(config)
-        archived["model"] = dict(model_cfg)
-        with registry.span("archive"):
-            save_archive(
-                serialization_dir / ARCHIVE_NAME, archived,
-                flax_from_params(trainer.best_params(), getattr(model, "config", None)),
-                tokenizer_file=_tokenizer_file(config.get("tokenizer")),
-            )
-        (serialization_dir / "metrics.json").write_text(
-            json.dumps(result, indent=2, default=float))
+        if primary:
+            archived = dict(config)
+            archived["model"] = dict(model_cfg)
+            with registry.span("archive"):
+                save_archive(
+                    serialization_dir / ARCHIVE_NAME, archived,
+                    flax_from_params(trainer.best_params(), getattr(model, "config", None)),
+                    tokenizer_file=_tokenizer_file(config.get("tokenizer")),
+                )
+            (serialization_dir / "metrics.json").write_text(
+                json.dumps(result, indent=2, default=float))
+        if mesh is not None and mesh.world_size > 1:
+            torch.distributed.barrier()  # every rank returns once the archive exists
     finally:
-        _end_run(tel_cfg, serialization_dir, exposition, registry)
+        _end_run(tel_cfg, serialization_dir if primary else None, exposition, registry)
     result["archive"] = str(serialization_dir / ARCHIVE_NAME)
     return result
 
@@ -444,6 +455,7 @@ def evaluate_from_archive(
     thres: float = 0.5,
     device: Union[str, torch.device] = "cuda",
     mesh=None,
+    use_mesh: bool = True,
 ) -> Dict[str, float]:
     """Load the archive with overrides, score the test corpus on
     ``device``, write ``{name}_result.json`` + ``{name}_metric_all.json``
@@ -457,25 +469,32 @@ def evaluate_from_archive(
     ``max_length``, ``buckets``, ``n_buckets``, ``tokens_per_batch``,
     ``inflight`` and ``aot_warmup``, and the keys it has no use for raise
     when set away from their defaults (``config.SINGLE_EVALUATION_UNUSED``),
-    as do an anchor file and a threshold (it predicts the argmax)."""
+    as do an anchor file and a threshold (it predicts the argmax).
+
+    On a ``mesh`` (``data``, and for a memory model ``model``, which
+    shards the anchor bank) every rank scores its slice of each batch and
+    rank 0 writes the files and the sinks; ``use_mesh`` with no ``mesh``
+    takes a data mesh over a joined world of several ranks."""
     from .archive import load_archive
     from .config import telemetry_config
 
-    refuse_mesh(mesh)
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    primary = mesh is None or mesh.is_primary
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     arch = load_archive(archive_path, overrides=overrides, device=device)
     tel_cfg = telemetry_config(arch.config)
-    registry = configure_run_sinks(tel_cfg, out_dir)
+    registry = configure_run_sinks(tel_cfg, out_dir if primary else None)
     try:
-        return _evaluate(arch, test_path, out_dir, golden_file, name, thres, device, registry)
+        return _evaluate(arch, test_path, out_dir, golden_file, name, thres, device, registry,
+                         mesh, use_mesh)
     finally:
         # the program table beside the results, the sinks closed
-        _end_run(tel_cfg, out_dir, None, registry)
+        _end_run(tel_cfg, out_dir if primary else None, None, registry)
 
 
-def _evaluate(arch, test_path, out_dir: Path, golden_file, name, thres, device, registry):
+def _evaluate(arch, test_path, out_dir: Path, golden_file, name, thres, device, registry,
+              mesh=None, use_mesh=True):
     from .config import evaluation_config, refuse_single_evaluation_keys
 
     model_cfg = arch.config.get("model") or {}
@@ -518,7 +537,7 @@ def _evaluate(arch, test_path, out_dir: Path, golden_file, name, thres, device, 
             out_metrics=out_metrics, reader=reader, batch_size=int(eval_cfg["batch_size"]),
             max_length=max_length, buckets=buckets, tokens_per_batch=tokens_per_batch,
             inflight=int(eval_cfg["inflight"]), aot_warmup=bool(eval_cfg["aot_warmup"]),
-            device=device,
+            device=device, mesh=mesh, use_mesh=use_mesh,
         )
     from .evaluate.predict_memory import test_siamese
 
@@ -548,6 +567,8 @@ def _evaluate(arch, test_path, out_dir: Path, golden_file, name, thres, device, 
         score_retries=int(eval_cfg["score_retries"]),
         attribute_anchors=bool(eval_cfg["attribute_anchors"]),
         telemetry=registry,
+        mesh=mesh,
+        use_mesh=use_mesh,
     )
 
 

@@ -50,7 +50,18 @@ the process-wide one): the first call of a shape registers it with that
 call's wall time and its analytic cost, and every call books its work and,
 on the card, its device time from CUDA events around its launches (read
 once the host copy has waited for them).  A shape met for the first time
-after the warmup counts as a recompile.  Meshes belong to a later slice.
+after the warmup counts as a recompile.
+
+On a ``mesh`` (:func:`~memvul_tpu_torch.parallel.create_mesh`; bucketed
+scoring only, the JAX package's rule) every rank reads the same corpus
+and builds the same batches; rank (i, j) encodes data slice i of each
+batch and matches it against shard j of the anchor bank (zero-padded to a
+multiple of the ``model`` axis), and the blocks are gathered on every rank
+(:func:`~memvul_tpu_torch.parallel.mesh.gather_blocks`) before the padding
+columns are sliced off, so each rank holds the corpus's probabilities in
+order and computes the same metrics.  Bucket row counts are multiples of
+``8·data``.  Rank 0 alone writes the result lines, the journal and the
+dead-letter file; a resumed run's verified prefix is rank 0's, broadcast.
 """
 
 from __future__ import annotations
@@ -82,6 +93,7 @@ from ..data.batching import (
 )
 from ..data.readers import MemoryReader
 from ..models.memory import MemoryModel, anchor_probs
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, broadcast_object, gather_blocks, shard_batch
 from ..resilience import faults
 from ..resilience.journal import DeadLetter, ScoreJournal
 from ..resilience.retry import RetryPolicy, exception_text
@@ -118,12 +130,22 @@ class SiamesePredictor:
         stream: Optional["torch.cuda.Stream"] = None,
         program_registry=None,
         telemetry: Optional[Registry] = None,
+        mesh=None,
     ) -> None:
         if score_impl not in ("bucketed", "ragged", "continuous", "cascade"):
             raise ValueError(
                 f"score_impl must be 'bucketed', 'ragged', 'continuous' or "
                 f"'cascade', got {score_impl!r}"
             )
+        if score_impl in ("ragged", "continuous", "cascade") and mesh is not None:
+            raise ValueError(
+                f"score_impl={score_impl!r} serves a single-device predictor; "
+                "scale out with serving replicas, not a mesh"
+            )
+        self.mesh = mesh
+        self._n_data = mesh.size(DATA_AXIS) if mesh is not None else 1
+        self._n_model = mesh.size(MODEL_AXIS) if mesh is not None else 1
+        self._writes = mesh is None or mesh.is_primary
         if encoder_precision not in ("fp32", "int8"):
             raise ValueError(f"encoder_precision must be 'fp32' or 'int8', got {encoder_precision!r}")
         if score_impl == "cascade" and encoder_precision != "int8":
@@ -166,10 +188,12 @@ class SiamesePredictor:
         self.buckets = validate_buckets(buckets, max_length) if buckets else None
         # constant-token-budget batching: short buckets run bigger batches
         self.bucket_sizes = (
-            bucket_batch_sizes(self.buckets, tokens_per_batch, multiple_of=8)
+            bucket_batch_sizes(self.buckets, tokens_per_batch, multiple_of=8 * self._n_data)
             if self.buckets and tokens_per_batch else None
         )
-        self.anchor_bank: Optional[torch.Tensor] = None  # [A, D] on the device
+        # [A, D] on the device; on a mesh with a model axis this rank's
+        # [A'/model, D] shard of the bank zero-padded to A'
+        self.anchor_bank: Optional[torch.Tensor] = None
         self.n_anchors = 0
         self.anchor_labels: List[str] = []
         # what the last run did: anchor chunks and seconds, scored batches,
@@ -243,8 +267,11 @@ class SiamesePredictor:
 
     def _block_call(self, block: Dict[str, np.ndarray], bank: torch.Tensor, model=None,
                     prefix: str = "score") -> np.ndarray:
-        rows, length = block["input_ids"].shape
-        lengths = block["attention_mask"].sum(axis=1).tolist()
+        length = block["input_ids"].shape[1]
+        mask = block["attention_mask"]
+        if self.mesh is not None:
+            mask = shard_batch(mask, self.mesh)  # what this rank runs
+        rows, lengths = mask.shape[0], mask.sum(axis=1).tolist()
         n = int(bank.shape[0])
         return self._timed_call(
             shape_key(prefix, (rows, length)), lambda: self._score(block, bank, model),
@@ -267,6 +294,14 @@ class SiamesePredictor:
         with self.telemetry.span("anchor_encode"):
             bank, labels, n_anchors = self.encode_bank(anchor_instances)
             self._wait()
+        if self._n_model > 1:
+            # shard the anchor axis over "model": zero rows pad it to a
+            # multiple of the axis, and their columns are sliced off after
+            # the gather
+            pad = (-n_anchors) % self._n_model
+            if pad:
+                bank = torch.cat([bank, bank.new_zeros((pad, bank.shape[1]))], dim=0)
+            bank = bank.chunk(self._n_model, dim=0)[self.mesh.index(MODEL_AXIS)].contiguous()
         self.anchor_bank, self.anchor_labels, self.n_anchors = bank, labels, n_anchors
         self.stats["anchor_encode_s"] = time.perf_counter() - start
         self.stats["anchor_chunks"] = -(-n_anchors // self.anchor_chunk)
@@ -318,6 +353,10 @@ class SiamesePredictor:
     def _score(
         self, block: Dict[str, np.ndarray], bank: Optional[torch.Tensor] = None, model=None
     ) -> torch.Tensor:
+        """A block's probabilities against ``bank``; on a mesh, this rank's
+        data slice of the block against its bank shard."""
+        if self.mesh is not None:
+            block = shard_batch(block, self.mesh)
         with self._on_stream():
             ids, mask = self._to_device(block)
             bank = self.anchor_bank if bank is None else bank
@@ -575,15 +614,22 @@ class SiamesePredictor:
                 count_retry(e, 1)
                 probs, batch, timing = launch(batch)
                 arr = probs.cpu().numpy()
+            if self.mesh is not None:
+                # after any local retry: every rank reaches this gather once
+                # per batch, in the same order
+                arr = gather_blocks(torch.from_numpy(arr).to(self.mesh.device), self.mesh).cpu().numpy()
             host["sync_s"] += time.perf_counter() - t0
             elapsed = timing[0].elapsed_time(timing[1]) / 1e3 if on_card else timing
             n_slots, length = batch["sample1"]["input_ids"].shape
             metas = batch["meta"]
-            block_lengths = batch["sample1"]["attention_mask"].sum(axis=1).tolist()
+            # the program this rank ran: its share of the rows
+            mine = shard_batch(batch["sample1"]["attention_mask"], self.mesh) \
+                if self.mesh is not None else batch["sample1"]["attention_mask"]
+            n_mine = mine.shape[0]
             self._book(
-                shape_key("score", (n_slots, length)),
-                self._cost(n_slots * length, block_lengths, n_slots, self.n_anchors),
-                self._cost(n_slots * length, [length] * n_slots, n_slots, self.n_anchors),
+                shape_key("score", (n_mine, length)),
+                self._cost(n_mine * length, mine.sum(axis=1).tolist(), n_mine, self.n_anchors),
+                self._cost(n_mine * length, [length] * n_mine, n_mine, self.n_anchors),
                 elapsed if on_card else None, elapsed,
             )
             seconds[length] = seconds.get(length, 0.0) + elapsed
@@ -682,16 +728,23 @@ class SiamesePredictor:
         journal: Optional[ScoreJournal] = None
         completed: set = set()
         dead: Optional[DeadLetter] = None
+        writes = self._writes
         if quarantine:
             dead_path = (Path(str(out_path) + ".deadletter") if isinstance(quarantine, bool)
                          else Path(quarantine))
-            dead = DeadLetter(dead_path, registry=tel)
+            dead = DeadLetter(dead_path if writes else None, registry=tel)
         journal_path = Path(str(out_path) + ".journal")
         if resume:
-            journal = ScoreJournal(journal_path, registry=tel)
-            kept_n, completed, kept_lines = journal.verified_prefix(out_path)
-            # drop the unverified tail so this run scores those rows again
-            journal.truncate_to(kept_n, out_path)
+            kept_n, completed, kept_lines = 0, set(), []
+            if writes:
+                journal = ScoreJournal(journal_path, registry=tel)
+                kept_n, completed, kept_lines = journal.verified_prefix(out_path)
+                # drop the unverified tail so this run scores those rows again
+                journal.truncate_to(kept_n, out_path)
+            if self.mesh is not None:
+                # every rank skips what rank 0's verified prefix covers
+                kept_n, completed, kept_lines = broadcast_object(
+                    (kept_n, completed, kept_lines), self.mesh)
             for line in kept_lines:
                 for rec in json.loads(line):
                     preds = rec.get("predict") or {}
@@ -701,7 +754,7 @@ class SiamesePredictor:
             if kept_n:
                 logger.info("resume: %d journaled output lines verified (%d reports); "
                             "skipping them", kept_n, n)
-        elif journal_path.exists():
+        elif writes and journal_path.exists():
             # this run rewrites the output: a stale journal would poison a
             # later resume
             journal_path.unlink()
@@ -746,6 +799,8 @@ class SiamesePredictor:
                 failed.set()
 
         def _put(item) -> None:
+            if not writes:  # a mesh rank past 0 scores and measures; rank 0 writes
+                return
             while not failed.is_set():
                 try:
                     q.put(item, timeout=1.0)
@@ -754,10 +809,11 @@ class SiamesePredictor:
                     continue
 
         instances = reader.read(str(test_path), split=split, quarantine=dead)
-        if journal is not None:
+        if resume:
             instances = _indexed_stream(instances, completed)
         writer = threading.Thread(target=_writer, daemon=True)
-        writer.start()
+        if writes:
+            writer.start()
         start = time.perf_counter()
         batches_done = 0
         # an explicit ExitStack keeps the span's exit inside the finally
@@ -790,7 +846,8 @@ class SiamesePredictor:
                                   eta_s=None if eta_s is None else round(eta_s, 1))
         finally:
             _put(None)
-            writer.join()
+            if writes:
+                writer.join()
             if journal is not None:
                 journal.close()
             if dead is not None:
@@ -865,6 +922,8 @@ def test_siamese(
     score_retries: int = 0,
     attribute_anchors: bool = False,
     telemetry: Optional[Registry] = None,
+    mesh=None,
+    use_mesh: bool = True,
 ) -> Dict[str, float]:
     """End-to-end evaluation: encode the anchor bank, run every stream
     shape once (``aot_warmup``), score the corpus, then ``cal_metrics``.
@@ -874,16 +933,23 @@ def test_siamese(
     :meth:`SiamesePredictor.predict_file`; ``score_retries`` > 0 retries
     transient batch failures that many times; ``telemetry`` is the
     predictor's registry (evaluate passes the run's).  Runs on ``device``
-    (the card unless the caller asks for the CPU)."""
+    (the card unless the caller asks for the CPU), or on ``mesh``'s ranks
+    (each on its own device; with ``use_mesh`` and no ``mesh``, a data
+    mesh over a world of several ranks when one is joined).  On a mesh
+    rank 0 writes the files and every rank returns its metrics."""
     from ..build import resolve_device
+    from ..parallel.mesh import auto_mesh, replicate
 
-    device = resolve_device(device)
+    mesh = auto_mesh(mesh, use_mesh, device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     model = model.to(device)
+    if mesh is not None:
+        replicate(model, mesh)
     reader = reader or MemoryReader()
     predictor = SiamesePredictor(
         model, tokenizer, batch_size=batch_size, max_length=max_length,
         buckets=buckets, tokens_per_batch=tokens_per_batch,
-        anchor_match_impl=anchor_match_impl, telemetry=telemetry,
+        anchor_match_impl=anchor_match_impl, telemetry=telemetry, mesh=mesh,
     )
     predictor.encode_anchors(reader.read_anchors(str(golden_file)))
     if aot_warmup:
@@ -897,6 +963,9 @@ def test_siamese(
         retry_policy=RetryPolicy(attempts=score_retries) if score_retries > 0 else None,
         attribute_anchors=attribute_anchors,
     )
-    final = cal_metrics(out_results, thres=thres, out_file=out_metrics)
+    final = cal_metrics(out_results, thres=thres, out_file=out_metrics) \
+        if predictor._writes else None
+    if mesh is not None:
+        final = broadcast_object(final, mesh)
     final.update({f"s_{k}": v for k, v in eval_metrics.items()})
     return final

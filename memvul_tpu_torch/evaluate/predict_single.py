@@ -17,6 +17,7 @@ kernels before the first batch (``aot_warmup``).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import time
@@ -37,6 +38,7 @@ from ..data.batching import (
     validate_buckets,
 )
 from ..data.readers import SingleReader
+from ..parallel.mesh import DATA_AXIS, gather_blocks, shard_batch
 from .metrics import model_measure
 
 logger = logging.getLogger(__name__)
@@ -54,14 +56,20 @@ class SinglePredictor:
         buckets: Optional[Sequence[int]] = None,
         tokens_per_batch: Optional[int] = None,
         aot_warmup: bool = True,
+        mesh=None,
     ) -> None:
+        """On a ``mesh`` (a data axis) every rank reads the same corpus,
+        scores its slice of each batch, and the probabilities are gathered
+        on every rank in corpus order; rank 0 writes the result lines."""
+        self.mesh = mesh
+        n_data = mesh.size(DATA_AXIS) if mesh is not None else 1
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.batch_size = batch_size
         self.encoder = CachedEncoder(tokenizer, max_length=max_length)
         self.buckets = validate_buckets(buckets, max_length) if buckets else None
         self.bucket_sizes = (
-            bucket_batch_sizes(self.buckets, tokens_per_batch, multiple_of=8)
+            bucket_batch_sizes(self.buckets, tokens_per_batch, multiple_of=8 * n_data)
             if self.buckets and tokens_per_batch else None
         )
         # what the last run did: batches and row slots per length, live
@@ -82,6 +90,8 @@ class SinglePredictor:
 
     @torch.no_grad()
     def _probs(self, sample: Dict[str, np.ndarray]) -> torch.Tensor:
+        if self.mesh is not None:
+            sample = shard_batch(sample, self.mesh)
         ids = torch.from_numpy(sample["input_ids"]).to(self.device).long()
         mask = torch.from_numpy(sample["attention_mask"]).to(self.device)
         logits = self.model({"input_ids": ids, "attention_mask": mask})
@@ -128,6 +138,8 @@ class SinglePredictor:
 
         def drain(f) -> None:
             probs, batch = pending.popleft()
+            if self.mesh is not None:
+                probs = gather_blocks(probs, self.mesh)
             probs = probs.cpu().numpy()  # the one host sync of this batch
             metas = batch["meta"]
             records = []
@@ -143,9 +155,11 @@ class SinglePredictor:
                 labels.append(0 if meta.get("label") == "neg" else 1)
                 preds.append(1 if positive else 0)
                 scores.append(p_pos)
-            f.write(json.dumps(records) + "\n")
+            if f is not None:
+                f.write(json.dumps(records) + "\n")
 
-        with open(out_path, "w") as f:
+        writes = self.mesh is None or self.mesh.is_primary
+        with (open(out_path, "w") if writes else contextlib.nullcontext()) as f:
             for batch in prefetch(batches):
                 rows, length = batch["sample1"]["input_ids"].shape
                 mask = batch["sample1"]["attention_mask"][: len(batch["meta"])]
@@ -183,20 +197,29 @@ def test_single(
     inflight: int = 2,
     aot_warmup: bool = True,
     device: Union[str, torch.device] = "cuda",
+    mesh=None,
+    use_mesh: bool = True,
 ) -> Dict:
     """End-to-end evaluation on ``device`` (the card unless the caller
     asks for the CPU): run every stream shape once (``aot_warmup``), score
     the corpus, write the measure to ``out_metrics``.  Returns the measure
-    with the predictor's stats beside it."""
+    with the predictor's stats beside it.  On ``mesh`` (with ``use_mesh``
+    and no ``mesh``, a data mesh over a joined world of several ranks)
+    rank 0 writes the files and every rank returns the measure."""
     from ..build import resolve_device
+    from ..parallel.mesh import auto_mesh, replicate
 
-    device = resolve_device(device)
+    mesh = auto_mesh(mesh, use_mesh, device)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    model = model.to(device)
+    if mesh is not None:
+        replicate(model, mesh)
     predictor = SinglePredictor(
-        model.to(device), tokenizer, batch_size=batch_size, max_length=max_length,
-        buckets=buckets, tokens_per_batch=tokens_per_batch, aot_warmup=aot_warmup,
+        model, tokenizer, batch_size=batch_size, max_length=max_length,
+        buckets=buckets, tokens_per_batch=tokens_per_batch, aot_warmup=aot_warmup, mesh=mesh,
     )
     measured = predictor.predict_file(reader or SingleReader(), test_file, out_results,
                                       inflight=inflight)
-    if out_metrics is not None:
+    if out_metrics is not None and (mesh is None or mesh.is_primary):
         Path(out_metrics).write_text(json.dumps(measured, indent=4))
     return {**measured, **predictor.stats}

@@ -110,6 +110,17 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
+def _project(x: torch.Tensor, layer: nn.Linear, dtype, tp_group=None) -> torch.Tensor:
+    """:func:`linear`, or with ``tp_group`` the row-parallel product: this
+    rank's partial sum, reduced over the group, then the bias."""
+    if tp_group is None:
+        return linear(x, layer, dtype)
+    from ..parallel.sharding import reduce_from_group
+
+    out = reduce_from_group(F.linear(x.to(dtype), layer.weight.to(dtype)), tp_group)
+    return out + layer.bias.to(dtype)
+
+
 def dropout(
     x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator] = None
 ) -> torch.Tensor:
@@ -175,20 +186,30 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(c)
         self.output = BertSelfOutput(c, c.hidden_size)
 
+    # the model group of a tensor-parallel encoder (parallel/sharding.py):
+    # q/k/v then hold this rank's heads and the output projection its rows
+    tp_group = None
+
     def forward(self, hidden, bias, segment_ids=None, generator=None):
         c = self.config
         b, t, _ = hidden.shape
         head_dim = c.hidden_size // c.num_heads
+        x = hidden
+        if self.tp_group is not None:
+            from ..parallel.sharding import copy_to_group
+
+            x = copy_to_group(hidden, self.tp_group)
 
         def heads(layer):
-            return linear(hidden, layer, c.dtype).view(b, t, c.num_heads, head_dim)
+            out = linear(x, layer, c.dtype)
+            return out.view(b, t, out.shape[-1] // head_dim, head_dim)
 
         attn = dot_product_attention(
             heads(self.self.query), heads(self.self.key), heads(self.self.value),
             bias=bias, impl=c.attention_impl, segment_ids=segment_ids,
             dropout_rate=c.attention_dropout, training=self.training, generator=generator,
         )
-        out = linear(attn.reshape(b, t, c.hidden_size), self.output.dense, c.dtype)
+        out = _project(attn.reshape(b, t, -1), self.output.dense, c.dtype, self.tp_group)
         out = dropout(out, c.hidden_dropout, self.training, generator)
         return layer_norm(hidden + out, self.output.LayerNorm, c.dtype)
 
@@ -207,12 +228,20 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(c)
         self.output = BertSelfOutput(c, c.intermediate_size)
 
+    tp_group = None  # as BertAttention's: the FFN's columns and rows of this rank
+
     def forward(self, hidden, bias, segment_ids=None, generator=None):
         c = self.config
         dt = c.dtype
         hidden = self.attention(hidden, bias, segment_ids, generator)
-        inter = F.gelu(linear(hidden, self.intermediate.dense, dt))  # exact (erf)
-        out = dropout(linear(inter, self.output.dense, dt), c.hidden_dropout, self.training, generator)
+        x = hidden
+        if self.tp_group is not None:
+            from ..parallel.sharding import copy_to_group
+
+            x = copy_to_group(hidden, self.tp_group)
+        inter = F.gelu(linear(x, self.intermediate.dense, dt))  # exact (erf)
+        out = dropout(_project(inter, self.output.dense, dt, self.tp_group),
+                      c.hidden_dropout, self.training, generator)
         return layer_norm(hidden + out, self.output.LayerNorm, dt)
 
 
@@ -287,7 +316,7 @@ class BertEncoder(nn.Module):
         super().__init__()
         if c.quant is not None and c.quant not in QUANT_MODES:
             raise ValueError(f"unknown quant mode {c.quant!r}")
-        if c.attention_impl not in ("xla", "flash"):
+        if c.attention_impl not in ("xla", "flash", "ring"):
             raise ValueError(f"unknown attention impl {c.attention_impl!r}")
         self.config = c
         self.embeddings = BertEmbeddings(c)

@@ -141,10 +141,10 @@ class MemoryModel(nn.Module):
         return self.pair_logits(u, v)
 
 
-def pair_loss(logits, labels, weights, temperature: float) -> torch.Tensor:
+def pair_loss(logits, labels, weights, temperature: float, total=None) -> torch.Tensor:
     """Mean cross-entropy over the real rows of ``logits / temperature``,
-    in f32."""
-    return masked_cross_entropy(logits.to(torch.float32) / temperature, labels, weights)
+    in f32 (over ``total`` weight, see :func:`masked_cross_entropy`)."""
+    return masked_cross_entropy(logits.to(torch.float32) / temperature, labels, weights, total)
 
 
 def anchor_probs(anchor_logits: torch.Tensor, same_index: int = 0) -> torch.Tensor:

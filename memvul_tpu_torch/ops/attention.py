@@ -9,7 +9,11 @@
               in f32, weights cast back before the PV product;
 * ``"flash"`` blockwise exact attention (:mod:`.flash_attention`): the
               hand-written CUDA kernel on the card, its plain version on
-              the CPU.
+              the CPU;
+* ``"ring"``  sequence-parallel ring attention (:mod:`..parallel.ring`)
+              over the process group that ``encode_sequence_parallel``
+              binds; the bias travels with its key/value block, and
+              attention dropout raises.
 
 ``segment_ids`` ([B, T] int32, 0 = dead padding) switches to the packed
 serve path: attention is masked on segment equality instead of ``bias``,
@@ -57,8 +61,17 @@ def dot_product_attention(
     if impl == "flash":
         if not dropout:
             return flash_attention(query, key, value, bias)
+    elif impl == "ring":
+        if dropout:
+            raise ValueError(
+                "ring attention has no dropout support: set attention_dropout=0 "
+                "for sequence-parallel training"
+            )
+        from ..parallel.ring import current_group, ring_attention
+
+        return ring_attention(query, key, value, key_bias=bias, group=current_group())
     elif impl != "xla":
-        raise ValueError(f"unknown attention impl {impl!r} (want xla | flash)")
+        raise ValueError(f"unknown attention impl {impl!r} (want xla | flash | ring)")
     return xla_attention(query, key, value, bias, dropout_rate if dropout else 0.0, generator)
 
 

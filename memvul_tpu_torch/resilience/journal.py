@@ -67,15 +67,16 @@ def from_spans(spans: Iterable[Sequence[int]]) -> Set[int]:
 
 
 class DeadLetter:
-    """Append-only quarantine of malformed and over-long records."""
+    """Append-only quarantine of malformed and over-long records (with
+    ``path`` None, a count only: a mesh rank that writes no files)."""
 
     def __init__(
         self,
-        path: Union[str, Path],
+        path: Optional[Union[str, Path]],
         max_text_chars: int = DEFAULT_MAX_TEXT_CHARS,
         registry=None,
     ) -> None:
-        self.path = Path(path)
+        self.path = Path(path) if path is not None else None
         self.max_text_chars = max_text_chars
         self.count = 0
         self._registry = registry
@@ -87,7 +88,7 @@ class DeadLetter:
         raw: Optional[str] = None,
         meta: Optional[Dict[str, Any]] = None,
     ) -> None:
-        if self._f is None:
+        if self.path is not None and self._f is None:
             self.path.parent.mkdir(parents=True, exist_ok=True)
             # the dead-letter trail is itself the committed append-only
             # artifact (flushed per line, torn-tail-tolerant readers)
@@ -97,8 +98,9 @@ class DeadLetter:
             entry["raw"] = raw[:2000]  # enough to identify, never a whole dump
         if meta:
             entry["meta"] = meta
-        self._f.write(json.dumps(entry, default=str) + "\n")
-        self._f.flush()
+        if self._f is not None:
+            self._f.write(json.dumps(entry, default=str) + "\n")
+            self._f.flush()
         self.count += 1
         logger.warning("dead-letter: %s", reason)
         if self._registry is not None:
@@ -199,7 +201,7 @@ class ScoreJournal:
     def append(self, line_index: int, rows: Iterable[int], line_text: str) -> None:
         """Record one committed output line.  The caller flushes the line
         to its file first: the entry is the durable claim that it landed."""
-        if self._f is None:
+        if self.path is not None and self._f is None:
             self.path.parent.mkdir(parents=True, exist_ok=True)
             # the journal IS the committed append-only trail (flushed per
             # entry; a restart verifies and truncates any torn tail)

@@ -50,6 +50,7 @@ import time
 import urllib.request
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+from ..parallel import multihost
 from ..resilience import faults
 from ..telemetry import get_registry
 from .client import HTTPClient
@@ -1035,21 +1036,19 @@ def enumerate_hosts(
     full ``http://`` URLs, the ``serve --hosts`` argument), then the
     ``MEMVUL_FLEET_HOSTS`` environment variable, then
     ``MEMVUL_FLEET_HOST_TEMPLATE`` (a ``{i}``-indexed URL pattern, e.g.
-    ``http://serve-{i}.svc:8341``) expanded to one host per rank of the
-    ``torch.distributed`` world, only when a process group is initialized
-    (an uninitialized one is never probed).  With none of them: ``[]``.
+    ``http://serve-{i}.svc:8341``) expanded to one host per process of a
+    world that ``parallel/multihost.py``'s ``initialize`` joined (as the
+    JAX package reads its ``multihost`` state); the worlds ``--mesh``
+    starts never turn into a host list.  With none of them: ``[]``.
     """
     raw = spec if spec else os.environ.get("MEMVUL_FLEET_HOSTS", "")
     if not raw:
         template = os.environ.get("MEMVUL_FLEET_HOST_TEMPLATE", "")
-        if template:
-            import torch.distributed as dist
-
-            if dist.is_available() and dist.is_initialized():
-                raw = ",".join(
-                    template.replace("{i}", str(i))
-                    for i in range(dist.get_world_size())
-                )
+        if template and multihost._initialized:
+            raw = ",".join(
+                template.replace("{i}", str(i))
+                for i in range(multihost.process_count())
+            )
     out: List[str] = []
     for part in raw.split(","):
         part = part.strip()

@@ -167,6 +167,10 @@ class GroupedAdamW:
         self.momentum = momentum
         self.betas = betas
         self.params: List[torch.Tensor] = [p for g in optimizer.param_groups for p in g["params"]]
+        # the pre-clip norm of the gradients; a tensor-parallel model's
+        # counts each sharded parameter across its group
+        # (parallel.sharding.tp_global_norm)
+        self.norm_fn: Callable[[Sequence[torch.Tensor]], torch.Tensor] = global_norm
 
     @property
     def count(self) -> int:
@@ -182,7 +186,7 @@ class GroupedAdamW:
 
     def step(self) -> torch.Tensor:
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        norm = self.norm_fn(grads)
         if self.grad_clip_norm is not None:
             max_norm = float(self.grad_clip_norm)
             trigger = norm < max_norm

@@ -48,7 +48,8 @@ from .optim import GroupedAdamW, make_optimizer
 from ..resilience import faults
 from ..telemetry import get_registry
 from ..utils.profiling import StepTimer, trace_context
-from .trainer import _fetch_stats, book_epoch, host_tree, to_device
+from ..parallel.mesh import DATA_AXIS, all_reduce_sum, replicate, shard_batch
+from .trainer import _fetch_stats, _seed_rank_generator, _training_mesh, book_epoch, host_tree, to_device
 
 logger = logging.getLogger(__name__)
 
@@ -57,20 +58,33 @@ def classifier_step(
     model: torch.nn.Module, optimizer: GroupedAdamW, batch: Dict,
     generator: Optional[torch.Generator] = None,
     debug_checks: bool = False,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """One cross-entropy step over a batch of device tensors (with
     ``debug_checks``, checked finite before the update); returns the
-    step's stats as device tensors: loss, pre-clip grad norm, confusion."""
+    step's stats as device tensors: loss, pre-clip grad norm, confusion.
+    On a ``mesh`` with a data axis the batch is this rank's rows, the loss
+    divides by the global weight sum, and the gradients, loss and
+    confusion are summed over the axis (``trainer.train_step``'s rule)."""
+    group = mesh[DATA_AXIS] if mesh is not None and mesh.size(DATA_AXIS) > 1 else None
+    total = None
+    if group is not None:
+        total = batch["weight"].to(torch.float32).sum()
+        torch.distributed.all_reduce(total, group=group)
     optimizer.zero_grad()
     logits = model(batch["sample1"], generator=generator)
-    loss = masked_cross_entropy(logits.to(torch.float32), batch["label"], batch["weight"])
+    loss = masked_cross_entropy(logits.to(torch.float32), batch["label"], batch["weight"], total)
     loss.backward()
     with torch.no_grad():
+        loss = loss.detach()
+        confusion = device_confusion(logits.detach(), batch["label"], batch["weight"])
+        if group is not None:
+            all_reduce_sum([p.grad for p in optimizer.params] + [loss], group)
+            torch.distributed.all_reduce(confusion, group=group)
         if debug_checks:
             check_finite(loss, model.named_parameters())
         grad_norm = optimizer.step()
-        confusion = device_confusion(logits.detach(), batch["label"], batch["weight"])
-    return {"loss": loss.detach(), "grad_norm": grad_norm, "confusion": confusion}
+    return {"loss": loss, "grad_norm": grad_norm, "confusion": confusion}
 
 
 @dataclasses.dataclass
@@ -117,7 +131,9 @@ class ClassifierTrainer:
     """Trains ``model`` (a :class:`SingleModel` or :class:`TextCNN`, which
     holds its weights) on ``device`` from ``reader``'s stream over
     ``train_path``, validating on ``validation_path`` after each epoch.
-    ``mesh`` is not ported."""
+    On a ``mesh`` (a data axis) each rank trains on its slice of every
+    batch, as :class:`~.trainer.MemoryTrainer` does; rank 0 writes the
+    checkpoints and the validation output, every rank restores."""
 
     def __init__(
         self,
@@ -132,10 +148,11 @@ class ClassifierTrainer:
     ) -> None:
         from ..build import resolve_device
 
-        self.device = resolve_device(device)
+        # a mesh's rank owns its device
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         c = self.config = config or ClassifierTrainerConfig()
-        if mesh is not None:
-            raise NotImplementedError("training on a mesh (DDP) belongs to the multi-device slice")
+        self.mesh = _training_mesh(mesh)
+        self._writes = mesh is None or mesh.is_primary
         quant = getattr(getattr(model, "config", None), "quant", None)
         if quant is not None:
             raise ValueError(f"encoder quant={quant!r} is inference-only")
@@ -145,6 +162,8 @@ class ClassifierTrainer:
                 "(1 = no read-ahead; 0 would deadlock the feed queue)"
             )
         self.model = model.to(self.device)
+        if self.mesh is not None:
+            replicate(self.model, self.mesh)
         self.tokenizer = tokenizer
         self.reader = reader
         self.train_path = str(train_path)
@@ -162,7 +181,8 @@ class ClassifierTrainer:
             lr_schedule=c.learning_rate_scheduler,
             momentum_schedule=c.momentum_scheduler,
         )
-        self.generator = torch.Generator(device=self.device).manual_seed(int(c.seed))
+        self.generator = torch.Generator(device=self.device)
+        _seed_rank_generator(self.generator, int(c.seed), self.mesh)
         self.step = 0
         self.epoch = 0
         self.tracker = MetricTracker(c.validation_metric, c.patience)
@@ -194,10 +214,18 @@ class ClassifierTrainer:
                 "real_tokens": int(batch["sample1"]["attention_mask"].sum()),
             }
 
+    def _commit(self, item: tuple) -> tuple:
+        """The host-to-device copy on the prefetch worker: this rank's rows
+        on a mesh."""
+        batch, info = item
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
+        return to_device(batch, self.device), info
+
     def _batches(self) -> Iterator[tuple]:
         return prefetch(
             self._raw_batches(), depth=int(self.config.prefetch_depth),
-            commit=lambda item: (to_device(item[0], self.device), item[1]),
+            commit=self._commit,
             occupancy=get_registry().gauge("train.feed_occupancy"),
         )
 
@@ -251,7 +279,7 @@ class ClassifierTrainer:
                 faults.fault_point(f"step.{self.step}")
                 with timer.step():
                     pending.append(classifier_step(self.model, self.optimizer, batch,
-                                                   self.generator, c.debug_checks))
+                                                   self.generator, c.debug_checks, self.mesh))
                     self.step += 1
                 if len(pending) >= max(1, c.sync_every):
                     with timer.distribute_over_last(len(pending)):
@@ -294,7 +322,7 @@ class ClassifierTrainer:
                 max_length=c.eval_max_length,
                 buckets=tuple(c.eval_buckets) if c.eval_buckets else None,
                 tokens_per_batch=c.eval_tokens_per_batch,
-                aot_warmup=False,
+                aot_warmup=False, mesh=self.mesh,
             )
         out_dir = (
             Path(c.serialization_dir) if c.serialization_dir
@@ -323,7 +351,7 @@ class ClassifierTrainer:
             logger.info("epoch %d: loss %.6f, %s", self.epoch, epoch_metrics["training_loss"],
                         {k: v for k, v in val.items() if isinstance(v, float)})
             is_best = self.tracker.update(val, self.epoch) if val else True
-            if self.checkpointer is not None:
+            if self.checkpointer is not None and self._writes:
                 self.checkpointer.save(self.epoch, self._state_dict(), is_best=is_best,
                                        metadata=epoch_metrics)
             self.epoch += 1
@@ -356,6 +384,8 @@ class ClassifierTrainer:
         self.model.load_state_dict(state["params"])
         self.optimizer.load_state_dict(state["opt_state"])
         self.generator.set_state(state["rng"])
+        _seed_rank_generator(self.generator, int(self.config.seed), self.mesh,
+                             int(state["meta"]["step"]))
         meta = state["meta"]
         self.step = int(meta["step"])
         self.epoch = int(meta["epoch"]) + 1

@@ -61,6 +61,7 @@ from ..data.batching import (
 )
 from ..data.readers import MemoryReader
 from ..models.memory import MemoryModel, pair_loss
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, all_reduce_sum, any_rank, replicate, shard_batch
 from ..resilience import faults
 from ..resilience.io import atomic_write_text
 from ..telemetry import get_registry
@@ -127,6 +128,7 @@ def train_step(
     ema_model: Optional[MemoryModel] = None,
     ema_decay: Optional[float] = None,
     debug_checks: bool = False,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """One optimizer step over a [K, B, ...] stack of device tensors:
     forward and backward per microbatch (gradients summed, then divided by
@@ -134,20 +136,35 @@ def train_step(
     ``ema_model``, ``ema = ema·decay + params·(1 − decay)``.  With
     ``debug_checks`` the parameters, loss and gradients are checked finite
     before the update (:func:`~.metrics.check_finite`).  Returns the
-    step's stats as device tensors: mean loss, grad norm, confusion."""
+    step's stats as device tensors: mean loss, grad norm, confusion.
+
+    On a ``mesh`` with a data axis, ``stack`` holds this rank's rows: each
+    microbatch's loss divides by the global weight sum (one all-reduce of
+    the K sums up front), so summing the ranks' gradients and losses (one
+    all-reduce a step, after the K backwards) gives the single-device
+    step's exactly, however the padding rows fall."""
     k = stack["label"].shape[0]
+    group = mesh[DATA_AXIS] if mesh is not None and mesh.size(DATA_AXIS) > 1 else None
     optimizer.zero_grad()
     loss_sum = torch.zeros((), dtype=torch.float32, device=stack["label"].device)
+    totals = [None] * k
+    if group is not None:
+        totals = stack["weight"].to(torch.float32).sum(dim=1)
+        torch.distributed.all_reduce(totals, group=group)
     logits = []
     for i in range(k):
         mb = _tree_map(lambda x: x[i], stack)
         out = model(mb["sample1"], mb["sample2"], sample2_index=mb.get("sample2_index"),
                     generator=generator)
-        loss = pair_loss(out, mb["label"], mb["weight"], model.temperature)
+        loss = pair_loss(out, mb["label"], mb["weight"], model.temperature, totals[i])
         loss.backward()
         loss_sum = loss_sum + loss.detach()
         logits.append(out.detach())
     with torch.no_grad():
+        confusion = device_confusion(torch.stack(logits), stack["label"], stack["weight"])
+        if group is not None:
+            all_reduce_sum([p.grad for p in optimizer.params] + [loss_sum], group)
+            torch.distributed.all_reduce(confusion, group=group)
         for p in optimizer.params:
             p.grad.div_(k)
         if debug_checks:
@@ -157,8 +174,46 @@ def train_step(
             decay = float(ema_decay)
             for e, p in zip(ema_model.parameters(), model.parameters()):
                 e.mul_(decay).add_(p.to(e.dtype), alpha=1.0 - decay)
-        confusion = device_confusion(torch.stack(logits), stack["label"], stack["weight"])
     return {"loss": loss_sum / k, "grad_norm": grad_norm, "confusion": confusion}
+
+
+def _training_mesh(mesh):
+    """The mesh a trainer takes: a data axis (any size), nothing else."""
+    if mesh is None:
+        return None
+    if mesh.size(MODEL_AXIS) > 1:
+        raise NotImplementedError(
+            "training on a multi-device mesh with a model (tensor-parallel) axis writes sharded "
+            "checkpoints, which belong to the next slice (ROADMAP.md, item 5); parallel.sharding "
+            "runs the TP "
+            "forward and step")
+    extra = set(mesh.axis_names) - {DATA_AXIS, MODEL_AXIS}
+    if extra:
+        raise ValueError(f"a training mesh takes the data and model axes, got {sorted(extra)}")
+    return mesh
+
+
+def _seed_rank_generator(generator: torch.Generator, seed: int, mesh,
+                         restored_step: Optional[int] = None) -> None:
+    """Data rank 0 keeps the single-device dropout stream (a restored one
+    its checkpointed state); every other data rank draws its own, from
+    (seed, rank, step), so no two slices share masks."""
+    index = mesh.index(DATA_AXIS) if mesh is not None else 0
+    if index == 0:
+        if restored_step is None:
+            generator.manual_seed(seed)
+        return
+    step = restored_step or 0
+    generator.manual_seed((seed * 1_000_003 + index * 7919 + step) & 0x7FFFFFFF)
+
+
+def _shard_stack(stack: Dict, mesh) -> Dict:
+    """This rank's rows of a [K, B, ...] stack; with the dedup gather
+    (``sample2_index``) the unique ``sample2`` rows stay whole, since any
+    rank's pairs may point at any of them."""
+    whole = {"sample2": stack["sample2"]} if "sample2_index" in stack else {}
+    sharded = shard_batch({k: v for k, v in stack.items() if k not in whole}, mesh, batch_axis=1)
+    return {**sharded, **whole}
 
 
 def book_epoch(tel, epoch: int, metrics: Dict[str, Any], durations: Sequence[float]) -> None:
@@ -236,7 +291,17 @@ class MemoryTrainer:
     """Trains ``model`` (which holds the weights; the JAX trainer takes
     them apart) on ``device`` from ``reader``'s pair stream over
     ``train_path``, validating against ``anchor_path``'s bank on
-    ``validation_path`` after each epoch.  ``mesh`` is not ported."""
+    ``validation_path`` after each epoch.
+
+    On a ``mesh`` (:func:`~memvul_tpu_torch.parallel.create_mesh`, a data
+    axis) every rank reads the same stream and trains on its slice of each
+    stack's rows (the dedup's unique ``sample2`` rows stay whole on every
+    rank); the update equals the single-device step's on the global batch
+    (:func:`train_step`).  Rank 0 alone writes checkpoints, the preemption
+    marker, the step-loss log and the validation output; every rank
+    restores.  A stop signal is agreed at each stats drain, so the ranks
+    stop at the same step.  A ``model`` axis (tensor-parallel training)
+    raises."""
 
     def __init__(
         self,
@@ -252,10 +317,11 @@ class MemoryTrainer:
     ) -> None:
         from ..build import resolve_device
 
-        self.device = resolve_device(device)
+        # a mesh's rank owns its device
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         c = self.config = config or TrainerConfig()
-        if mesh is not None:
-            raise NotImplementedError("training on a mesh (DDP) belongs to the multi-device slice")
+        self.mesh = _training_mesh(mesh)
+        self._writes = mesh is None or mesh.is_primary
         if model.config.quant is not None:
             raise ValueError(f"encoder quant={model.config.quant!r} is inference-only")
         if int(c.prefetch_depth) < 1:
@@ -264,6 +330,8 @@ class MemoryTrainer:
                 "(1 = no read-ahead; 0 would deadlock the feed queue)"
             )
         self.model = model.to(self.device)
+        if self.mesh is not None:
+            replicate(self.model, self.mesh)
         self.tokenizer = tokenizer
         self.reader = reader
         self.train_path = str(train_path)
@@ -271,7 +339,8 @@ class MemoryTrainer:
         self.anchor_path = str(anchor_path) if anchor_path else None
         self.encoder = CachedEncoder(tokenizer, max_length=c.max_length)
         self.train_buckets = resolve_train_buckets(c.train_buckets, c.max_length)
-        self._dedup_cap_floor = 8
+        # under a data mesh every device-fed dimension divides the axis
+        self._dedup_cap_floor = max(8, self.mesh.size(DATA_AXIS) if self.mesh else 1)
         total_steps = c.total_steps
         if total_steps is None and c.steps_per_epoch is not None:
             total_steps = c.num_epochs * c.steps_per_epoch
@@ -287,7 +356,8 @@ class MemoryTrainer:
             lr_schedule=c.learning_rate_scheduler,
             momentum_schedule=c.momentum_scheduler,
         )
-        self.generator = torch.Generator(device=self.device).manual_seed(int(c.seed))
+        self.generator = torch.Generator(device=self.device)
+        _seed_rank_generator(self.generator, int(c.seed), self.mesh)
         self.step = 0
         self.epoch = 0
         self._stop_signal: Optional[int] = None
@@ -378,6 +448,8 @@ class MemoryTrainer:
         """The host-to-device copy, on the prefetch worker so stack N+1's
         copy overlaps step N: pinned host memory, ``non_blocking``."""
         stack, info = item
+        if self.mesh is not None:
+            stack = _shard_stack(stack, self.mesh)
         return to_device(stack, self.device), info
 
     # -- epoch orchestration ---------------------------------------------------
@@ -400,7 +472,7 @@ class MemoryTrainer:
         if not new:
             return
         first = self.step - len(new)
-        if self.config.step_loss_log:
+        if self.config.step_loss_log and self._writes:
             with open(self.config.step_loss_log, "a") as f:
                 for offset, loss in enumerate(new):
                     f.write(json.dumps({"step": first + offset, "loss": loss}) + "\n")
@@ -452,19 +524,22 @@ class MemoryTrainer:
                 with timer.step():
                     pending.append(train_step(
                         self.model, self.optimizer, stack, self.generator,
-                        self.ema_model, c.ema_decay, c.debug_checks,
+                        self.ema_model, c.ema_decay, c.debug_checks, self.mesh,
                     ))
                     self.step += 1
                 self._epoch_stacks_done = i + 1
+                synced = False
                 if len(pending) >= max(1, c.sync_every):
                     with timer.distribute_over_last(len(pending)):
                         self._drain_stats(pending, running, losses, grad_norms)
+                    synced = True
                 if c.save_every_steps and self.checkpointer is not None \
                         and self.step % c.save_every_steps == 0:
                     with timer.distribute_over_last(max(1, len(pending))):
                         self._drain_stats(pending, running, losses, grad_norms)
                     self._save_step_checkpoint()
-                if self._stop_signal is not None:
+                    synced = True
+                if self._should_stop(synced):
                     logger.warning(
                         "stop signal %s: halting after step %d (%d/%s stacks of epoch %d)",
                         self._stop_signal, self.step - 1, self._epoch_stacks_done,
@@ -507,7 +582,7 @@ class MemoryTrainer:
                 batch_size=c.eval_batch_size,
                 max_length=c.eval_max_length,
                 buckets=tuple(c.eval_buckets) if c.eval_buckets else None,
-                tokens_per_batch=c.eval_tokens_per_batch,
+                tokens_per_batch=c.eval_tokens_per_batch, mesh=self.mesh,
             )
         predictor = self._val_predictor
         predictor.model = target.eval()
@@ -522,6 +597,19 @@ class MemoryTrainer:
         return {rename.get(k, f"s_{k}"): v for k, v in metrics.items()}
 
     # -- preemption safety -----------------------------------------------------
+
+    def _should_stop(self, at_sync: bool = True) -> bool:
+        """Whether to stop now.  On a mesh of several ranks the ranks agree
+        (a collective, so only where every rank is: after a drain, between
+        epochs): a signal on any rank stops them all."""
+        if self.mesh is None or self.mesh.world_size == 1:
+            return self._stop_signal is not None
+        if not at_sync:
+            return False
+        stop = any_rank(self._stop_signal is not None, self.mesh)
+        if stop and self._stop_signal is None:
+            self._stop_signal = int(signal.SIGTERM)  # a peer's signal
+        return stop
 
     def _request_stop(self, signum, frame) -> None:
         """Signal handler: a flag only.  The step in flight finishes, the
@@ -550,7 +638,7 @@ class MemoryTrainer:
     def _save_step_checkpoint(self) -> None:
         """A mid-epoch checkpoint: the full state plus the stream position
         (epoch and stacks consumed), enough to replay the rest exactly."""
-        if self.checkpointer is None:
+        if self.checkpointer is None or not self._writes:
             return
         self.checkpointer.save_step(
             self.step,
@@ -571,7 +659,7 @@ class MemoryTrainer:
     def _save_preemption_state(self) -> None:
         self._save_step_checkpoint()
         marker = self._preempt_marker
-        if marker is not None:
+        if marker is not None and self._writes:
             atomic_write_text(marker, json.dumps({
                 "signal": self._stop_signal, "epoch": self.epoch, "step": self.step,
                 "stacks_done": self._epoch_stacks_done,
@@ -590,7 +678,7 @@ class MemoryTrainer:
         preempted = False
         try:
             while self.epoch < c.num_epochs:
-                if self._stop_signal is not None:
+                if self._should_stop():
                     preempted = True
                     self._save_preemption_state()
                     break
@@ -598,7 +686,7 @@ class MemoryTrainer:
                 # profile_dir: a profiler trace of epoch 0 (the first epoch run)
                 with trace_context(c.profile_dir if self.epoch == 0 else None):
                     train_metrics = self.train_epoch()
-                if self._stop_signal is not None:
+                if self._should_stop():
                     # a partial epoch: no validation, no epoch checkpoint;
                     # the resumed run finishes the epoch
                     preempted = True
@@ -618,7 +706,7 @@ class MemoryTrainer:
                          if k.startswith("validation_")},
                         self.epoch,
                     )
-                if self.checkpointer is not None:
+                if self.checkpointer is not None and self._writes:
                     with get_registry().span("checkpoint", epoch=self.epoch):
                         self.checkpointer.save(
                             self.epoch, self._state_dict(), is_best=is_best,
@@ -636,7 +724,7 @@ class MemoryTrainer:
                 except (ValueError, OSError):
                     pass
         marker = self._preempt_marker
-        if not preempted and marker is not None and marker.exists():
+        if not preempted and marker is not None and self._writes and marker.exists():
             marker.unlink()  # completed cleanly: the resumable marker is stale
         result: Dict[str, Any] = {
             "best_epoch": self.tracker.best_epoch,
@@ -689,6 +777,8 @@ class MemoryTrainer:
         self.model.load_state_dict(state["params"])
         self.optimizer.load_state_dict(state["opt_state"])
         self.generator.set_state(state["rng"])
+        _seed_rank_generator(self.generator, int(self.config.seed), self.mesh,
+                             int(state["meta"]["step"]))
         if self.ema_model is not None:
             # ema enabled after this checkpoint was written: seed it from
             # the restored live weights

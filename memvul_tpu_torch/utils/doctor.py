@@ -6,9 +6,10 @@ One JSON report, the JAX package's sections:
 * ``backend`` + ``mesh``: the device's presence, a tiny matmul and a
   cross-device sum — ALL device ops run in one child process under a
   timeout (a hung first CUDA call must not hang the doctor), killed with
-  the bench's discipline (``bench._kill_process_group``).  The multi-device
-  module is not ported, so ``mesh`` puts one shard on each visible
-  ``cuda:i`` and sums them on ``cuda:0`` (one card: one shard);
+  the bench's discipline (``bench._kill_process_group``).  ``mesh`` is the
+  JAX package's probe: ``create_mesh({"data": n})`` over the n visible
+  cards (one rank per card, :func:`mesh_probe`; a world of one on one
+  card, or on the CPU), ``arange(n*4)`` sharded over it and summed;
   ``--skip-device`` skips the child, ``--device cpu`` probes the CPU;
 * ``vocabulary``: whether the config's ``vocab_path`` exists (genuine
   vocabulary) or only the trained ``tokenizer_path`` (the fallback);
@@ -40,12 +41,43 @@ else:
 x = torch.ones((64, 64), device=devices[0])
 s = float((x @ x).sum())
 print("DOCTOR_BACKEND", n, devices[0].type, s, flush=True)
-shards = [torch.arange(i * 4.0, (i + 1) * 4.0, device=d) for i, d in enumerate(devices)]
-total = float(sum(shard.to(devices[0]).sum() for shard in shards))
-if device == "cuda":
-    torch.cuda.synchronize()
+if n == 1:
+    from memvul_tpu_torch.utils.doctor import mesh_probe
+    total = mesh_probe(device)
+else:
+    import tempfile
+    from memvul_tpu_torch.parallel.launch import run_ranks
+    with tempfile.TemporaryDirectory() as work:
+        total = run_ranks("memvul_tpu_torch.utils.doctor:mesh_probe", n, work,
+                          {"device": device}, timeout_s=float(sys.argv[2]))[0]
 print("DOCTOR_MESH", n, total, float(sum(range(n * 4))), flush=True)
 """
+
+
+def mesh_probe(device: str = "cuda") -> float:
+    """One rank of the doctor's mesh check: a data mesh over the world,
+    this rank's shard of ``arange(n*4)``, summed over the mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel import create_mesh, shard_batch
+
+    mesh = create_mesh({"data": -1}, device=device, timeout_s=60.0)
+    n = mesh.size("data")
+    shard = shard_batch(torch.arange(n * 4.0, device=mesh.device), mesh)
+    total = shard.sum()
+    dist.all_reduce(total)
+    out = float(total)
+    dist.destroy_process_group()
+    return out
+
+
+def _probe_env() -> Dict[str, str]:
+    """The probe child's env: this package importable wherever it runs."""
+    import os
+
+    root = str(Path(__file__).resolve().parents[2])
+    return dict(os.environ, PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
 
 
 def _check_device_and_mesh(
@@ -67,8 +99,8 @@ def _check_device_and_mesh(
         "w+"
     ) as err_f:
         proc = subprocess.Popen(
-            [sys.executable, "-c", _DEVICE_PROBE, device],
-            stdout=out_f, stderr=err_f, text=True,
+            [sys.executable, "-c", _DEVICE_PROBE, device, str(device_timeout_s)],
+            stdout=out_f, stderr=err_f, text=True, env=_probe_env(),
             start_new_session=True,
         )
         try:

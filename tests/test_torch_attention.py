@@ -104,7 +104,7 @@ def test_structured_bias_and_ragged_path_raise():
     with pytest.raises(ValueError, match="segment_ids"):
         dot_product_attention(q, q, q, segment_ids=torch.ones(1, 7, dtype=torch.int32))
     with pytest.raises(ValueError, match="unknown attention impl"):
-        dot_product_attention(q, q, q, impl="ring")
+        dot_product_attention(q, q, q, impl="dense")
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

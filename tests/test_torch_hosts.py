@@ -6,7 +6,7 @@ against the JAX package's, on the CPU.
   atol 1e-5 of the JAX balancer over the same hosts, both hosts used;
 * **enumeration**: ``enumerate_hosts`` resolves specs and
   ``MEMVUL_FLEET_HOSTS`` as the JAX package does, and expands
-  ``MEMVUL_FLEET_HOST_TEMPLATE`` only over an initialized
+  ``MEMVUL_FLEET_HOST_TEMPLATE`` only over a multihost-initialized
   ``torch.distributed`` world;
 * **routing, merged endpoints, drain, quarantine, a dead host**, as the
   reference's ``test_serving_fleet.py`` pins them;
@@ -235,6 +235,12 @@ def test_enumerate_hosts_spec_env_and_template(monkeypatch):
     assert enumerate_hosts() == []  # no process group: never probed
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 3)
+    # a world that --mesh started is no host list (the JAX package reads
+    # its multihost state, not the runtime's)
+    assert enumerate_hosts() == []
+    from memvul_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(multihost, "_initialized", True)
     assert enumerate_hosts() == ["http://serve-0.svc:8343", "http://serve-1.svc:8343",
                                  "http://serve-2.svc:8343"]
     monkeypatch.setenv("MEMVUL_FLEET_HOSTS", "x:1")

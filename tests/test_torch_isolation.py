@@ -48,6 +48,9 @@ EXPECTED_MODULES = (
     "memvul_tpu_torch.analysis.checkers.handlers", "memvul_tpu_torch.analysis.checkers.artifacts",
     "memvul_tpu_torch.analysis.checkers.purity", "memvul_tpu_torch.analysis.checkers.locks",
     "memvul_tpu_torch.analysis.checkers.drift",
+    "memvul_tpu_torch.parallel", "memvul_tpu_torch.parallel.mesh",
+    "memvul_tpu_torch.parallel.multihost", "memvul_tpu_torch.parallel.launch",
+    "memvul_tpu_torch.parallel.ring", "memvul_tpu_torch.parallel.sharding",
 )
 # the one sanctioned import of a forbidden library: HF's BertModel as the
 # oracle of parity's stage (a), imported lazily inside that function
@@ -164,6 +167,29 @@ def test_default_device_refuses_a_host_without_cuda(tmp_path):
     )
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr and "serving" not in proc.stdout
+
+
+def test_mesh_and_launcher_default_device_refuses_a_host_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for CUDA-less hosts")
+    from memvul_tpu_torch.parallel import create_mesh
+    from memvul_tpu_torch.parallel.multihost import initialize, rank_device
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rank_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize("localhost:1", num_processes=1, process_id=0)
+    assert not torch.distributed.is_initialized()
+    # the launcher (--mesh) counts the cards before it starts a rank
+    proc = subprocess.run(
+        [sys.executable, "-m", "memvul_tpu_torch", "evaluate", str(tmp_path / "missing.tar.gz"),
+         str(tmp_path / "test.json"), "-o", str(tmp_path / "ev"), "--mesh", "data=2"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 2
+    assert "need 2 devices, have 0" in proc.stderr and not (tmp_path / "ev").exists()
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "script_alone"])

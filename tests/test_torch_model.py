@@ -104,7 +104,7 @@ def test_encoder_guards():
     with pytest.raises(ValueError, match="unknown quant mode"):
         BertEncoder(BertConfig.tiny(quant="int4"))
     with pytest.raises(ValueError, match="unknown attention impl"):
-        BertEncoder(BertConfig.tiny(attention_impl="ring"))
+        BertEncoder(BertConfig.tiny(attention_impl="dense"))
     enc = BertEncoder(BertConfig.tiny(max_position_embeddings=16))
     with pytest.raises(ValueError, match="max_position_embeddings"):
         enc(torch.zeros(1, 17, dtype=torch.long), torch.ones(1, 17, dtype=torch.long))

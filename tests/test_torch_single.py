@@ -18,6 +18,7 @@ TextCNN (``model_cnn``), against the JAX package's on the CPU
   and ``evaluate`` through the CLI, refused without CUDA."""
 
 import json
+import types
 from pathlib import Path
 
 import jax
@@ -286,8 +287,11 @@ def test_classifier_trainer_refusals(ws):
     assert ClassifierTrainer(pmodel, ptok, reader, ws["paths"]["train"],
                              config=ClassifierTrainerConfig(debug_checks=True),
                              device="cpu").config.debug_checks
+    # a data mesh trains (slice 14); a model (tensor-parallel) axis does not yet
+    tp_mesh = types.SimpleNamespace(axis_names=("data", "model"), size=lambda axis: 2,
+                                    device=torch.device("cpu"), is_primary=True)
     with pytest.raises(NotImplementedError, match="multi-device"):
-        ClassifierTrainer(pmodel, ptok, reader, ws["paths"]["train"], device="cpu", mesh=object())
+        ClassifierTrainer(pmodel, ptok, reader, ws["paths"]["train"], device="cpu", mesh=tp_mesh)
     with pytest.raises(ValueError, match="unknown key"):
         build.train_from_config({"model": {"type": "model_cnn"}, "trainer": {"grad_accum": 2}},
                                 "/nonexistent/never", device="cpu")
