@@ -95,8 +95,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  resumed to an uninterrupted run's losses (f32 1e-5; the
                  two first runs at once, ``selfcheck`` beside them);
                  ``ckpt.write`` and ``data.read`` in process;
-   ``baseline_path`` ``python -m memvul_tpu_torch baseline`` over 8192 +
-                 2048 ``generate_corpus`` reports: each learner's seconds,
+   ``baseline_path`` ``python -m memvul_tpu_torch baseline`` over 4096 +
+                 1024 ``generate_corpus`` reports: each learner's seconds,
                  F1 and AUC, the selected features; NB's and KNN's card
                  predictions equal to the CPU's, LR's within 1e-3;
    ``pretrain_path`` MLM further pretraining with ``configs/further_pretrain.json``
@@ -186,7 +186,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``parity_path`` ``python -m memvul_tpu_torch parity`` on the card over
                  a reference-format ``model.tar.gz`` and an HF directory at
                  BERT-base width (random weights from a seed, written with
-                 ``torch.save``), 320 synthetic reports at length 256 and
+                 ``torch.save``), 64 synthetic reports at length 256 and
                  129 anchors, twice: stage (a) against HF's ``BertModel``
                  where ``transformers`` is installed (exit 0), then with
                  it hidden (skipped with ``ok`` false, exit 1); each run's
@@ -200,6 +200,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  the tree (exit 0, no finding, every module parsed once)
                  and ``BENCH_LINT=1`` through the bench's supervisor with a
                  tiny main pass (the ``lint`` record before the bench's);
+   ``mesh_path`` the mesh over ``torch.distributed`` on one card: ``train
+                 --mesh data=1`` and ``evaluate --mesh data=1,model=1``
+                 (NCCL worlds of one) against the runs without a mesh; two
+                 ranks sharing ``cuda:0`` over gloo training on ``data=2``
+                 and on ``data=1 × model=2`` (the copies' params bitwise
+                 equal after each step), scoring with the bank split, a TP
+                 forward; the ring at T = 4096;
+   ``serve_mesh_path`` one service across a mesh: ``serve --mesh data=1``
+                 bitwise as ``serve``, and gloo worlds on ``cuda:0``
+                 (``data=1 × model=2`` bitwise with a swap, an idle gap past
+                 the world's timeout and SIGTERM; ``data=2`` in f32 within
+                 1e-5; a killed follower ending rank 0), each rank's K1/K2
+                 launches matching its commands, K1 and K2 at the new
+                 shapes against their plain versions;
 6. ``main_path_profile`` / ``serve_pack_profile``
                  device time by kernel (torch.profiler) for one batch of the
                  main path's 2048 bucket and for one serve pack's round trip
@@ -1257,7 +1271,7 @@ def _result_records(path: Path) -> list:
     return [r for line in path.read_text().splitlines() if line.strip() for r in json.loads(line)]
 
 
-def _flash_at_auto_shapes(shapes: list, records: dict) -> list:
+def _flash_at_auto_shapes(shapes: list, records: dict, dtype=None) -> list:
     """K2 against its plain version at each (rows, length) a run launched
     it with.  Every row's first keys are scaled up 3x, so they dominate any
     softmax that sees them: a kernel whose last, partial key tile read past
@@ -1265,19 +1279,23 @@ def _flash_at_auto_shapes(shapes: list, records: dict) -> list:
     tolerance.  The phase computes that leak with the plain version (keys
     of sequence i extended by those of sequence i + 1 up to the 128-key
     tile) and requires it to fail the check wherever T % 128 != 0.  The
-    values stay N(0, 1), so the bf16 check's tolerance keeps its scale."""
+    values stay N(0, 1), so the bf16 check's tolerance keeps its scale.
+    ``dtype`` is bf16 unless given (f32: the CUDA-core kernel, 2e-5, its
+    bound at the f32 rate)."""
     import torch
 
     from memvul_tpu_torch.ops import flash_attention as fa
 
+    dtype = torch.bfloat16 if dtype is None else dtype
     gen = torch.Generator(device="cuda").manual_seed(6)
     lengths_cpu = torch.Generator().manual_seed(7)
-    tol, tile = 3e-2, 128
+    tol, tile = (3e-2 if dtype == torch.bfloat16 else 2e-5), 128
+    rate = BF16_TENSOR_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     out = []
     for rows, t in shapes:
         lens = [t if i % 2 == 0 else int(torch.randint(1, t + 1, (1,), generator=lengths_cpu))
                 for i in range(rows)]
-        q, k, v, bias = _flash_inputs(rows, t, 12, 64, torch.bfloat16, gen, lens)
+        q, k, v, bias = _flash_inputs(rows, t, 12, 64, dtype, gen, lens)
         ext = (-t) % tile
         if ext:
             k[:, :ext] *= 3.0
@@ -1285,8 +1303,8 @@ def _flash_at_auto_shapes(shapes: list, records: dict) -> list:
         want = fa.flash_attention_reference(q, k, v, bias)
         torch.cuda.synchronize()
         err, ok = max_err(got, want, tol, tol)
-        row = {"shape": [rows, t, 12, 64], "t_mod_64": t % 64, "max_abs_err": err, "ok": ok,
-               "want_rms": rms(want)}
+        row = {"shape": [rows, t, 12, 64], "dtype": str(dtype), "t_mod_64": t % 64,
+               "max_abs_err": err, "ok": ok, "want_rms": rms(want)}
         if ext:
             n = min(rows - 1, 16) // 2 * 2  # even rows 0..n-2, each with its successor's keys
             idx = torch.arange(0, n, 2, device="cuda")
@@ -1303,7 +1321,7 @@ def _flash_at_auto_shapes(shapes: list, records: dict) -> list:
         row["library_ms"] = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias), 5)
         row["bound_ms"], row["bound_by"] = bound(4 * rows * t * 12 * 64 * item + rows * t * 4,
-                                                 4 * rows * 12 * t * t * 64, BF16_TENSOR_FLOPS)
+                                                 4 * rows * 12 * t * t * 64, rate)
         del q, k, v, bias, got, want
         out.append(row)
         if not row["ok"]:
@@ -1312,27 +1330,30 @@ def _flash_at_auto_shapes(shapes: list, records: dict) -> list:
     return out
 
 
-def _anchor_match_at_rows(row_counts, a: int = 129) -> list:
+def _anchor_match_at_rows(row_counts, a: int = 129, dtype=None) -> list:
     """K1 against its plain version (f64) at each row count, ``a`` anchors
-    (129: the main path's bank), D = 512, C = 2, bf16, twice for the same
-    bits; timed as ``phase_anchor_match`` times it (profiler device time),
-    beside the plain version's time and the FP32-instruction bound."""
+    (129: the main path's bank), D = 512, C = 2, bf16 unless ``dtype`` says
+    (f32: 1e-5), twice for the same bits; timed as ``phase_anchor_match``
+    times it (profiler device time), beside the plain version's time and
+    the FP32-instruction bound."""
     import torch
 
     from memvul_tpu_torch.ops import anchor_match as am
 
+    dtype = torch.bfloat16 if dtype is None else dtype
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
     gen = torch.Generator(device="cuda").manual_seed(8)
     d, c = 512, 2
     out = []
     for b in sorted(set(row_counts)):
-        u = torch.randn(b, d, device="cuda", generator=gen).to(torch.bfloat16)
-        v = torch.randn(a, d, device="cuda", generator=gen).to(torch.bfloat16)
-        w = (torch.randn(3 * d, c, device="cuda", generator=gen) * 0.1).to(torch.bfloat16)
+        u = torch.randn(b, d, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(a, d, device="cuda", generator=gen).to(dtype)
+        w = (torch.randn(3 * d, c, device="cuda", generator=gen) * 0.1).to(dtype)
         got, again = am.fused_anchor_match(u, v, w), am.fused_anchor_match(u, v, w)
         want = am.anchor_match_reference(u.double(), v.double(), w.double())
         torch.cuda.synchronize()
-        err, ok = max_err(got, want, 3e-2, 3e-2)
-        row = {"rows": b, "anchors": a, "max_abs_err": err,
+        err, ok = max_err(got, want, tol, tol)
+        row = {"rows": b, "anchors": a, "dtype": str(dtype), "max_abs_err": err,
                "same_bits_twice": bool(torch.equal(got, again)),
                "ok": ok and bool(torch.equal(got, again))}
         if not row["ok"]:
@@ -2458,7 +2479,7 @@ def _event_cost_us(run_dir: Path, events: int = 2000) -> float:
     return cost
 
 
-def _train_step_profile(cfg: dict, stacks: int = 3) -> None:
+def _train_step_profile(cfg: dict, stacks: int = 2) -> None:
     """Host wall against device time of single train steps of
     ``train_path``'s configuration (as shipped: attention dropout 0.1), by
     torch.profiler: the trainer's own stacks, the first one warming up,
@@ -4780,7 +4801,7 @@ def phase_train_faults(workdir: Path) -> None:
         raise SystemExit(f"train_faults failed: {checks}")
 
 
-def _baseline_corpus(workdir: Path, train_n: int = 8192, test_n: int = 2048) -> tuple:
+def _baseline_corpus(workdir: Path, train_n: int = 4096, test_n: int = 1024) -> tuple:
     """``generate_corpus`` reports of realistic lengths, split into the
     first ``train_n`` and the next ``test_n``."""
     from memvul_tpu_torch.data.synthetic import generate_corpus
@@ -4798,7 +4819,7 @@ def _baseline_corpus(workdir: Path, train_n: int = 8192, test_n: int = 2048) -> 
 
 def phase_baseline_path(workdir: Path) -> None:
     """``python -m memvul_tpu_torch baseline`` on the card (no sklearn on
-    this machine) over 8192 train and 2048 test reports of
+    this machine) over 4096 train and 1024 test reports of
     ``generate_corpus``: the ten result and metric files, each learner's
     seconds, F1 and AUC and the selected feature count from its log; then
     NB, KNN and LR fitted on the card and on the CPU on the same selected
@@ -5449,7 +5470,7 @@ def _parity_child(argv: list, out: Path, hide_oracle: bool) -> dict:
             "wall_s": wall, "stderr": proc.stderr}
 
 
-def phase_parity_path(workdir: Path, records: dict, reports_wanted: int = 320) -> None:
+def phase_parity_path(workdir: Path, records: dict, reports_wanted: int = 64) -> None:
     """``python -m memvul_tpu_torch parity`` on the card over a
     reference-format archive at BERT-base width (random weights from a
     seed, 129 anchors, a few hundred synthetic reports at length 256):
@@ -5500,8 +5521,17 @@ def phase_parity_path(workdir: Path, records: dict, reports_wanted: int = 320) -
     oracle = importlib.util.find_spec("transformers") is not None
     checks, runs = {}, {}
     launches = collections.Counter()
+    # the two commands side by side
+    started: dict = {}
+    children = [threading.Thread(target=lambda n=name, h=hide: started.update(
+        {n: _parity_child(argv, workdir / "parity" / n, h)}))
+        for name, hide in (("card", False), ("card_no_oracle", True))]
+    for t in children:
+        t.start()
+    for t in children:
+        t.join()
     for name, hide in (("card", False), ("card_no_oracle", True)):
-        run = _parity_child(argv, workdir / "parity" / name, hide)
+        run = started[name]
         report, child = run["report"], run["hook"]
         scoring = report.get("archive_scoring") or {}
         metrics = scoring.get("metrics") or {}
@@ -5691,8 +5721,9 @@ def _epoch0(run_dir: Path, key: str) -> list:
 def mesh_shared_card(work: str, cfg_file: str, archive: str, test_path: str, overrides: dict):
     """One of two ranks sharing ``cuda:0`` over gloo (NCCL refuses two ranks
     on one device), deterministic: ``data=2`` training, then ``data=1 ×
-    model=2`` scoring with the bank split over the two ranks; each stage's
-    K1/K2 launches."""
+    model=2`` scoring with the bank split over the two ranks, each stage's
+    K1/K2 launches; the TP forward; then ``data=1 × model=2`` training,
+    each step's params digested."""
     import torch
 
     from memvul_tpu_torch.build import evaluate_from_archive, train_from_config
@@ -5724,7 +5755,35 @@ def mesh_shared_card(work: str, cfg_file: str, archive: str, test_path: str, ove
     out["shapes"] = len(metrics["s_stream_shapes"])
     out["chunks"] = int(metrics["s_anchor_chunks"])
     out["tp"] = _tp_forward(bank)
+    # training on the model axis: both ranks train a copy of the params
+    import memvul_tpu_torch.training.trainer as trainer_module
+
+    digests, step = [], trainer_module.train_step
+
+    def digested_step(model, *args, **kwargs):
+        stats = step(model, *args, **kwargs)
+        digests.append(_params_digest(model))
+        return stats
+
+    trainer_module.train_step = digested_step
+    try:
+        result = train_from_config(json.loads(Path(cfg_file).read_text()), work / "train_model",
+                                   device="cuda", mesh=bank)
+    finally:
+        trainer_module.train_step = step
+    out["model_losses"] = result["history"][0]["training_losses"]
+    out["model_digests"] = digests
     return out
+
+
+def _params_digest(model) -> str:
+    """sha256 of a module's parameters' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _tp_forward(mesh, rows: int = 8, length: int = 512) -> dict:
@@ -5832,7 +5891,7 @@ def _ring_full_width(seq_len: int = 4096) -> dict:
     return out
 
 
-def phase_mesh_path(workdir: Path, records: dict, train_steps: int = 4, eval_reports: int = 128,
+def phase_mesh_path(workdir: Path, records: dict, train_steps: int = 3, eval_reports: int = 128,
                     shared_steps: int = 3, shared_reports: int = 64) -> None:
     """Slice 14, multi-device, on one card.
 
@@ -5849,7 +5908,10 @@ def phase_mesh_path(workdir: Path, records: dict, train_steps: int = 4, eval_rep
        ``data=1 × model=2`` scoring of ``shared_reports`` against step 1's
        probabilities (1e-4), each rank's K1 and K2 launches counted; a
        tensor-parallel BERT-base forward over the same two ranks, K2 on
-       each rank's 6 heads (:func:`_tp_forward`).
+       each rank's 6 heads (:func:`_tp_forward`); ``data=1 × model=2``
+       training (``shared_steps``), each rank a copy of the params (the JAX
+       trainers' rule), held against step 1's losses and params (1e-5), the
+       two copies' params bitwise equal after each step.
     3. The ring at full width on a world of one (:func:`_ring_full_width`).
 
     The three CLI children and the two-rank world run at once.
@@ -5939,6 +6001,12 @@ def phase_mesh_path(workdir: Path, records: dict, train_steps: int = 4, eval_rep
     shared_loss_err = max(
         (abs(a - b) for r in shared for a, b in zip(r["losses"], plain_losses)),
         default=float("inf"))
+    model_loss_err = max(
+        (abs(a - b) for r in shared for a, b in zip(r["model_losses"], plain_losses)),
+        default=float("inf"))
+    model_param_err = _max_param_diff(workdir / "mesh_shared" / "train_model" / "model.tar.gz",
+                                      workdir / "mesh_plain_train" / "model.tar.gz") \
+        if len(shared) == 2 and runs["train_plain"]["rc"] == 0 else float("inf")
 
     ring = _ring_full_width()
     k2_per_layer = 12
@@ -5964,6 +6032,12 @@ def phase_mesh_path(workdir: Path, records: dict, train_steps: int = 4, eval_rep
             and r["eval_launches"]["flash_attention"]
             == k2_per_layer * (r["shapes"] + r["batches"] + r["chunks"]) for r in shared),
         "shared_tp_forward_local_heads": all(r["tp"]["ok"] for r in shared),
+        "shared_model_axis_train_losses": all(len(r["model_losses"]) == shared_steps
+                                              for r in shared) and model_loss_err <= 1e-5,
+        "shared_model_axis_train_params": model_param_err <= 1e-5,
+        "shared_model_axis_copies_bitwise": len(shared) == 2
+        and len(shared[0]["model_digests"]) == shared_steps
+        and shared[0]["model_digests"] == shared[1]["model_digests"],
         "ring_backend_nccl": ring["backend"] == "nccl" and ring["world"] == 1,
         "ring_matches_dense": ring["ok"],
     }
@@ -5974,12 +6048,432 @@ def phase_mesh_path(workdir: Path, records: dict, train_steps: int = 4, eval_rep
                    "step_median_s": step_median,
                    "param_err": param_err, "runs": runs, "plain_evaluate": plain_eval,
                    "doctor_mesh": doctor_mesh},
-         shared_card={"ranks": shared, "loss_err": shared_loss_err, "prob_err": shared_err},
+         shared_card={"ranks": shared, "loss_err": shared_loss_err, "prob_err": shared_err,
+                      "model_axis_loss_err": model_loss_err,
+                      "model_axis_param_err": model_param_err},
          ring=ring, card=nvidia_smi_line())
     if not ok:
         raise SystemExit(f"mesh_path failed: {checks}")
     for name in ("anchor_match", "flash_attention"):
         records[name]["launches"] += train["hook"].get(name, 0) + ev["hook"].get(name, 0)
+
+
+# -- slice 15: one scoring service across a mesh ---------------------------------------
+
+
+# a round of 16 requests coalesces into one block (the batcher flushes at
+# 16; the window only bounds a straggler's wait)
+SERVE_MESH_WAIT = {"serving": {"max_wait_ms": 1000.0}}
+SERVE_MESH_F32 = {"model": {"encoder": {"dtype": "float32"}}, **SERVE_MESH_WAIT}
+# the idle world's shortened timeout, and its idle gap past it
+SERVE_MESH_TIMEOUT_S, SERVE_MESH_IDLE_S = 20.0, 24.0
+SERVE_MESH_KILL_TIMEOUT_S = 20.0
+
+
+def _http_rounds(url: str, texts: list, clients: int = 16):
+    """``texts`` over HTTP in rounds of ``clients`` requests sent at once
+    (a round waits for its answers): (responses in order, wall s)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = [None] * len(texts)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        for start in range(0, len(texts), clients):
+            futures = {i: pool.submit(_http_json, url + "/score",
+                                      json.dumps({"text": texts[i]}).encode(), 120.0)
+                       for i in range(start, min(start + clients, len(texts)))}
+            for i, f in futures.items():
+                out[i] = f.result()[1]
+    return out, time.perf_counter() - t0
+
+
+def _same_answers(got: list, want: list) -> bool:
+    return len(got) == len(want) and all(
+        g.get("status") == w.get("status") == "ok" and g["predict"] == w["predict"]
+        for g, w in zip(got, want))
+
+
+def _max_prob_err(got: list, want: list) -> float:
+    if len(got) != len(want) or not got:
+        return float("inf")
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.get("status") != "ok" or g["predict"].keys() != w["predict"].keys():
+            return float("inf")
+        err = max(err, max(abs(g["predict"][a] - p) for a, p in w["predict"].items()))
+    return err
+
+
+def _launches_now() -> dict:
+    from memvul_tpu_torch.ops import anchor_match as am
+    from memvul_tpu_torch.ops import flash_attention as fa
+
+    return {"anchor_match": am.launches, "flash_attention": fa.launches}
+
+
+def _shared_card_service(archive: str, axes: dict, overrides=None, deterministic: bool = False):
+    """One rank of a world sharing ``cuda:0`` over gloo: the mesh, and
+    ``serve_from_archive`` on it (rank 0's service or a follower)."""
+    import torch
+
+    from memvul_tpu_torch.build import serve_from_archive
+    from memvul_tpu_torch.parallel import create_mesh
+
+    if deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    mesh = create_mesh(axes, device="cuda:0", backend="gloo")
+    return mesh, serve_from_archive(archive, overrides=overrides, device="cuda", mesh=mesh)
+
+
+def _sigterm_drain(service) -> float:
+    """SIGTERM to this process, as ``serve`` handles it: a drain request,
+    then the drain, which stops the followers; its seconds."""
+    import signal
+
+    stop = threading.Event()
+
+    def handler(signum, frame):
+        service.request_drain()
+        stop.set()
+
+    previous = signal.signal(signal.SIGTERM, handler)
+    t0 = time.perf_counter()
+    try:
+        os.kill(os.getpid(), signal.SIGTERM)
+        stop.wait(30.0)
+        service.drain()
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    return time.perf_counter() - t0
+
+
+def serve_mesh_shared_card(archive: str, texts: list, swap_path: str, idle_s: float) -> dict:
+    """One of two ranks sharing ``cuda:0`` over gloo, ``data=1 × model=2``
+    on the bf16 archive: HTTP rounds of ``texts``, a swap to ``swap_path``'s
+    bank while 16 clients send, an idle gap of ``idle_s`` (past the
+    world's timeout), the texts again, then SIGTERM; each rank's K1 and K2
+    launches from its service's start to its stop."""
+    import torch
+
+    from memvul_tpu_torch.data.readers import MemoryReader
+    from memvul_tpu_torch.serving.frontend import run_http_server
+
+    mesh, target = _shared_card_service(archive, {"data": 1, "model": 2})
+    base = _launches_now()
+    out = {"rank": mesh.rank, "backend": mesh.backend, "timeout_s": mesh.timeout_s}
+    if mesh.is_primary:
+        service = target
+        server = run_http_server(service, port=0)
+        url = "http://%s:%d" % server.server_address[:2]
+        out["v1"], out["v1_s"] = _http_rounds(url, texts)
+        during: list = []
+        stop = threading.Event()
+
+        def traffic():
+            while not stop.is_set():
+                during.extend(_http_rounds(url, texts[:64])[0])
+
+        client = threading.Thread(target=traffic)
+        client.start()
+        time.sleep(1.0)
+        t0 = time.perf_counter()
+        out["swap_version"] = service.swap_bank(list(MemoryReader().read_anchors(swap_path)))
+        out["swap_s"] = time.perf_counter() - t0
+        out["after"], _ = _http_rounds(url, texts[:64])
+        stop.set()
+        client.join()
+        out["during"] = [{"status": r.get("status"), "bank_version": r.get("bank_version")}
+                         for r in during]
+        out["after_versions"] = sorted({r.get("bank_version") for r in out["after"]})
+        out["after_anchors"] = sorted({len(r.get("predict") or {}) for r in out["after"]})
+        time.sleep(idle_s)
+        again, _ = _http_rounds(url, texts[:64])
+        out["idle_served_same"] = _same_answers(again, out["after"])
+        out["commands"] = dict(service.predictor.channel.commands)
+        server.shutdown()
+        out["drain_s"] = _sigterm_drain(service)
+        del out["after"]  # read above; the smoke compares v1 with one process
+    else:
+        out["commands"] = target.run()
+    torch.cuda.synchronize()
+    now = _launches_now()
+    out["launches"] = {k: now[k] - base[k] for k in now}
+    return out
+
+
+def serve_mesh_f32_card(archive: str, texts: list) -> dict:
+    """One of two ranks sharing ``cuda:0`` over gloo, ``data=2`` on the
+    archive in f32 with deterministic kernels: HTTP rounds of ``texts``,
+    then SIGTERM; rank 0 then scores the texts in one process (no mesh) on
+    the same f32 weights, the reference."""
+    import torch
+
+    from memvul_tpu_torch.build import serve_from_archive
+    from memvul_tpu_torch.serving.frontend import run_http_server
+
+    mesh, target = _shared_card_service(archive, {"data": 2}, SERVE_MESH_F32, deterministic=True)
+    base = _launches_now()
+    out = {"rank": mesh.rank}
+    if mesh.is_primary:
+        server = run_http_server(target, port=0)
+        url = "http://%s:%d" % server.server_address[:2]
+        got, out["mesh_s"] = _http_rounds(url, texts)
+        out["commands"] = dict(target.predictor.channel.commands)
+        server.shutdown()
+        out["drain_s"] = _sigterm_drain(target)
+    else:
+        out["commands"] = target.run()
+    torch.cuda.synchronize()
+    now = _launches_now()
+    out["launches"] = {k: now[k] - base[k] for k in now}
+    if mesh.is_primary:
+        one = serve_from_archive(archive, overrides=SERVE_MESH_F32, device="cuda", use_mesh=False)
+        server = run_http_server(one, port=0)
+        want, out["one_s"] = _http_rounds("http://%s:%d" % server.server_address[:2], texts)
+        server.shutdown()
+        one.drain()
+        out["max_prob_err"] = _max_prob_err(got, want)
+    return out
+
+
+def serve_mesh_kill_card(archive: str, ready: str) -> dict:
+    """One of two ranks sharing ``cuda:0`` over gloo, ``data=1 × model=2``:
+    rank 0 serves until its channel fails (a dead follower), then exits 1;
+    ``ready`` marks the service up."""
+    mesh, target = _shared_card_service(archive, {"data": 1, "model": 2})
+    if not mesh.is_primary:
+        return {"commands": target.run()}
+    Path(ready).write_text(str(time.time()))
+    channel = target.predictor.channel
+    deadline = time.monotonic() + 300.0
+    while channel.failed is None and time.monotonic() < deadline:
+        time.sleep(0.05)
+    Path(ready + ".failed").write_text(json.dumps({"at": time.time(), "failed": channel.failed}))
+    sys.stderr.write(f"the mesh failed: {channel.failed}\n")
+    sys.stderr.flush()
+    os._exit(1)
+
+
+def _start_world(target: str, n: int, work: Path, kwargs: dict, env: dict) -> list:
+    """Ranks 0..n-1 of a fresh local world running ``target`` (as
+    ``run_ranks`` starts them), unsupervised: the caller watches them."""
+    from memvul_tpu_torch.parallel import launch
+
+    work.mkdir(parents=True, exist_ok=True)
+    args_file = work / "args.json"
+    args_file.write_text(json.dumps(kwargs))
+    world = launch._world_env(n, str(launch.free_port()))
+    env = dict(env, PYTHONPATH=os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    return [launch._start_rank([sys.executable, "-m", "memvul_tpu_torch.parallel.launch", target,
+                                str(args_file), str(work / f"rank-{r}.json")],
+                               r, world, work / f"rank-{r}.log", env) for r in range(n)]
+
+
+def _kill_follower(work: Path, archive: str) -> dict:
+    """The kill world: SIGKILL rank 1 once rank 0 serves; rank 0 must exit
+    non-zero within the world's timeout."""
+    import signal
+
+    ready = work / "ready"
+    ready.unlink(missing_ok=True)
+    procs = _start_world("chip_smoke:serve_mesh_kill_card", 2, work,
+                         {"archive": archive, "ready": str(ready)},
+                         dict(DETERMINISTIC_ENV, MEMVUL_WORLD_TIMEOUT_S=str(SERVE_MESH_KILL_TIMEOUT_S)))
+    try:
+        deadline = time.monotonic() + 400.0
+        while not ready.exists() and time.monotonic() < deadline and procs[0].poll() is None:
+            time.sleep(0.2)
+        if not ready.exists():
+            return {"ok": False, "reason": "rank 0 never served"}
+        time.sleep(1.0)
+        os.kill(procs[1].pid, signal.SIGKILL)
+        t0 = time.monotonic()
+        try:
+            rc = procs[0].wait(timeout=SERVE_MESH_KILL_TIMEOUT_S + 30.0)
+        except subprocess.TimeoutExpired:
+            rc = None
+        return {"ok": rc not in (None, 0), "rank0_rc": rc, "exit_s": time.monotonic() - t0,
+                "timeout_s": SERVE_MESH_KILL_TIMEOUT_S, "rank1_rc": procs[1].wait(timeout=30)}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _serve_cli(argv: list, name: str):
+    """``serve`` on the card in a child, its stderr in
+    ``build/serve_mesh_path_<name>.err``; (process, banner)."""
+    err = open(ROOT / "build" / f"serve_mesh_path_{name}.err", "w")
+    proc = subprocess.Popen([sys.executable, "-m", "memvul_tpu_torch", "serve", *map(str, argv)],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    line = proc.stdout.readline()
+    return proc, (json.loads(line) if line.startswith("{") else {})
+
+
+def _serve_cli_traffic(children: dict, texts: list) -> dict:
+    """Each ``serve`` child's answers to ``texts`` (HTTP rounds of 16), in
+    turns (a, b, b, a), its requests/s in each turn and its ``/programz``
+    launches, then SIGTERM and its exit code."""
+    import signal
+
+    runs = {name: {"banner": banner, "requests_per_s": []}
+            for name, (_, banner) in children.items()}
+    if all(run["banner"] for run in runs.values()):
+        names = list(children)
+        for name in names + names[::-1]:
+            answers, wall = _http_rounds(runs[name]["banner"]["serving"], texts)
+            runs[name].setdefault("answers", answers)
+            runs[name]["requests_per_s"].append(len(texts) / wall)
+        for run in runs.values():
+            run["launches"] = _http_json(run["banner"]["serving"] + "/programz")[1].get("kernels", {})
+    for name, (proc, banner) in children.items():
+        if banner:
+            proc.send_signal(signal.SIGTERM)
+        else:
+            proc.kill()
+        runs[name]["rc"] = proc.wait(timeout=120)
+    return runs
+
+
+def phase_serve_mesh_path(workdir: Path, records: dict, requests: int = 256) -> None:
+    """Slice 15: one scoring service across a mesh, on one card, from the
+    main path's archive (BERT-base, bf16, flash, bucketed; the serving
+    defaults, ``max_batch`` 16 and ``max_length`` 512, with ``max_wait_ms``
+    1000 so that each HTTP round of 16 requests is one block).
+
+    1. A NCCL world of one: ``serve --mesh data=1`` against ``serve``
+       without a mesh, ``requests`` texts each in HTTP rounds of 16,
+       twice, in turns: the answers bitwise equal, K1 and K2 launches
+       (``/programz``) equal.
+    2. Two ranks sharing ``cuda:0`` over gloo (NCCL refuses two ranks on
+       one card), all side by side with step 1: ``data=1 × model=2`` on the
+       bf16 archive, bitwise the single process's answers, a swap to a
+       121-anchor bank while 16 clients send (none lost; every answer after
+       it the new bank's), an idle gap past the world's shortened timeout
+       and the texts again, SIGTERM to rank 0 (both ranks exit 0); ``data=2``
+       on the archive in f32 with deterministic kernels, within 1e-5 of one
+       process; a third world whose follower is SIGKILLed, where rank 0
+       must exit non-zero within the world's timeout.  Each rank counts its
+       own K1 and K2 launches, which must match the commands it ran.
+    3. K1 and K2 against their plain versions at the new shapes: K1 at B =
+       16 on the 65- and 64-anchor shards and at B = 8 on 129 anchors, K2
+       at ``[8, 512, 12, 64]`` (a ``data=2`` rank's block), in bf16 (the
+       archive's) and in f32 (the ``data=2`` world's).
+
+    Requests/s of the one process, the world of one and the gloo ranks are
+    recorded; the gloo ranks share one card and stage every collective
+    through the host, so they measure no scaling.
+    """
+    import torch
+
+    from memvul_tpu_torch.data.synthetic import corpus_texts
+    from memvul_tpu_torch.parallel.launch import run_ranks
+
+    phase_t0 = time.perf_counter()
+    archive = workdir / "model.tar.gz"  # main_path's
+    texts = corpus_texts(json.loads((workdir / "test_project.json").read_text()))[:requests]
+    swap_path = workdir / "serve_mesh_bank121.json"
+    swap_path.write_text(json.dumps(_synthetic_anchors(121, seed=15)))
+    wait = json.dumps(SERVE_MESH_WAIT)
+    t0 = time.perf_counter()
+    plain = _serve_cli([archive, "--port", "0", "--overrides", wait], "plain")
+    one = _serve_cli([archive, "--port", "0", "--overrides", wait, "--mesh", "data=1"], "world1")
+    worlds: dict = {}
+
+    def run_world(name, target, kwargs, env):
+        try:
+            worlds[name] = run_ranks(target, 2, workdir / f"serve_mesh_{name}", kwargs,
+                                     timeout_s=600, env=env, python_path=[ROOT])
+        except Exception as e:  # reported in the checks
+            worlds[name] = {"error": str(e)[-3000:]}
+
+    threads = [
+        threading.Thread(target=run_world, args=(
+            "d1m2", "chip_smoke:serve_mesh_shared_card",
+            {"archive": str(archive), "texts": texts, "swap_path": str(swap_path),
+             "idle_s": SERVE_MESH_IDLE_S},
+            {"MEMVUL_WORLD_TIMEOUT_S": str(SERVE_MESH_TIMEOUT_S)})),
+        threading.Thread(target=run_world, args=(
+            "d2_f32", "chip_smoke:serve_mesh_f32_card", {"archive": str(archive), "texts": texts},
+            DETERMINISTIC_ENV)),
+    ]
+    for t in threads:
+        t.start()
+    kill: dict = {}
+    killer = threading.Thread(target=lambda: kill.update(
+        _kill_follower(workdir / "serve_mesh_kill", str(archive))))
+    killer.start()
+    runs = _serve_cli_traffic({"plain": plain, "world1": one}, texts)
+    for t in threads + [killer]:
+        t.join()
+    concurrent_s = time.perf_counter() - t0
+
+    d1m2, f32 = worlds.get("d1m2"), worlds.get("d2_f32")
+    d1m2_ok = isinstance(d1m2, list) and len(d1m2) == 2
+    f32_ok = isinstance(f32, list) and len(f32) == 2
+    k2_layers = 12
+
+    def launches_match(ranks, bank_chunks: int) -> bool:
+        # counted from each service's start: every rank ran the leader's
+        # commands, K1 once a scored or warmed block (one serving shape),
+        # K2 12 times a block and an installed bank's chunk
+        follower = ranks[1]["commands"]
+        blocks = follower.get("score", 0) + follower.get("warm", 0)
+        return blocks > 0 and all(r["launches"]["anchor_match"] == blocks
+                   and r["launches"]["flash_attention"] == k2_layers * (blocks + bank_chunks)
+                   for r in ranks)
+
+    plain_answers = runs["plain"].get("answers") or []
+    leader = d1m2[0] if d1m2_ok else {}
+    checks = {
+        "cli_exit_0": runs["plain"]["rc"] == 0 and runs["world1"]["rc"] == 0,
+        "world_of_one_bitwise": _same_answers(runs["world1"].get("answers") or [], plain_answers),
+        "world_of_one_launches_equal": runs["world1"].get("launches") == runs["plain"].get("launches")
+        and runs["plain"].get("launches", {}).get("anchor_match", 0) > 0,
+        "world_of_one_banner_mesh": runs["world1"]["banner"].get("mesh") == {"data": 1},
+        "d1m2_every_rank_exit_0": d1m2_ok and all(r["backend"] == "gloo" for r in d1m2),
+        "d1m2_bitwise": d1m2_ok and _same_answers(leader["v1"], plain_answers),
+        "d1m2_swap_lost_none": d1m2_ok and leader["swap_version"] == 2 and bool(leader["during"])
+        and all(r["status"] == "ok" for r in leader["during"]),
+        "d1m2_after_flip_new_bank": d1m2_ok and leader["after_versions"] == [2]
+        and leader["after_anchors"] == [121],
+        "d1m2_idle_past_timeout_served": d1m2_ok and leader["idle_served_same"]
+        and leader["timeout_s"] == SERVE_MESH_TIMEOUT_S < SERVE_MESH_IDLE_S
+        and leader["commands"].get("keepalive", 0) >= 1,
+        # the 121-anchor install: one chunk of 128
+        "d1m2_launches_each_rank": d1m2_ok and launches_match(d1m2, 1),
+        "d2_f32_within_1e-5": f32_ok and f32[0]["max_prob_err"] <= 1e-5,
+        "d2_f32_launches_each_rank": f32_ok and launches_match(f32, 0),
+        "killed_follower_ends_rank_0": bool(kill.get("ok"))
+        and kill["exit_s"] <= SERVE_MESH_KILL_TIMEOUT_S,
+    }
+    # the new shapes of the path, each kernel against its plain version
+    shapes = {"k1_b16_a65": _anchor_match_at_rows([16], a=65)[0],
+              "k1_b16_a64": _anchor_match_at_rows([16], a=64)[0],
+              "k1_b8_a129": _anchor_match_at_rows([8], a=129)[0],
+              "k1_b8_a129_f32": _anchor_match_at_rows([8], a=129, dtype=torch.float32)[0],
+              "k2_8x512": _flash_at_auto_shapes([(8, 512)], records)[0],
+              "k2_8x512_f32": _flash_at_auto_shapes([(8, 512)], records, torch.float32)[0]}
+    torch.cuda.synchronize()
+    ok = all(checks.values()) and all(r["ok"] for r in shapes.values())
+    rps = {"one_process": runs["plain"]["requests_per_s"],
+           "world_of_one": runs["world1"]["requests_per_s"],
+           "gloo_d1m2": len(texts) / leader["v1_s"] if d1m2_ok else None,
+           "gloo_d2_f32": len(texts) / f32[0]["mesh_s"] if f32_ok else None,
+           "one_process_f32": len(texts) / f32[0]["one_s"] if f32_ok else None}
+    for run in runs.values():
+        run.pop("answers", None)
+    if d1m2_ok:
+        leader.pop("v1", None), leader.pop("after", None)
+    emit("serve_mesh_path", ok=ok, checks=checks, seconds=time.perf_counter() - phase_t0,
+         concurrent_s=concurrent_s, requests=len(texts), requests_per_s=rps, cli=runs,
+         d1m2=d1m2, d2_f32=f32, kill=kill, kernel_shapes=shapes, card=nvidia_smi_line())
+    if not ok:
+        raise SystemExit(f"serve_mesh_path failed: {checks}")
+    for name in ("anchor_match", "flash_attention"):
+        records[name]["launches"] += runs["world1"]["launches"].get(name, 0)
 
 
 def main() -> int:
@@ -6055,6 +6549,8 @@ def main() -> int:
         phase_lint_path(Path(tmp), records)
         # slice 14: the mesh over torch.distributed, ring attention
         phase_mesh_path(Path(tmp), records)
+        # slice 15: one service across a mesh
+        phase_serve_mesh_path(Path(tmp), records)
     phase_main_path_reference()
     phase_ragged_reference()
     phase_train_reference()

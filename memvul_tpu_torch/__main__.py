@@ -80,10 +80,19 @@ per card (``parallel/launch.py`` starts the others, their output in
 ``<run dir>/rank-<r>.log``; under ``torchrun`` the existing world is
 used), and rank 0 alone writes the outputs and prints the JSON line.  A
 spec that needs more cards than are visible, or names another axis, exits
-2; ``train`` takes no ``model`` axis yet (exit 2).  ``evaluate`` takes a
+2.  ``train`` on a ``model`` axis trains replicated copies of the params,
+as the JAX trainers do.  ``serve --mesh SPEC`` runs ONE service across the
+world: rank 0, the leader, serves HTTP and runs the whole service, and
+sends each device call to ranks 1..n−1, the followers, which score their
+``data`` slice of each block against their ``model`` shard of the bank
+(``serving/mesh.py``; their logs in ``-o``'s dir, else a temporary one);
+it takes the bucketed strategy and one replica (``--replicas`` with a
+mesh exits 2: pick one scaling axis), SIGTERM drains rank 0 and then stops
+the followers, and a follower that dies ends the world (exit 1).
+``evaluate``, and ``serve`` of an archive that runs one replica, take a
 ``data`` mesh over every visible card when there are several, unless
-``--no-mesh``.  ``serve --mesh`` exits 2: one service across a world is
-the next slice's (ROADMAP.md, item 5).
+``--no-mesh``; ``serve --hosts`` validates a ``--mesh`` spec and ignores
+it (the balancer scores nothing).
 ``bench`` runs the benchmark harness (``bench.py``, its env knobs) in a
 supervised child and prints its one JSON record; ``tune`` is the offline
 autotuner (exit 0 tuned, 1 no winner, 2 the ``unknown_device_class``
@@ -167,37 +176,53 @@ def _parse_mesh(spec):
     return axes
 
 
-def _open_mesh(args, run_dir, command: str):
-    """``--mesh`` (for ``evaluate`` also the automatic data mesh over
-    several visible cards) → (this rank's mesh, the launched world or
-    None); (None, None) without one.  Rank 0 of a new world starts the
-    other ranks here."""
-    spec = args.mesh
-    if spec is None and command == "evaluate" and not args.no_mesh and args.device == "cuda":
-        import torch
+def auto_mesh_spec(cards: int, no_mesh: bool, replicas: int = 1,
+                   autoscale: bool = False) -> "str | None":
+    """The automatic mesh (the JAX package's over its devices): a ``data``
+    axis over every visible card when there are several, unless
+    ``--no-mesh`` or the service scales by replicas instead; else None."""
+    if no_mesh or cards <= 1 or replicas > 1 or autoscale:
+        return None
+    return f"data={cards}"
 
-        if torch.cuda.device_count() > 1:
-            spec = f"data={torch.cuda.device_count()}"
-    if spec is None:
-        return None, None
+
+def _mesh_spec(args, command: str):
+    """``--mesh``; for ``evaluate`` also the automatic data mesh over
+    several visible cards."""
+    if args.mesh is not None or command != "evaluate" or args.device != "cuda":
+        return args.mesh
+    import torch
+
+    return auto_mesh_spec(torch.cuda.device_count(), args.no_mesh)
+
+
+def _mesh_axes(spec: str, device: str):
+    """(axes, rank count) of a spec the host can run: on the card, no more
+    ranks than visible cards (a :class:`MeshSpecError` otherwise)."""
     import numpy as np
-
-    from .parallel import create_mesh
-    from .parallel import launch
 
     axes = _parse_mesh(spec)
     n = int(np.prod(list(axes.values())))
-    if args.device == "cuda":
+    if device == "cuda":
         import torch
 
         visible = torch.cuda.device_count()
         if n > visible:
             raise MeshSpecError(f"--mesh {spec!r}: mesh axes {axes} need {n} devices, "
                                 f"have {visible}")
-    if command == "train" and axes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"--mesh {spec!r}: training with a model (tensor-parallel) axis belongs to the "
-            "next slice (ROADMAP.md, item 5)")
+    return axes, n
+
+
+def _open_mesh(args, run_dir, spec):
+    """``spec`` → (this rank's mesh, the launched world or None); (None,
+    None) without one.  Rank 0 of a new world starts the other ranks
+    here."""
+    if spec is None:
+        return None, None
+    from .parallel import create_mesh
+    from .parallel import launch
+
+    axes, n = _mesh_axes(spec, args.device)
     world = None
     if launch.is_launched_child():
         launch.watch_parent()
@@ -215,7 +240,7 @@ def _run_on_mesh(args, run_dir, command: str, run):
     """``run(mesh)`` on this rank, the world closed after it: a failure
     anywhere ends every rank, and rank 0 exits 0 only when each rank
     did.  Returns (result, exit code, primary)."""
-    mesh, world = _open_mesh(args, run_dir, command)
+    mesh, world = _open_mesh(args, run_dir, _mesh_spec(args, command))
     primary = mesh is None or mesh.is_primary
     ok = False
     try:
@@ -289,21 +314,62 @@ def cmd_baseline(args) -> int:
     return 0
 
 
-def _serve_target(args):
+def _serve_mesh_spec(args):
+    """``serve``'s mesh: ``--mesh``, else the automatic data mesh over
+    several visible cards when the archive (with ``--overrides``) serves
+    one replica without an autoscaler; none for ``--hosts``, which loads
+    no archive.  What a mesh refuses (another scaling axis, the packed and
+    cascaded strategies) is refused here, before any rank starts."""
+    if args.hosts or not args.archive:
+        return None
+    spec = args.mesh
+    cards = 0
+    if spec is None:
+        if args.no_mesh or args.device != "cuda":
+            return None
+        import torch
+
+        cards = torch.cuda.device_count()
+        if cards <= 1:
+            return None
+    else:
+        _mesh_axes(spec, args.device)
+    scaling = MeshSpecError("--mesh shards ONE service across devices; replicas > 1 runs "
+                            "one service PER device — pick one scaling axis")
+    if spec is not None and (args.replicas or 1) > 1:
+        raise scaling
+    from .archive import load_archive_config
+    from .config import serving_config
+    from .evaluate.predict_memory import refuse_mesh_score_impl
+
+    serve_cfg = serving_config(load_archive_config(args.archive, args.overrides)[0])
+    replicas = int(serve_cfg["replicas"] if args.replicas is None else args.replicas)
+    autoscale = bool(serve_cfg["autoscale_enabled"])
+    if spec is None:
+        return auto_mesh_spec(cards, args.no_mesh, replicas, autoscale)
+    if replicas > 1 or autoscale:
+        raise scaling
+    refuse_mesh_score_impl(str(serve_cfg["score_impl"]), spec)
+    return spec
+
+
+def _serve_target(args, mesh=None):
     """The serve command's target: without an archive, a
     :class:`HostBalancer` over running serve processes (``--hosts``, else
-    the overrides' ``serving.hosts``, else ``MEMVUL_FLEET_HOSTS``), else
-    ``build.serve_from_archive``.  Returns (target, None) or (None, exit
-    code) after printing the usage error."""
+    the overrides' ``serving.hosts``, else ``MEMVUL_FLEET_HOSTS``; a
+    ``--mesh`` spec is validated and ignored), else
+    ``build.serve_from_archive`` (on ``mesh``: rank 0's service, or a
+    follower's handle on another rank).  Returns (target, None) or (None,
+    exit code) after printing the usage error."""
     if args.archive and args.hosts:
         print("serve: --hosts balances running serve processes and loads no archive",
               file=sys.stderr)
         return None, 2
     if not args.archive:
-        from .build import refuse_mesh, serve_from_hosts
+        from .build import serve_from_hosts
 
-        refuse_mesh(args.mesh)
-
+        if args.mesh is not None:
+            _parse_mesh(args.mesh)  # a malformed spec is a usage error
         try:
             return serve_from_hosts(
                 args.hosts, out_dir=args.out_dir, overrides=args.overrides,
@@ -317,21 +383,56 @@ def _serve_target(args):
     return serve_from_archive(
         args.archive, out_dir=args.out_dir, overrides=args.overrides,
         golden_file=args.golden_file, device=args.device, replicas=args.replicas,
-        tenants=args.tenants, tsdb_cadence=args.tsdb_cadence, mesh=args.mesh,
+        tenants=args.tenants, tsdb_cadence=args.tsdb_cadence, mesh=mesh,
+        use_mesh=not args.no_mesh,
     ), None
 
 
 def cmd_serve(args) -> int:
+    """Serve over HTTP until SIGTERM/SIGINT; on a mesh rank 0 serves and
+    every other rank follows it, exiting 0 after rank 0's drain stops it."""
+    import tempfile
+
+    try:
+        spec = _serve_mesh_spec(args)
+        log_dir = args.out_dir or (tempfile.mkdtemp(prefix="memvul_serve_mesh_") if spec else None)
+        mesh, world = _open_mesh(args, log_dir, spec)
+    except (MeshSpecError, OSError, ValueError) as e:
+        print(f"serve: {e}", file=sys.stderr)
+        return 2
+    from .serving.mesh import MeshFollower
+
+    rc, ok = 1, False
+    try:
+        try:
+            service, rc = _serve_target(args, mesh)
+        except (ValueError, NotImplementedError) as e:
+            print(f"serve: {e}", file=sys.stderr)
+            service, rc = None, 2
+        if isinstance(service, MeshFollower):
+            service.run()
+            rc = 0
+        elif service is not None:
+            rc = _serve_http(args, service, world)
+        ok = rc == 0
+    finally:
+        if world is not None:
+            world_rc = world.close(ok)
+            if ok:  # rank 0 exits 0 only when every rank did
+                rc = world_rc
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    return rc
+
+
+def _serve_http(args, service, world) -> int:
+    """The HTTP front end over ``service`` until SIGTERM/SIGINT, then its
+    drain; 1 when a serving mesh's channel failed."""
     from . import telemetry
     from .serving.frontend import run_http_server
 
-    try:
-        service, rc = _serve_target(args)
-    except (ValueError, NotImplementedError) as e:
-        print(f"serve: {e}", file=sys.stderr)
-        return 2
-    if service is None:
-        return rc
     # the run dir doubles as the POST /profilez capture root
     server = run_http_server(service, host=args.host, port=args.port, profile_dir=args.out_dir)
     stop = threading.Event()
@@ -342,19 +443,31 @@ def cmd_serve(args) -> int:
 
     previous = [(sig, signal.signal(sig, _stop_handler)) for sig in (signal.SIGTERM, signal.SIGINT)]
     host, port = server.server_address[:2]
-    print(json.dumps({"serving": f"http://{host}:{port}", "pid": os.getpid(),
-                      "replicas": len(getattr(service, "replicas", ())) or 1,
-                      "hosts": len(getattr(service, "hosts", ())) or None}), flush=True)
+    predictor = getattr(service, "predictor", None)
+    mesh = getattr(predictor, "mesh", None)
+    channel = getattr(predictor, "channel", None)
+    line = {"serving": f"http://{host}:{port}", "pid": os.getpid(),
+            "replicas": len(getattr(service, "replicas", ())) or 1,
+            "hosts": len(getattr(service, "hosts", ())) or None}
+    if mesh is not None:
+        line["mesh"] = dict(mesh.shape)
+        line["rank_pids"] = [os.getpid()] + ([p.pid for p in world.procs] if world else [])
+    print(json.dumps(line), flush=True)
+    rc = 0
     try:
         while not stop.is_set():
             stop.wait(0.5)
+            if channel is not None and channel.failed is not None:
+                print(f"serve: the mesh failed: {channel.failed}", file=sys.stderr)
+                rc = 1
+                break
     finally:
         server.shutdown()
-        service.drain()  # stops the attached monitors too
+        service.drain()  # stops the attached monitors, and a mesh's followers
         for sig, handler in previous:
             signal.signal(sig, handler)
         telemetry.get_registry().close()
-    return 0
+    return rc
 
 
 def cmd_score_corpus(args) -> int:
@@ -839,11 +952,16 @@ def _add_bank_parsers(sub) -> None:
 def _add_mesh_flags(p, serve: bool = False) -> None:
     """The reference's ``--mesh SPEC`` and ``--no-mesh``."""
     p.add_argument("--mesh", default=None, metavar="SPEC",
-                   help='serving on a mesh is the next slice\'s (exit 2)' if serve else
+                   help='ONE service across a device mesh, one process per card: "data=2" or '
+                   '"data=2,model=2"; rank 0 serves, the others score their data slice against '
+                   "their model shard of the bank (bucketed only; with --hosts: validated, "
+                   "then ignored)" if serve else
                    'a device mesh, one process per card: "data=2" or "data=2,model=2" '
-                   "(the model axis shards the scorer's anchor bank)")
+                   "(the model axis shards the scorer's anchor bank; in training it holds "
+                   "replicated copies)")
     p.add_argument("--no-mesh", action="store_true",
-                   help="run on one device (evaluate: no automatic data mesh over several cards)")
+                   help="run on one device (evaluate, serve: no automatic data mesh over "
+                   "several cards)")
 
 
 def main(argv=None) -> int:

@@ -20,7 +20,8 @@ package's ``build.py``).
 * :func:`serve_from_archive` — load an archive, encode its anchor bank,
   warm the serving shapes and return a running ``ScoringService``, or a
   ``ReplicaRouter`` over several, with the autoscaler and the flight
-  recorder when the config asks for them.
+  recorder when the config asks for them; on a mesh, one service across
+  the world's ranks (rank 0 serves, the others follow it).
 
 Everything runs on ``device``, ``"cuda"`` unless the caller asks for the
 CPU; on a host without CUDA the default raises instead of falling back.
@@ -262,17 +263,6 @@ def _pretrain_run(config, trainer, tokenizer, bert_cfg, out_dir: Path, export_hf
     return report
 
 
-def refuse_mesh(mesh) -> None:
-    """Serving on a mesh (``serve --mesh SPEC``) raises: one scoring
-    service across the ranks of a world (a leader that takes requests and
-    followers that join each forward) belongs to the next slice (ROADMAP.md,
-    item 5).  ``train`` and ``evaluate`` take a mesh."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh {mesh!r}: serving on a mesh (one service across the ranks of a "
-            "multi-device world) belongs to the next slice (ROADMAP.md, item 5)")
-
-
 def configure_run_sinks(tel_cfg: Dict[str, Any], run_dir):
     """The process-wide telemetry registry over ``run_dir``, as the JAX
     package's ``train`` and ``evaluate`` configure it: ``events.jsonl``,
@@ -333,10 +323,12 @@ def train_from_config(
     serialization dir (:func:`configure_run_sinks`).  Returns the
     trainer's result with the archive path.
 
-    On a ``mesh`` (a data axis; :func:`~memvul_tpu_torch.parallel.
-    create_mesh`) every rank trains its slice of each batch on its own
-    device, and rank 0 alone writes the config, the run sinks, the
-    checkpoints, the archive and ``metrics.json``."""
+    On a ``mesh`` (the data and model axes; :func:`~memvul_tpu_torch.
+    parallel.create_mesh`) every rank trains its data slice of each batch
+    on its own device, the ranks of a model axis on equal copies of the
+    params (the JAX trainers' replication), and rank 0 alone writes the
+    config, the run sinks, the checkpoints, the archive and
+    ``metrics.json``."""
     import json
 
     from .archive import ARCHIVE_NAME, save_archive
@@ -645,6 +637,7 @@ def serve_from_archive(
     tenants: Optional[str] = None,
     tsdb_cadence: Optional[float] = None,
     mesh=None,
+    use_mesh: bool = True,
 ):
     """The archive's online scoring service on ``device``, or, with
     ``replicas > 1`` (the argument, else ``serving.replicas``) or
@@ -677,19 +670,33 @@ def serve_from_archive(
     incident recorder (``serving/incident.py``).  Each replica keeps a
     program registry of its own; a single service records in the
     process-wide one.  ``telemetry.hbm_gauges`` books each service's card
-    memory."""
+    memory.
+
+    On a ``mesh`` (:func:`~memvul_tpu_torch.parallel.create_mesh`; with
+    ``use_mesh`` and no ``mesh``, a data mesh over a joined world of
+    several ranks, as the JAX package takes one over its devices) ONE
+    service spans the ranks, the JAX package's sharded service: each block's
+    rows are split over ``data`` and the anchor bank over ``model``
+    (zero-padded to divide).  Every rank loads the archive and encodes and
+    warms the bank in step; rank 0 then returns the service, whose
+    predictor sends each device call to the others first
+    (:class:`~memvul_tpu_torch.serving.mesh.MeshLeader`), and every other
+    rank returns a :class:`~memvul_tpu_torch.serving.mesh.MeshFollower`,
+    whose ``run()`` follows rank 0 until its drain.  A mesh takes the
+    bucketed strategy only, one replica and no autoscaler ("pick one
+    scaling axis"), and a ``max_batch`` the data axis divides."""
     from . import telemetry
     from .archive import load_archive
     from .bankops.shadow import ShadowConfig
     from .config import bankops_config, serving_config, telemetry_config
     from .data.batching import validate_buckets
-    from .evaluate.predict_memory import SiamesePredictor
+    from .evaluate.predict_memory import SiamesePredictor, refuse_mesh_score_impl
+    from .parallel.mesh import DATA_AXIS, auto_mesh, replicate
     from .resilience.retry import RetryPolicy
     from .serving import Replica, ReplicaRouter, RouterConfig, ScoringService, ServiceConfig
     from .tuning.profile import apply_tuned_serving
 
-    refuse_mesh(mesh)
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     arch = load_archive(archive_path, overrides=overrides, device=device)
     model_type = (arch.config.get("model") or {}).get("type", "model_memory")
     if model_type != "model_memory":
@@ -738,6 +745,20 @@ def serve_from_archive(
     n_replicas = int(serve_cfg["replicas"] if replicas is None else replicas)
     if n_replicas < 1:
         raise ValueError(f"serving.replicas must be >= 1, got {n_replicas}")
+    if mesh is None and use_mesh and n_replicas == 1 and not autoscale:
+        mesh = auto_mesh(None, True, device)
+    if mesh is not None:
+        if n_replicas > 1 or autoscale:
+            raise ValueError(
+                "--mesh shards ONE service across devices; replicas > 1 runs "
+                "one service PER device — pick one scaling axis"
+                + ("" if n_replicas > 1 else " (serving.autoscale_enabled adds replicas)"))
+        refuse_mesh_score_impl(score_impl, mesh)
+        if int(serve_cfg["max_batch"]) % mesh.size(DATA_AXIS):
+            raise ValueError(f"serving.max_batch {serve_cfg['max_batch']} does not divide over "
+                             f"the mesh's data axis ({mesh.size(DATA_AXIS)})")
+        device = mesh.device
+        replicate(arch.model.to(device), mesh)
     token_budget = serve_cfg["token_budget"]
     max_rows = serve_cfg["max_rows_per_pack"]
     golden = golden_file or (arch.config.get("dataset_reader") or {}).get("anchor_path")
@@ -761,7 +782,7 @@ def serve_from_archive(
         hbm_gauges=bool(tel_cfg["hbm_gauges"]),
     )
 
-    def make_predictor(model, stream=None, programs=None):
+    def make_predictor(model, stream=None, programs=None, mesh=None):
         predictor = SiamesePredictor(
             model, arch.tokenizer,
             batch_size=int(serve_cfg["max_batch"]),
@@ -776,6 +797,7 @@ def serve_from_archive(
             cascade_high=float(serve_cfg["cascade_high"]),
             stream=stream,
             program_registry=programs,
+            mesh=mesh,
         )
         predictor.encode_anchors(anchors)
         shapes = predictor.warmup_compile()
@@ -827,8 +849,15 @@ def serve_from_archive(
         return _attach_flight_recorder(target, serve_cfg, tel_cfg, tsdb_cadence, out_dir)
 
     if n_replicas == 1 and not autoscale:
+        predictor = make_predictor(arch.model, mesh=mesh)
+        if mesh is not None and mesh.world_size > 1:
+            from .serving.mesh import MeshFollower, MeshLeader
+
+            if not mesh.is_primary:
+                return MeshFollower(mesh, predictor)
+            predictor.channel = MeshLeader(mesh, predictor)
         service = ScoringService(
-            make_predictor(arch.model), config=service_config, retry_policy=retry_policy,
+            predictor, config=service_config, retry_policy=retry_policy,
             out_dir=out_dir, manifest_dir=out_dir,
         )
         return _with_tenants(_with_flight_recorder(_with_slo_monitor(_with_drift_monitor(service))))

@@ -62,6 +62,15 @@ columns are sliced off, so each rank holds the corpus's probabilities in
 order and computes the same metrics.  Bucket row counts are multiples of
 ``8·data``.  Rank 0 alone writes the result lines, the journal and the
 dead-letter file; a resumed run's verified prefix is rank 0's, broadcast.
+
+A serving mesh adds a leader: rank 0's predictor carries a ``channel``
+(:class:`~memvul_tpu_torch.serving.mesh.MeshLeader`), and each block it
+scores (:meth:`SiamesePredictor.score_block`, ``score_block_int8``, the
+blocks of :meth:`SiamesePredictor.score_texts` and ``predict_single``),
+each bank it encodes (:meth:`SiamesePredictor.encode_bank`) and each warmup
+(:meth:`SiamesePredictor.warmup_bank_shapes`) first sends its command to
+the followers, which then run the same code.  A scored block is gathered
+on every rank, its columns the bank shards in model order.
 """
 
 from __future__ import annotations
@@ -93,7 +102,9 @@ from ..data.batching import (
 )
 from ..data.readers import MemoryReader
 from ..models.memory import MemoryModel, anchor_probs
-from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, broadcast_object, gather_blocks, shard_batch
+from ..parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, any_rank, broadcast_object, gather_blocks, shard_batch,
+)
 from ..resilience import faults
 from ..resilience.journal import DeadLetter, ScoreJournal
 from ..resilience.retry import RetryPolicy, exception_text
@@ -103,6 +114,16 @@ from .measure import cal_metrics
 from .metrics import SiameseMeasure
 
 logger = logging.getLogger(__name__)
+
+
+def refuse_mesh_score_impl(score_impl: str, mesh) -> None:
+    """The packed and cascaded strategies serve one device (the JAX
+    package's rule): on a mesh they raise."""
+    if score_impl in ("ragged", "continuous", "cascade") and mesh is not None:
+        raise ValueError(
+            f"score_impl={score_impl!r} serves a single-device predictor; "
+            "scale out with serving replicas, not a mesh"
+        )
 
 
 def _sync(device: torch.device) -> None:
@@ -137,12 +158,11 @@ class SiamesePredictor:
                 f"score_impl must be 'bucketed', 'ragged', 'continuous' or "
                 f"'cascade', got {score_impl!r}"
             )
-        if score_impl in ("ragged", "continuous", "cascade") and mesh is not None:
-            raise ValueError(
-                f"score_impl={score_impl!r} serves a single-device predictor; "
-                "scale out with serving replicas, not a mesh"
-            )
+        refuse_mesh_score_impl(score_impl, mesh)
         self.mesh = mesh
+        # a serving mesh's leader (rank 0) sends each command here first
+        # (serving/mesh.py); None elsewhere
+        self.channel = None
         self._n_data = mesh.size(DATA_AXIS) if mesh is not None else 1
         self._n_model = mesh.size(MODEL_AXIS) if mesh is not None else 1
         self._writes = mesh is None or mesh.is_primary
@@ -267,17 +287,26 @@ class SiamesePredictor:
 
     def _block_call(self, block: Dict[str, np.ndarray], bank: torch.Tensor, model=None,
                     prefix: str = "score") -> np.ndarray:
+        """One block's probabilities; on a mesh, every rank's data slice
+        against its bank shard, gathered (``[rows, model·shard]``)."""
         length = block["input_ids"].shape[1]
         mask = block["attention_mask"]
         if self.mesh is not None:
             mask = shard_batch(mask, self.mesh)  # what this rank runs
         rows, lengths = mask.shape[0], mask.sum(axis=1).tolist()
         n = int(bank.shape[0])
-        return self._timed_call(
-            shape_key(prefix, (rows, length)), lambda: self._score(block, bank, model),
-            self._cost(rows * length, lengths, rows, n),
-            self._cost(rows * length, [length] * rows, rows, n),
-        )
+        command = contextlib.nullcontext() if self.channel is None \
+            else self.channel.score(bank, block, int8=prefix == "score_int8")
+        with command:
+            host = self._timed_call(
+                shape_key(prefix, (rows, length)), lambda: self._score(block, bank, model),
+                self._cost(rows * length, lengths, rows, n),
+                self._cost(rows * length, [length] * rows, rows, n),
+            )
+            if self.mesh is not None:
+                host = gather_blocks(torch.from_numpy(host).to(self.mesh.device),
+                                     self.mesh).cpu().numpy()
+        return host
 
     def _to_device(self, block: Dict[str, np.ndarray]):
         return (
@@ -294,28 +323,64 @@ class SiamesePredictor:
         with self.telemetry.span("anchor_encode"):
             bank, labels, n_anchors = self.encode_bank(anchor_instances)
             self._wait()
-        if self._n_model > 1:
-            # shard the anchor axis over "model": zero rows pad it to a
-            # multiple of the axis, and their columns are sliced off after
-            # the gather
-            pad = (-n_anchors) % self._n_model
-            if pad:
-                bank = torch.cat([bank, bank.new_zeros((pad, bank.shape[1]))], dim=0)
-            bank = bank.chunk(self._n_model, dim=0)[self.mesh.index(MODEL_AXIS)].contiguous()
         self.anchor_bank, self.anchor_labels, self.n_anchors = bank, labels, n_anchors
         self.stats["anchor_encode_s"] = time.perf_counter() - start
         self.stats["anchor_chunks"] = -(-n_anchors // self.anchor_chunk)
         logger.info("anchor bank: %d anchors, dim %d", n_anchors, bank.shape[1])
 
-    @torch.no_grad()
     def encode_bank(
         self, anchor_instances: Iterable[Dict]
     ) -> Tuple[torch.Tensor, List[str], int]:
-        """(bank [A, D] on the device, labels, A), encoded in chunks of
+        """(bank on the device, labels, A), encoded in chunks of
         ``anchor_chunk`` rows padded to ``max_length``: any bank, the
-        predictor's own or a candidate's (``bankops``, ``swap_bank``)."""
+        predictor's own or a candidate's (``bankops``, ``swap_bank``).  The
+        bank is ``[A, D]``; on a mesh with a ``model`` axis, this rank's
+        shard of it zero-padded to a multiple of the axis (the JAX
+        package's ``encode_bank`` returns the padded, sharded bank too).  A
+        leader installs it on every rank first."""
         instances = list(anchor_instances)
         labels = [inst["meta"]["label"] for inst in instances]
+        seqs = self.encoder.encode_many([inst["text1"] for inst in instances])
+        rows = -(-len(seqs) // self.anchor_chunk) * self.anchor_chunk
+        block = _pad_block(seqs, rows, self.encoder.pad_id, self.encoder.max_length)
+        if self.channel is not None:
+            bank = self.channel.install(block, len(instances), self._install_block)
+        else:
+            bank = self._install_block(block, len(instances))
+        return bank, labels, len(instances)
+
+    def _install_block(self, block: Dict[str, np.ndarray], n_anchors: int) -> torch.Tensor:
+        """Encode a bank's padded rows (:meth:`_encode_rows`) and keep this
+        rank's shard of the first ``n_anchors``.  On a mesh the ranks agree
+        that every one of them succeeded before any keeps its shard."""
+        from ..serving.mesh import BankInstallError
+
+        error = None
+        try:
+            bank = self._encode_rows(block)[:n_anchors]
+            if self._n_model > 1:
+                # shard the anchor axis over "model": zero rows pad it to a
+                # multiple of the axis, and their columns are sliced off
+                # after the gather
+                pad = (-n_anchors) % self._n_model
+                if pad:
+                    bank = torch.cat([bank, bank.new_zeros((pad, bank.shape[1]))], dim=0)
+                bank = bank.chunk(self._n_model, dim=0)[self.mesh.index(MODEL_AXIS)].contiguous()
+        except Exception as e:
+            if self.mesh is None:
+                raise
+            error = e  # raised below, once every rank knows
+        if self.mesh is not None and any_rank(error is not None, self.mesh):
+            raise BankInstallError(
+                f"the bank of {n_anchors} anchors failed to encode on a rank "
+                f"({'this one: ' + exception_text(error) if error else 'another one'}); "
+                "no rank keeps it") from error
+        return bank
+
+    @torch.no_grad()
+    def _encode_rows(self, block: Dict[str, np.ndarray]) -> torch.Tensor:
+        """``[rows, D]``: the block's rows encoded ``anchor_chunk`` at a
+        time, each chunk booked as one call of the ``bank`` program."""
         parts: List[torch.Tensor] = []
         rows, length = self.anchor_chunk, self.encoder.max_length
         key = shape_key("bank", (rows, length))
@@ -323,19 +388,16 @@ class SiamesePredictor:
         calls = []  # per chunk: (events or None, cost)
         t0 = time.perf_counter()
         with self._on_stream():
-            for start in range(0, len(instances), self.anchor_chunk):
-                chunk = instances[start : start + self.anchor_chunk]
-                seqs = self.encoder.encode_many([inst["text1"] for inst in chunk])
-                block = _pad_block(seqs, self.anchor_chunk, self.encoder.pad_id,
-                                   self.encoder.max_length)
+            for start in range(0, block["input_ids"].shape[0], rows):
+                chunk = {k: v[start : start + rows] for k, v in block.items()}
                 events = None
                 if on_card:
                     events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
                     events[0].record()
-                parts.append(self.model.encode(*self._to_device(block))[: len(chunk)])
+                parts.append(self.model.encode(*self._to_device(chunk)))
                 if on_card:
                     events[1].record()
-                cost = self._cost(rows * length, block["attention_mask"].sum(axis=1).tolist(),
+                cost = self._cost(rows * length, chunk["attention_mask"].sum(axis=1).tolist(),
                                   rows, 0)
                 calls.append((events, cost))
             bank = torch.cat(parts, dim=0)
@@ -345,7 +407,7 @@ class SiamesePredictor:
         for events, cost in calls:
             seconds = events[0].elapsed_time(events[1]) / 1e3 if events else None
             self._book(key, cost, full, seconds, wall)
-        return bank, labels, bank.shape[0]
+        return bank
 
     # -- phase 2: streaming scoring ------------------------------------------
 
@@ -444,15 +506,16 @@ class SiamesePredictor:
             return 1
         shapes = self.stream_shapes()
         tiers = [self.score_block] + ([self.score_block_int8] if self.int8_model else [])
-        for score in tiers:
-            with self.telemetry.span("aot_warmup", shapes=len(shapes)):
-                for rows, length in shapes:
-                    self.telemetry.progress()
-                    score(
-                        {"input_ids": np.zeros((rows, length), np.int32),
-                         "attention_mask": np.ones((rows, length), np.int32)},
-                        bank,
-                    )
+        with contextlib.nullcontext() if self.channel is None else self.channel.warm(bank):
+            for score in tiers:
+                with self.telemetry.span("aot_warmup", shapes=len(shapes)):
+                    for rows, length in shapes:
+                        self.telemetry.progress()
+                        score(
+                            {"input_ids": np.zeros((rows, length), np.int32),
+                             "attention_mask": np.ones((rows, length), np.int32)},
+                            bank,
+                        )
         self.programs.mark_warm("score")
         return len(shapes) * len(tiers)
 

@@ -97,6 +97,22 @@ class World:
                     os._exit(1)
             time.sleep(0.2)
 
+    def _name_dead(self, grace_s: float) -> None:
+        """Name each child that failed on its own, waiting up to
+        ``grace_s`` for one to be seen: rank 0 can fail first because a
+        peer died (its collective breaks before the watcher's next poll)."""
+        deadline = time.monotonic() + grace_s
+        while True:
+            dead = [(rank, p.poll()) for rank, p in enumerate(self.procs, start=1)
+                    if p.poll() not in (None, 0)]
+            if dead or time.monotonic() >= deadline:
+                break
+            time.sleep(0.05)
+        for rank, rc in dead:
+            sys.stderr.write(f"rank {rank} exited with {rc} (log: {self.logs[rank - 1]}): "
+                             "ending the world\n")
+        sys.stderr.flush()
+
     def kill(self) -> None:
         for p in self.procs:
             if p.poll() is None:
@@ -112,6 +128,7 @@ class World:
         only if each exited 0; otherwise kill them and return 1."""
         self._closing = True
         if not ok:
+            self._name_dead(grace_s=0.5)
             self.kill()
             return 1
         deadline = time.monotonic() + timeout_s
@@ -225,4 +242,10 @@ def _rank_main(argv: Sequence[str]) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(_rank_main(sys.argv[1:]))
+    code = _rank_main(sys.argv[1:])
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # the result is written: skip the interpreter's teardown, where a
+    # process group the target left joined can abort its exit (a gloo
+    # thread destroyed while still joinable)
+    os._exit(code)

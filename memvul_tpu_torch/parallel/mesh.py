@@ -15,7 +15,9 @@ row-major over named axes, each axis with its process groups:
 Rank ``r`` owns ``cuda:{LOCAL_RANK}`` (NCCL), or the CPU (gloo).  The
 collectives here are all reductions and broadcasts: a gather is a sum of
 zero buffers with each rank's block in its own slot, which is exact and
-which every backend carries, gloo on CUDA tensors included.
+which every backend carries, gloo on CUDA tensors included.  A mesh
+keeps the timeout its world was joined with (``timeout_s``), which
+bounds every collective's wait.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .multihost import DEFAULT_TIMEOUT_S, join_world
+from .multihost import join_world, world_timeout_s
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -39,8 +41,10 @@ class Mesh:
     size (JAX's ``mesh.shape``), ``mesh[axis]`` is this rank's process
     group along ``axis``, :meth:`index` this rank's coordinate on it."""
 
-    def __init__(self, axes: Dict[str, int], device: torch.device) -> None:
+    def __init__(self, axes: Dict[str, int], device: torch.device,
+                 timeout_s: Optional[float] = None) -> None:
         self.shape: Dict[str, int] = dict(axes)
+        self.timeout_s = float(world_timeout_s() if timeout_s is None else timeout_s)
         self.axis_names = tuple(axes)
         self.device = device
         self.backend = dist.get_backend()
@@ -82,7 +86,7 @@ def create_mesh(
     axes: Optional[Dict[str, int]] = None,
     device: Union[str, torch.device] = "cuda",
     backend: Optional[str] = None,
-    timeout_s: float = DEFAULT_TIMEOUT_S,
+    timeout_s: Optional[float] = None,
 ) -> Mesh:
     """A mesh over the world, joined first if it does not exist (from the
     launch env, else a world of one); the default is 1-D data parallelism
@@ -91,7 +95,10 @@ def create_mesh(
     ``"cuda"`` puts rank r on ``cuda:{LOCAL_RANK}`` and raises without
     CUDA; ``"cuda:N"`` puts every rank on card N (ranks sharing a card,
     which needs ``backend="gloo"``); ``"cpu"`` a gloo world of CPU
-    processes.  The backend follows the device unless named."""
+    processes.  The backend follows the device unless named; the world's
+    timeout is ``timeout_s``, else :func:`~.multihost.world_timeout_s`."""
+    if timeout_s is None:
+        timeout_s = world_timeout_s()
     dev = join_world(device=device, backend=backend, timeout_s=timeout_s)
     n = dist.get_world_size()
     axes = dict(axes or {DATA_AXIS: n})
@@ -103,7 +110,7 @@ def create_mesh(
     total = int(np.prod(sizes))
     if total != n:
         raise ValueError(f"mesh axes {axes} need {total} devices, have {n}")
-    return Mesh(axes, dev)
+    return Mesh(axes, dev, timeout_s)
 
 
 def auto_mesh(mesh: Optional[Mesh], use_mesh: bool, device) -> Optional[Mesh]:
@@ -199,6 +206,28 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor], group=None) -> None:
             offset += t.numel()
 
 
+def all_reduce_data(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh],
+                    model_copies: bool = True) -> None:
+    """Sum each tensor over the ``data`` axis in place: one all-reduce over
+    this rank's data group.  With ``model_copies`` and a ``model`` axis,
+    the ranks of that axis hold copies (the trainers' replication), which
+    must stay equal bit for bit, and two data groups summing alike is not
+    guaranteed (a backward's scatter-adds may order their sums differently
+    on two copies): the copies at model index > 0 contribute zeros to one
+    all-reduce over the whole world, so every rank gets model copy 0's sum.
+    A tensor-parallel model (``model_copies`` false) holds different shards
+    on its model ranks, summed over ``data`` alone."""
+    if mesh is None or mesh.world_size == 1:
+        return
+    if model_copies and mesh.size(MODEL_AXIS) > 1:
+        if mesh.index(MODEL_AXIS) > 0:
+            for t in tensors:
+                t.zero_()
+        all_reduce_sum(tensors)
+    elif mesh.size(DATA_AXIS) > 1:
+        all_reduce_sum(tensors, mesh[DATA_AXIS])
+
+
 def gather_blocks(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Every rank's ``[b, a, ...]`` block → the whole ``[data·b, model·a,
     ...]`` array on every rank: rows in data order, columns (the anchor
@@ -223,6 +252,32 @@ def broadcast_object(obj, mesh: Mesh, src: int = 0):
     box = [obj]
     dist.broadcast_object_list(box, src=src, device=mesh.device)
     return box[0]
+
+
+def broadcast_header(values: Optional[Sequence[int]], length: int, mesh: Mesh) -> List[int]:
+    """A fixed-size header of ``length`` int64s from rank 0 on every rank:
+    ``values`` (zero-padded) on rank 0, ignored elsewhere."""
+    t = torch.zeros(length, dtype=torch.int64, device=mesh.device)
+    if mesh.is_primary:
+        if len(values) > length:
+            raise ValueError(f"a header of {len(values)} values exceeds {length}")
+        t[: len(values)] = torch.tensor(list(values), dtype=torch.int64)
+    dist.broadcast(t, 0)
+    return [int(v) for v in t.tolist()]
+
+
+def broadcast_tensor(tensor: Optional[torch.Tensor], shape: Sequence[int], dtype: torch.dtype,
+                     mesh: Mesh) -> torch.Tensor:
+    """Rank 0's ``tensor`` (of ``shape`` and ``dtype``) on every rank, on
+    the mesh's device; the other ranks pass None and allocate it."""
+    if mesh.is_primary:
+        t = tensor.to(device=mesh.device, dtype=dtype).contiguous()
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"broadcast of shape {tuple(t.shape)}, announced {tuple(shape)}")
+    else:
+        t = torch.empty(tuple(shape), dtype=dtype, device=mesh.device)
+    dist.broadcast(t, 0)
+    return t
 
 
 def any_rank(flag: bool, mesh: Mesh) -> bool:

@@ -37,8 +37,17 @@ _initialized = False
 # a join, and every collective of the world, gives up after this long: a
 # rank that dies or skips a collective ends the world instead of hanging it
 DEFAULT_TIMEOUT_S = 300.0
+# the env that sets another timeout for the worlds a process joins (the
+# launched ranks of a ``--mesh`` command inherit it)
+TIMEOUT_ENV = "MEMVUL_WORLD_TIMEOUT_S"
 
 _ENV_MARKERS = ("MEMVUL_MULTIHOST",)
+
+
+def world_timeout_s() -> float:
+    """The timeout of a world joined without an explicit one:
+    ``$MEMVUL_WORLD_TIMEOUT_S``, else :data:`DEFAULT_TIMEOUT_S`."""
+    return float(os.environ.get(TIMEOUT_ENV) or DEFAULT_TIMEOUT_S)
 
 
 def _launch_markers() -> bool:
@@ -84,13 +93,13 @@ def join_world(
     rank: Optional[int] = None,
     device: Union[str, torch.device] = "cuda",
     backend: Optional[str] = None,
-    timeout_s: float = DEFAULT_TIMEOUT_S,
+    timeout_s: Optional[float] = None,
 ) -> torch.device:
     """``dist.init_process_group`` from arguments, else the launch env
     (``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``); with
     neither, a world of one on a free local port.  A world that exists
-    already is kept, and its size must match.  Returns this rank's
-    device."""
+    already is kept, and its size must match.  ``timeout_s`` defaults to
+    :func:`world_timeout_s`.  Returns this rank's device."""
     dev = rank_device(device)
     if world_size is None and os.environ.get("WORLD_SIZE"):
         world_size = int(os.environ["WORLD_SIZE"])
@@ -115,7 +124,8 @@ def join_world(
         backend=backend_for(dev, backend), init_method=address,
         world_size=int(world_size if world_size is not None else 1),
         rank=int(rank if rank is not None else 0),
-        timeout=datetime.timedelta(seconds=float(timeout_s)),
+        timeout=datetime.timedelta(seconds=float(world_timeout_s() if timeout_s is None
+                                                 else timeout_s)),
     )
     return dev
 
@@ -127,7 +137,7 @@ def initialize(
     require: bool = False,
     device: Union[str, torch.device] = "cuda",
     backend: Optional[str] = None,
-    timeout_s: float = DEFAULT_TIMEOUT_S,
+    timeout_s: Optional[float] = None,
 ) -> bool:
     """Join the multi-process world.  The decision to join is made from
     explicit arguments or the environment markers only; returns False

@@ -100,6 +100,7 @@ class Dispatcher:
             return
         svc._shed_queue(STATUS_DRAIN)
         svc._tel.heartbeat(force=True)
+        svc._stop_followers()  # a serving mesh: no device call follows
 
     def _pull_batch(self) -> List[_Request]:
         """Wait for the first request, then pull until ``max_batch`` are
@@ -339,6 +340,10 @@ class BucketedDispatcher(Dispatcher):
                 self._score_bucket_chunk(group[start : start + rows], bank, rows, length)
 
     def _pad_bucket(self, chunk: Chunk, rows: int, length: int) -> Dict[str, np.ndarray]:
+        """The warmed (rows, length) block of one chunk, whole: on a mesh the
+        predictor sends it to the followers and every rank scores its
+        ``data`` slice against its bank shard (the JAX package shards this
+        block over the mesh here)."""
         return _pad_block([seq for _, seq in chunk], rows, self.service.predictor.encoder.pad_id,
                           length)
 

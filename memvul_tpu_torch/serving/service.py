@@ -40,6 +40,14 @@ against it, and the dispatchers take one snapshot per tenant group of a
 pull.  The ``bank.resolve`` fault point fires at each submit's tenant
 resolution; a failure errors that request only.
 
+On a serving mesh the service runs on rank 0, the leader, over a
+predictor whose ``channel`` carries each device call to the followers
+(:mod:`.mesh`): a snapshot's bank is this rank's shard, installed on every
+rank under one id before :meth:`ScoringService.swap_bank` flips to it (a
+failed install on any rank leaves the old bank serving on every rank),
+and the end of a drain or a hard kill sends the followers the stop
+command.
+
 With ``cache_capacity > 0`` an :class:`~.admission_cache.AdmissionCache`
 answers an exact repeat at submit, on the caller's thread, with the score
 fields of its first answer and no device call.
@@ -599,6 +607,13 @@ class ScoringService:
                     new.n_anchors, "" if weights is None else " (weighted)")
         return new.version
 
+    def _stop_followers(self) -> None:
+        """A serving mesh's leader: the followers' stop command (sent once;
+        later device calls raise)."""
+        channel = getattr(self.predictor, "channel", None)
+        if channel is not None:
+            channel.stop()
+
     def _write_manifest(self) -> None:
         """The live default bank's manifest beside the telemetry sinks,
         written atomically, so a reader never sees a torn view."""
@@ -699,6 +714,7 @@ class ScoringService:
         self.request_drain()
         self._thread.join(timeout)
         stop_attached(self)
+        self._stop_followers()
         if self._thread.is_alive():  # pragma: no cover - defensive
             logger.warning("serve batcher did not exit within %ss", timeout)
         if self.out_dir is not None:
@@ -714,6 +730,7 @@ class ScoringService:
         it is.  Follow with :meth:`take_unresolved`."""
         self._killed.set()
         self._draining.set()  # wakes the pull loop; it checks killed
+        self._stop_followers()
 
     def take_unresolved(self, timeout: float = 5.0) -> List[_Request]:
         """After :meth:`hard_kill`: every accepted but unresolved request

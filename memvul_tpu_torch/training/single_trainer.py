@@ -48,7 +48,7 @@ from .optim import GroupedAdamW, make_optimizer
 from ..resilience import faults
 from ..telemetry import get_registry
 from ..utils.profiling import StepTimer, trace_context
-from ..parallel.mesh import DATA_AXIS, all_reduce_sum, replicate, shard_batch
+from ..parallel.mesh import DATA_AXIS, all_reduce_data, replicate, shard_batch
 from .trainer import _fetch_stats, _seed_rank_generator, _training_mesh, book_epoch, host_tree, to_device
 
 logger = logging.getLogger(__name__)
@@ -65,7 +65,8 @@ def classifier_step(
     step's stats as device tensors: loss, pre-clip grad norm, confusion.
     On a ``mesh`` with a data axis the batch is this rank's rows, the loss
     divides by the global weight sum, and the gradients, loss and
-    confusion are summed over the axis (``trainer.train_step``'s rule)."""
+    confusion are summed over the axis, with the same bits on a model
+    axis's copies (``trainer.train_step``'s rule)."""
     group = mesh[DATA_AXIS] if mesh is not None and mesh.size(DATA_AXIS) > 1 else None
     total = None
     if group is not None:
@@ -78,9 +79,7 @@ def classifier_step(
     with torch.no_grad():
         loss = loss.detach()
         confusion = device_confusion(logits.detach(), batch["label"], batch["weight"])
-        if group is not None:
-            all_reduce_sum([p.grad for p in optimizer.params] + [loss], group)
-            torch.distributed.all_reduce(confusion, group=group)
+        all_reduce_data([p.grad for p in optimizer.params] + [loss, confusion], mesh)
         if debug_checks:
             check_finite(loss, model.named_parameters())
         grad_norm = optimizer.step()
@@ -131,8 +130,9 @@ class ClassifierTrainer:
     """Trains ``model`` (a :class:`SingleModel` or :class:`TextCNN`, which
     holds its weights) on ``device`` from ``reader``'s stream over
     ``train_path``, validating on ``validation_path`` after each epoch.
-    On a ``mesh`` (a data axis) each rank trains on its slice of every
-    batch, as :class:`~.trainer.MemoryTrainer` does; rank 0 writes the
+    On a ``mesh`` (the data and model axes) each rank trains on its data
+    slice of every batch, a model rank on a copy, as
+    :class:`~.trainer.MemoryTrainer` does; rank 0 writes the
     checkpoints and the validation output, every rank restores."""
 
     def __init__(

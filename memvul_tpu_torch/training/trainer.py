@@ -61,7 +61,7 @@ from ..data.batching import (
 )
 from ..data.readers import MemoryReader
 from ..models.memory import MemoryModel, pair_loss
-from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, all_reduce_sum, any_rank, replicate, shard_batch
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, all_reduce_data, any_rank, replicate, shard_batch
 from ..resilience import faults
 from ..resilience.io import atomic_write_text
 from ..telemetry import get_registry
@@ -142,7 +142,13 @@ def train_step(
     microbatch's loss divides by the global weight sum (one all-reduce of
     the K sums up front), so summing the ranks' gradients and losses (one
     all-reduce a step, after the K backwards) gives the single-device
-    step's exactly, however the padding rows fall."""
+    step's exactly, however the padding rows fall.  A ``model`` axis holds
+    copies (the JAX trainers replicate the params over it): the copies of
+    a data slice take the same rows, and the sum reaches every rank with
+    the same bits (:func:`~memvul_tpu_torch.parallel.mesh.all_reduce_data`),
+    so the copies stay equal step after step.  A tensor-parallel model
+    (:func:`~memvul_tpu_torch.parallel.sharding.shard_params`) sums its
+    shards' gradients over ``data`` alone."""
     k = stack["label"].shape[0]
     group = mesh[DATA_AXIS] if mesh is not None and mesh.size(DATA_AXIS) > 1 else None
     optimizer.zero_grad()
@@ -162,9 +168,9 @@ def train_step(
         logits.append(out.detach())
     with torch.no_grad():
         confusion = device_confusion(torch.stack(logits), stack["label"], stack["weight"])
-        if group is not None:
-            all_reduce_sum([p.grad for p in optimizer.params] + [loss_sum], group)
-            torch.distributed.all_reduce(confusion, group=group)
+        # a tensor-parallel model's model ranks hold shards, not copies
+        all_reduce_data([p.grad for p in optimizer.params] + [loss_sum, confusion], mesh,
+                        model_copies=not hasattr(model, "tp_specs"))
         for p in optimizer.params:
             p.grad.div_(k)
         if debug_checks:
@@ -178,15 +184,12 @@ def train_step(
 
 
 def _training_mesh(mesh):
-    """The mesh a trainer takes: a data axis (any size), nothing else."""
+    """The mesh a trainer takes: the data and model axes, each of any
+    size.  As in the JAX trainers, the params and the optimizer state are
+    replicated over the whole mesh and each batch is sharded over ``data``
+    alone, so a model rank trains a copy."""
     if mesh is None:
         return None
-    if mesh.size(MODEL_AXIS) > 1:
-        raise NotImplementedError(
-            "training on a multi-device mesh with a model (tensor-parallel) axis writes sharded "
-            "checkpoints, which belong to the next slice (ROADMAP.md, item 5); parallel.sharding "
-            "runs the TP "
-            "forward and step")
     extra = set(mesh.axis_names) - {DATA_AXIS, MODEL_AXIS}
     if extra:
         raise ValueError(f"a training mesh takes the data and model axes, got {sorted(extra)}")
@@ -293,15 +296,17 @@ class MemoryTrainer:
     ``train_path``, validating against ``anchor_path``'s bank on
     ``validation_path`` after each epoch.
 
-    On a ``mesh`` (:func:`~memvul_tpu_torch.parallel.create_mesh`, a data
-    axis) every rank reads the same stream and trains on its slice of each
-    stack's rows (the dedup's unique ``sample2`` rows stay whole on every
-    rank); the update equals the single-device step's on the global batch
-    (:func:`train_step`).  Rank 0 alone writes checkpoints, the preemption
-    marker, the step-loss log and the validation output; every rank
-    restores.  A stop signal is agreed at each stats drain, so the ranks
-    stop at the same step.  A ``model`` axis (tensor-parallel training)
-    raises."""
+    On a ``mesh`` (:func:`~memvul_tpu_torch.parallel.create_mesh`, the
+    data and model axes) every rank reads the same stream and trains on its
+    data slice of each stack's rows (the dedup's unique ``sample2`` rows
+    stay whole on every rank; the dedup floor is the data size); the
+    update equals the single-device step's on the global batch
+    (:func:`train_step`).  The params and the optimizer state are
+    replicated over the whole mesh, as in the JAX trainer: the ranks of a
+    ``model`` axis train equal copies.  Rank 0 alone writes checkpoints,
+    the preemption marker, the step-loss log and the validation output;
+    every rank restores.  A stop signal is agreed at each stats drain, so
+    the ranks stop at the same step."""
 
     def __init__(
         self,

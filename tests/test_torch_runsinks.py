@@ -168,19 +168,16 @@ def test_mesh_flag_exits_2_with_the_multi_device_message(ws, tmp_path, capsys, c
                      "-o", str(tmp_path / "ev")],
         "serve": ["serve", str(tmp_path / "missing.tar.gz"), "--port", "0"],
     }[command]
-    if command == "serve":
-        # one service across a world is the next slice's
-        assert cli.main(argv + ["--mesh", "data=8", "--device", "cpu"]) == 2
-        err = capsys.readouterr().err
-        assert "multi-device" in err and "data=8" in err and "next slice" in err
-    else:
-        # train and evaluate take a mesh: one of 8 cards on a host with none exits 2
-        assert cli.main(argv + ["--mesh", "data=8"]) == 2
-        err = capsys.readouterr().err
-        assert "'data=8'" in err and "need 8 devices, have 0" in err
+    # every command takes a mesh (serve: one service across its ranks); one
+    # of 8 cards on a host with none exits 2, naming the cards it lacks
+    assert cli.main(argv + ["--mesh", "data=8"]) == 2
+    err = capsys.readouterr().err
+    assert "'data=8'" in err and "need 8 devices, have 0" in err
     assert not (tmp_path / "run").exists()
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        build.serve_from_archive("x", device="cpu", mesh="data=8")
+    if command == "serve":
+        # a mesh beside replicas is refused before any rank starts
+        assert cli.main(argv + ["--mesh", "data=2", "--replicas", "2", "--device", "cpu"]) == 2
+        assert "pick one scaling axis" in capsys.readouterr().err
 
 
 def test_no_mesh_flag_runs_on_one_device(ws, tmp_path, capsys):

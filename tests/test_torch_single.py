@@ -51,6 +51,7 @@ from memvul_tpu_torch.models.convert import flax_from_params, params_from_flax
 from memvul_tpu_torch.models.single import SingleModel
 from memvul_tpu_torch.models.textcnn import TextCNN
 from memvul_tpu_torch.training.single_trainer import ClassifierTrainer, ClassifierTrainerConfig
+from memvul_tpu_torch.training.trainer import _training_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -287,11 +288,15 @@ def test_classifier_trainer_refusals(ws):
     assert ClassifierTrainer(pmodel, ptok, reader, ws["paths"]["train"],
                              config=ClassifierTrainerConfig(debug_checks=True),
                              device="cpu").config.debug_checks
-    # a data mesh trains (slice 14); a model (tensor-parallel) axis does not yet
+    # a data × model mesh trains (the model axis holds replicated copies, as
+    # in the JAX trainers); another axis raises
     tp_mesh = types.SimpleNamespace(axis_names=("data", "model"), size=lambda axis: 2,
                                     device=torch.device("cpu"), is_primary=True)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ClassifierTrainer(pmodel, ptok, reader, ws["paths"]["train"], device="cpu", mesh=tp_mesh)
+    assert _training_mesh(tp_mesh) is tp_mesh
+    seq_mesh = types.SimpleNamespace(axis_names=("data", "seq"), size=lambda axis: 2,
+                                     device=torch.device("cpu"), is_primary=True)
+    with pytest.raises(ValueError, match="data and model axes"):
+        ClassifierTrainer(pmodel, ptok, reader, ws["paths"]["train"], device="cpu", mesh=seq_mesh)
     with pytest.raises(ValueError, match="unknown key"):
         build.train_from_config({"model": {"type": "model_cnn"}, "trainer": {"grad_accum": 2}},
                                 "/nonexistent/never", device="cpu")

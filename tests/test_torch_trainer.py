@@ -306,11 +306,15 @@ def test_unported_knobs_raise_naming_their_slice(ws, tmp_path):
     with pytest.raises(ValueError, match="unknown model type"):
         build.train_from_config(dict(cfg, model=dict(cfg["model"], type="model_folding")),
                                 tmp_path, device="cpu")
-    # a data mesh trains (slice 14); a model (tensor-parallel) axis does not yet
+    # a data × model mesh trains (the model axis holds replicated copies, as
+    # in the JAX trainer); another axis raises
     tp_mesh = types.SimpleNamespace(axis_names=("data", "model"), size=lambda axis: 2,
                                     device=torch.device("cpu"), is_primary=True)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        build.train_from_config(cfg, tmp_path, device="cpu", mesh=tp_mesh)
+    assert ptrainer._training_mesh(tp_mesh) is tp_mesh
+    seq_mesh = types.SimpleNamespace(axis_names=("data", "seq"), size=lambda axis: 2,
+                                     device=torch.device("cpu"), is_primary=True)
+    with pytest.raises(ValueError, match="data and model axes"):
+        build.train_from_config(cfg, tmp_path, device="cpu", mesh=seq_mesh)
     with pytest.raises(ValueError, match="prefetch_depth"):
         build.train_from_config(dict(cfg, trainer=dict(cfg["trainer"], prefetch_depth=0)),
                                 tmp_path, device="cpu")
