@@ -159,7 +159,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  recorder at a 0.5 s cadence, whose dead-lettered batches
                  fire ``serve_error_rate`` and write one incident bundle,
                  with ``/metricsz``, ``/alertz``, ``/programz``, the
-                 device-memory gauge and ``program.mfu`` in (0, 1]; and a
+                 device-memory gauge and ``program.busy_util`` in (0, 1]; and a
                  ``POST /profilez`` capture under load whose trace names
                  the K3 and K1 kernels;
    ``bench_path`` ``python -m memvul_tpu_torch bench`` through its
@@ -4048,7 +4048,7 @@ def phase_ops_plane_path(workdir: Path, records: dict, serve_runs: dict, fleet_r
     3. **flight recorder** at ``tsdb_cadence`` 0.5 s with a run dir: two
        ``serve.batch`` faults that dead-letter fire ``serve_error_rate`` and
        write one bundle; ``/metricsz``, ``/alertz`` and ``/programz``
-       answer; ``serve.hbm_in_use_bytes`` > 0; ``program.mfu`` in (0, 1];
+       answer; ``serve.hbm_in_use_bytes`` > 0; ``program.busy_util`` in (0, 1];
     4. **profiler**: ``POST /profilez {"seconds": 2}`` under load until the
        capture ends (a second one answers 409) writes a Chrome trace naming
        the K3 and K1 kernels; a trace with no device activity at all is
@@ -4418,9 +4418,9 @@ def phase_ops_plane_path(workdir: Path, records: dict, serve_runs: dict, fleet_r
         gauges = service.registry.snapshot()["gauges"]
         part = next((p for _, p in service.metrics_snapshots()[1:]
                      if "program.programs" in p.get("counters", {})), {})
-        mfu = part.get("gauges", {}).get("program.mfu")
+        busy_util = part.get("gauges", {}).get("program.busy_util")
         rows = {row["key"]: row for row in service.programs_snapshot()}
-        pack_mfu = rows.get("ragged:1x2048", {}).get("mfu")
+        pack_busy_util = rows.get("ragged:1x2048", {}).get("busy_util")
         # 4. the profiler, under load until the capture has ended; a trace
         # that caught no device activity at all is taken again (at most
         # three captures), as _kernel_breakdown retakes an empty profile
@@ -4468,7 +4468,7 @@ def phase_ops_plane_path(workdir: Path, records: dict, serve_runs: dict, fleet_r
                      "kernels": programz.get("kernels")},
         "hbm_in_use_gib": gauges.get("serve.hbm_in_use_bytes", 0.0) / 2**30,
         "hbm_peak_gib": gauges.get("serve.hbm_peak_bytes", 0.0) / 2**30,
-        "program_mfu": mfu, "pack_program_mfu": pack_mfu,
+        "program_busy_util": busy_util, "pack_program_busy_util": pack_busy_util,
         "pack_program": {k: rows.get("ragged:1x2048", {}).get(k)
                          for k in ("invocations", "device_time_s", "flops", "compile_s")},
     }
@@ -4484,8 +4484,9 @@ def phase_ops_plane_path(workdir: Path, records: dict, serve_runs: dict, fleet_r
                                         "firing"]
                                     and p_status == 200 and programz.get("count", 0) > 0)
     checks["recorder_hbm_gauge"] = gauges.get("serve.hbm_in_use_bytes", 0.0) > 0
-    checks["recorder_mfu_in_0_1"] = (mfu is not None and 0.0 < mfu <= 1.0
-                                     and pack_mfu is not None and 0.0 < pack_mfu <= 1.0)
+    checks["recorder_busy_util_in_0_1"] = (busy_util is not None and 0.0 < busy_util <= 1.0
+                                           and pack_busy_util is not None
+                                           and 0.0 < pack_busy_util <= 1.0)
     checks["profiler_capture"] = (all(c["status"] == 200 and c["second_status"] == 409
                                       for c in captures)
                                   and names == set(OPS_KERNEL_SYMBOLS))

@@ -136,14 +136,14 @@ def _program_blocks() -> dict:
                 "hbm_bytes": p["hbm_bytes"],
                 "invocations": p["invocations"],
                 "device_time_s": p["device_time_s"],
-                "mfu": p["mfu"],
+                "mfu": p["busy_util"],  # the JAX package's record key
             }
             for p in programs
         ],
         "xla": {
             "device_kind": roof["device_kind"],
             "interpret_only": roof["interpret_only"],
-            "mfu": roof["mfu"],
+            "mfu": roof["busy_util"],  # (the record's key, as above)
             "membw_util": roof["membw_util"],
             "flops_total": roof["flops_total"],
             "device_time_s": roof["device_time_s"],

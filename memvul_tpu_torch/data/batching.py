@@ -19,15 +19,24 @@ The packed serve path lays many requests end to end in one fixed
 requests into packs, :class:`PackSlotAllocator` writes them into a
 reusable page table one at a time, and :func:`collate_ragged` is its
 one-shot form.
+
+While the process records spans (:mod:`memvul_tpu_torch.telemetry.spans`),
+the feed thread of a bucketed stream leaves ``feed.tokenize`` (each block
+of 512 instances, with its block number), ``feed.collate`` (each batch,
+with its id: its place in the stream) and, in :func:`prefetch`,
+``feed.put_wait`` (each item's put on the queue, blocked while it is full).
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+from ..telemetry import spans
 
 LABELS_SIAMESE = {"same": 0, "diff": 1}
 LABELS_BINARY = {"pos": 0, "neg": 1}
@@ -174,32 +183,39 @@ def bucketed_batches_from_instances(
     else:
         sizes = {b: int(batch_size) for b in buckets}
     pending: Dict[int, List[Dict]] = {b: [] for b in buckets}
-    for block in _blocks(instances, 512):
+    emitted = itertools.count()  # batch ids, in the order the batches leave
+    for n, block in enumerate(_blocks(instances, 512)):
         texts = []
         for inst in block:
             if inst.get("text2") is not None:
                 raise ValueError("bucketed batching supports single-text instances only")
             texts.append(inst["text1"])
-        for inst, seq in zip(block, encoder.encode_many(texts)):
+        with spans.span("feed.tokenize", n):
+            seqs = encoder.encode_many(texts)
+        for inst, seq in zip(block, seqs):
             bucket = _bucket_for(len(seq), buckets)
             slot = dict(inst)
             slot["_ids"] = seq
             pending[bucket].append(slot)
             if len(pending[bucket]) == sizes[bucket]:
-                yield _collate_bucket(pending[bucket], encoder, sizes[bucket], label_map, bucket)
+                yield _collate_bucket(pending[bucket], encoder, sizes[bucket], label_map, bucket,
+                                      next(emitted))
                 pending[bucket] = []
     for bucket in buckets:
         if pending[bucket]:
-            yield _collate_bucket(pending[bucket], encoder, sizes[bucket], label_map, bucket)
+            yield _collate_bucket(pending[bucket], encoder, sizes[bucket], label_map, bucket,
+                                  next(emitted))
 
 
-def _collate_bucket(chunk, encoder, batch_size, label_map, length) -> Dict:
-    return {
-        "sample1": _pad_block([inst["_ids"] for inst in chunk], batch_size, encoder.pad_id, length),
-        "label": _labels(chunk, label_map, batch_size),
-        "weight": _weights(len(chunk), batch_size),
-        "meta": [inst.get("meta", {}) for inst in chunk],
-    }
+def _collate_bucket(chunk, encoder, batch_size, label_map, length, batch_id=None) -> Dict:
+    with spans.span("feed.collate", batch_id):
+        return {
+            "sample1": _pad_block([inst["_ids"] for inst in chunk], batch_size, encoder.pad_id,
+                                  length),
+            "label": _labels(chunk, label_map, batch_size),
+            "weight": _weights(len(chunk), batch_size),
+            "meta": [inst.get("meta", {}) for inst in chunk],
+        }
 
 
 def dedup_capacities(batch_size: int, floor: int = 8) -> Tuple[int, ...]:
@@ -649,11 +665,12 @@ def prefetch(iterator: Iterator, depth: int = 4, commit=None, occupancy=None) ->
 
     def worker() -> None:
         try:
-            for item in iterator:
+            for n, item in enumerate(iterator):
                 if commit is not None:
                     item = commit(item)
-                if not _put(item):
-                    return
+                with spans.span("feed.put_wait", n):
+                    if not _put(item):
+                        return
         except BaseException as e:  # re-raised in the consumer
             error.append(e)
         finally:

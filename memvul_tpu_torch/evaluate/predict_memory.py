@@ -38,7 +38,12 @@ The counters, the ``anchor_encode``, ``aot_warmup`` and ``score_stream``
 spans and the heartbeat go to the predictor's ``telemetry`` registry (a run
 directory's sinks for ``evaluate``, the trainers' validation and the
 sharded scorer's workers); each batch passes the ``score.batch`` fault
-point inside its retried window.
+point inside its retried window.  While the process records spans
+(:mod:`memvul_tpu_torch.telemetry.spans`), each batch of a corpus pass also
+leaves ``score.feed_wait``, ``score.launch`` (with its copies to the
+device, ``score.h2d``), ``score.sync`` and ``score.book``, all carrying the
+batch's id, its place in the stream (the feed's ``feed.collate`` numbers
+the batches alike), and each warmed shape a ``warmup.shape``.
 
 PyTorch runs eagerly, so the JAX package's AOT compile and its trace
 counter have no counterpart here; :meth:`SiamesePredictor.
@@ -76,6 +81,7 @@ on every rank, its columns the bank shards in model order.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import logging
 import queue
@@ -108,7 +114,7 @@ from ..parallel.mesh import (
 from ..resilience import faults
 from ..resilience.journal import DeadLetter, ScoreJournal
 from ..resilience.retry import RetryPolicy, exception_text
-from ..telemetry import Registry
+from ..telemetry import Registry, spans
 from ..telemetry.programs import get_program_registry, model_bytes, score_cost, shape_key
 from .measure import cal_metrics
 from .metrics import SiameseMeasure
@@ -420,7 +426,8 @@ class SiamesePredictor:
         if self.mesh is not None:
             block = shard_batch(block, self.mesh)
         with self._on_stream():
-            ids, mask = self._to_device(block)
+            with spans.span("score.h2d"):
+                ids, mask = self._to_device(block)
             bank = self.anchor_bank if bank is None else bank
             logits = (model or self.model)(
                 {"input_ids": ids, "attention_mask": mask}, anchors=bank,
@@ -511,11 +518,13 @@ class SiamesePredictor:
                 with self.telemetry.span("aot_warmup", shapes=len(shapes)):
                     for rows, length in shapes:
                         self.telemetry.progress()
-                        score(
-                            {"input_ids": np.zeros((rows, length), np.int32),
-                             "attention_mask": np.ones((rows, length), np.int32)},
-                            bank,
-                        )
+                        # its id is the shape's length (one row count a length)
+                        with spans.span("warmup.shape", length):
+                            score(
+                                {"input_ids": np.zeros((rows, length), np.int32),
+                                 "attention_mask": np.ones((rows, length), np.int32)},
+                                bank,
+                            )
         self.programs.mark_warm("score")
         return len(shapes) * len(tiers)
 
@@ -630,10 +639,11 @@ class SiamesePredictor:
         slots: Dict[int, int] = {}
         self.stats["bucket_seconds"], self.stats["bucket_batches"] = seconds, counts
         self.stats["bucket_rows"], self.stats["bucket_row_slots"] = rows, slots
-        # host seconds: waiting on the feed thread, enqueueing a batch's
-        # launches, and blocked in the D2H sync
-        host = {"feed_wait_s": 0.0, "launch_s": 0.0, "sync_s": 0.0}
-        self.stats.update(host)
+        # host time, in ns of the spans' own clock reads: waiting on the
+        # feed thread, enqueueing a batch's launches, and blocked in the D2H
+        # sync (and, on a mesh, the gather)
+        host = {"feed_wait_s": 0, "launch_s": 0, "sync_s": 0}
+        self.stats.update(dict.fromkeys(host, 0.0))
         on_card = self.device.type == "cuda"
         pending: deque = deque()
         tel = self.telemetry
@@ -665,64 +675,78 @@ class SiamesePredictor:
             return probs, batch, time.perf_counter() - t0
 
         def drain():
-            probs, batch, timing = pending.popleft()
-            t0 = time.perf_counter()
+            probs, batch, timing, n = pending.popleft()
+            t0 = spans.begin("score.sync", n)
             try:
-                arr = probs.cpu().numpy()  # the one host sync of this batch
-            except Exception as e:
-                if retry_policy is None or not retry_policy.is_transient(exception_text(e)):
-                    raise
-                logger.warning("batch failed at the host sync (%s); launching it again",
-                               exception_text(e)[:200])
-                count_retry(e, 1)
-                probs, batch, timing = launch(batch)
-                arr = probs.cpu().numpy()
-            if self.mesh is not None:
-                # after any local retry: every rank reaches this gather once
-                # per batch, in the same order
-                arr = gather_blocks(torch.from_numpy(arr).to(self.mesh.device), self.mesh).cpu().numpy()
-            host["sync_s"] += time.perf_counter() - t0
-            elapsed = timing[0].elapsed_time(timing[1]) / 1e3 if on_card else timing
-            n_slots, length = batch["sample1"]["input_ids"].shape
-            metas = batch["meta"]
-            # the program this rank ran: its share of the rows
-            mine = shard_batch(batch["sample1"]["attention_mask"], self.mesh) \
-                if self.mesh is not None else batch["sample1"]["attention_mask"]
-            n_mine = mine.shape[0]
-            self._book(
-                shape_key("score", (n_mine, length)),
-                self._cost(n_mine * length, mine.sum(axis=1).tolist(), n_mine, self.n_anchors),
-                self._cost(n_mine * length, [length] * n_mine, n_mine, self.n_anchors),
-                elapsed if on_card else None, elapsed,
-            )
-            seconds[length] = seconds.get(length, 0.0) + elapsed
-            counts[length] = counts.get(length, 0) + 1
-            rows[length] = rows.get(length, 0) + len(metas)
-            slots[length] = slots.get(length, 0) + n_slots
-            tel.counter("score.batches").inc()
-            tel.counter("score.rows").inc(len(metas))
-            sliced = arr[: len(metas), : self.n_anchors]
-            if with_anchors:
-                for meta, idx in zip(metas, sliced.argmax(axis=-1)):
-                    meta["_anchor_index"] = int(idx)
-                    meta["_anchor"] = self.anchor_labels[int(idx)]
-            return sliced, metas
+                try:
+                    arr = probs.cpu().numpy()  # the one host sync of this batch
+                except Exception as e:
+                    if retry_policy is None or not retry_policy.is_transient(exception_text(e)):
+                        raise
+                    logger.warning("batch failed at the host sync (%s); launching it again",
+                                   exception_text(e)[:200])
+                    count_retry(e, 1)
+                    probs, batch, timing = launch(batch)
+                    arr = probs.cpu().numpy()
+                if self.mesh is not None:
+                    # after any local retry: every rank reaches this gather
+                    # once per batch, in the same order
+                    arr = gather_blocks(torch.from_numpy(arr).to(self.mesh.device),
+                                        self.mesh).cpu().numpy()
+            finally:
+                t1 = spans.end()
+            host["sync_s"] += t1 - t0
+            with spans.span("score.book", n):
+                elapsed = timing[0].elapsed_time(timing[1]) / 1e3 if on_card else timing
+                n_slots, length = batch["sample1"]["input_ids"].shape
+                metas = batch["meta"]
+                # the program this rank ran: its share of the rows
+                mine = shard_batch(batch["sample1"]["attention_mask"], self.mesh) \
+                    if self.mesh is not None else batch["sample1"]["attention_mask"]
+                n_mine = mine.shape[0]
+                live = mine.sum(axis=1).tolist()
+                self._book(
+                    shape_key("score", (n_mine, length)),
+                    self._cost(n_mine * length, live, n_mine, self.n_anchors),
+                    self._cost(n_mine * length, [length] * n_mine, n_mine, self.n_anchors),
+                    elapsed if on_card else None, elapsed,
+                )
+                seconds[length] = seconds.get(length, 0.0) + elapsed
+                counts[length] = counts.get(length, 0) + 1
+                rows[length] = rows.get(length, 0) + len(metas)
+                slots[length] = slots.get(length, 0) + n_slots
+                tel.counter("score.batches").inc()
+                tel.counter("score.rows").inc(len(metas))
+                # this rank's padding ledger, as serve.tokens_* book a pack's
+                tel.counter("score.tokens_real").inc(sum(live))
+                tel.counter("score.tokens_padded").inc(n_mine * length)
+                sliced = arr[: len(metas), : self.n_anchors]
+                if with_anchors:
+                    for meta, idx in zip(metas, sliced.argmax(axis=-1)):
+                        meta["_anchor_index"] = int(idx)
+                        meta["_anchor"] = self.anchor_labels[int(idx)]
+                return sliced, metas
 
         feed = iter(prefetch(batches, depth=prefetch_depth))
-        while True:
-            t0 = time.perf_counter()
+        # a batch's id: its place in the stream, the number the feed's
+        # collate gave it (the queue keeps the order)
+        for n in itertools.count():
+            t0 = spans.begin("score.feed_wait", n)
             batch = next(feed, None)
-            t1 = time.perf_counter()
-            host["feed_wait_s"] += t1 - t0
+            host["feed_wait_s"] += spans.end() - t0
             if batch is None:
                 break
-            pending.append(launch(batch))
-            host["launch_s"] += time.perf_counter() - t1
+            t0 = spans.begin("score.launch", n)
+            try:
+                pending.append(launch(batch) + (n,))
+            finally:
+                t1 = spans.end()
+            host["launch_s"] += t1 - t0
             if len(pending) > inflight:
                 yield drain()
         while pending:
             yield drain()
-        self.stats.update(host)
+        self.stats.update({k: v / 1e9 for k, v in host.items()})
         self.stats["batches"] = sum(counts.values())
 
     def predict_single(self, text: str) -> Dict:

@@ -11,7 +11,8 @@ through ``cudaGetDriverEntryPoint``.
 
 The build runs at first use into ``build/kernels/`` at the repository
 root; its wall time with the load is the ``kernels:<library>`` program of
-the process's program registry (``telemetry/programs.py``).  The
+the process's program registry (``telemetry/programs.py``) and, while the
+process records spans, the ``kernels.load`` span.  The
 library's name carries a hash of the sources, the headers and the flags,
 so an edited kernel or header never loads a stale build, and a finished
 build is reused by later processes.  There is no fallback: a
@@ -30,6 +31,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from ..telemetry import spans
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -157,24 +160,23 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            import time
-
             # the build runs once per process, before the first launch: its
             # clock is not in any forward's launch stream
-            t0 = time.perf_counter()  # lint: disable=MV201
-            path = build()
-            lib = ctypes.CDLL(str(path))
-            for name, argtypes in PROTOTYPES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.memvul_error_string.argtypes = [ctypes.c_int]
-            lib.memvul_error_string.restype = ctypes.c_char_p
+            t0 = spans.begin("kernels.load")
+            try:
+                path = build()
+                lib = ctypes.CDLL(str(path))
+                for name, argtypes in PROTOTYPES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                lib.memvul_error_string.argtypes = [ctypes.c_int]
+                lib.memvul_error_string.restype = ctypes.c_char_p
+            finally:
+                compile_s = (spans.end() - t0) / 1e9
             _lib = lib
             from ..telemetry.programs import get_program_registry
 
-            # (the same one-time build's clock)
-            compile_s = time.perf_counter() - t0  # lint: disable=MV201
             get_program_registry().register(f"kernels:{path.stem}", scope="build",
                                             compile_s=compile_s)
         return _lib

@@ -21,7 +21,8 @@ The serving plane's fleet adds the process-wide registry
 ``router.*`` counters and the SLO monitor's ``slo.*`` gauges live there,
 each replica keeps a registry of its own), the liveness clock
 (:meth:`Registry.progress`, :meth:`Registry.heartbeat_age_s`, which the
-replica health check reads) and timed spans (:meth:`Registry.span`).
+replica health check reads) and timed spans (:meth:`Registry.span`, which
+also land in the process's span recorder, :mod:`.spans`).
 Unlike the JAX package's, the default process-wide registry counts in
 memory (no sinks) instead of discarding, so ``router.*`` is readable
 without a :func:`configure`.
@@ -30,7 +31,8 @@ without a :func:`configure`.
 run dir, as the JAX package's do: ``enabled`` attaches the sinks and
 ``step_events`` gates the trainers' per-step ``train_step`` events (read
 once per drained window).  Events carry the liveness ``phase``, the
-innermost open :meth:`Registry.span` (a ``span_start`` event opens one);
+innermost :meth:`Registry.span` open on the calling thread, else the one
+opened last on any thread (a ``span_start`` event opens one);
 :mod:`.report` renders a run dir's sinks (``telemetry-report``).
 
 The ops plane: the program registry and its ``program.*`` rows
@@ -42,13 +44,15 @@ rules (:mod:`.alerts`) and the live exposition server of a run
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import random
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, Iterator, List, Optional, Union
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
+from . import spans
 from .sinks import HeartbeatFile, JsonlSink, SummaryFile
 
 
@@ -146,7 +150,9 @@ class Registry:
             run_dir = None
         # the trainers' per-step train_step events (with sinks only)
         self.step_events = bool(step_events) and run_dir is not None
-        self._phase_stack: List[str] = []
+        # per thread: its open spans, (order opened, name), innermost last
+        self._phase_stacks: Dict[int, List[Tuple[int, str]]] = {}
+        self._opened = itertools.count()
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
@@ -187,8 +193,29 @@ class Registry:
 
     @property
     def phase(self) -> str:
-        """The innermost open span, else ``"idle"``."""
-        return self._phase_stack[-1] if self._phase_stack else "idle"
+        """The innermost span open on the calling thread; else, of the
+        spans open on other threads, the innermost of the one opened last;
+        else ``"idle"``."""
+        with self._lock:
+            own = self._phase_stacks.get(threading.get_ident())
+            if own:
+                return own[-1][1]
+            tops = [stack[-1] for stack in self._phase_stacks.values()]
+        return max(tops)[1] if tops else "idle"
+
+    def _open_phase(self, name: str) -> None:
+        with self._lock:
+            self._phase_stacks.setdefault(threading.get_ident(), []).append(
+                (next(self._opened), name))
+
+    def _close_phase(self, name: str) -> None:
+        tid = threading.get_ident()
+        with self._lock:
+            stack = self._phase_stacks.get(tid)
+            if stack and stack[-1][1] == name:
+                stack.pop()
+            if not stack:
+                self._phase_stacks.pop(tid, None)
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
@@ -228,19 +255,18 @@ class Registry:
 
     @contextlib.contextmanager
     def span(self, name: str, **fields: Any) -> Iterator[None]:
-        """A timed scope: the liveness phase while it is open, a
-        ``span_start`` and a ``span`` event and ``span.<name>`` timing
-        stats."""
-        self._phase_stack.append(name)
+        """A timed scope: the liveness phase of its thread while it is open,
+        a ``span_start`` and a ``span`` event, ``span.<name>`` timing stats
+        and, while the process records spans, a span of :mod:`.spans`."""
+        self._open_phase(name)
         self.progress()
         self.event("span_start", name=name, **fields)
-        start = time.perf_counter()
+        start = spans.begin(name)
         try:
             yield
         finally:
-            dur = time.perf_counter() - start
-            if self._phase_stack and self._phase_stack[-1] == name:
-                self._phase_stack.pop()
+            dur = (spans.end() - start) / 1e9
+            self._close_phase(name)
             self.histogram(f"span.{name}").observe(dur)
             self.event("span", name=name, dur_s=round(dur, 6), **fields)
             self.heartbeat()

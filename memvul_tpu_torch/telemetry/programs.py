@@ -25,9 +25,11 @@ pack); the registry then books what that call needed.
 
 **Device time** comes from CUDA events around a call's launches, read after
 its host copy has waited for them (``SiamesePredictor``).  A call without
-events (the CPU) counts invocations and work only.  ``program.mfu`` is the
-work of the timed calls over their device time against the card's peak
-(:data:`PEAK_SPECS`): it is only as true as the count and the events, and
+events (the CPU) counts invocations and work only.  ``program.busy_util``
+is the work of the timed calls over their device time against the card's
+peak (:data:`PEAK_SPECS`): a utilization of the time the card was busy with
+them, not of a window (the card's idle time is not in it; the JAX package
+names it ``xla.mfu``).  It is only as true as the count and the events, and
 a value above 1 means one of them is wrong.
 
 **Recompiles.**  A scope (``"score"``) is marked warm when its warmup has
@@ -40,8 +42,8 @@ The rows are named ``program.*`` where the JAX package names them
 ``xla.*``, one to one: ``program.programs``, ``.compiles``,
 ``.recompiles``, ``.invocations``, ``.flops_total``, ``.bytes_total``
 (counters), ``.device_time_s``, ``.interpret_only``, ``.hbm_bytes``,
-``.mfu``, ``.achieved_flops_per_s``, ``.achieved_bytes_per_s`` (gauges)
-and the ``program.compile_s`` histogram.  They live in this registry, not
+``.busy_util`` (``xla.mfu``), ``.achieved_flops_per_s``,
+``.achieved_bytes_per_s`` (gauges) and the ``program.compile_s`` histogram.  They live in this registry, not
 in a telemetry registry: :meth:`ProgramRegistry.metrics_part` renders them
 as an extra snapshot part, so a process that registers nothing scrapes
 exactly what it did before.
@@ -176,9 +178,9 @@ class ProgramRecord:
         return self.argument_bytes + self.output_bytes + self.temp_bytes
 
     def as_dict(self, peak: Optional[Dict[str, float]]) -> Dict[str, Any]:
-        mfu = None
+        busy_util = None
         if peak is not None and self.device_time_s > 0 and self.timed_flops > 0:
-            mfu = (self.timed_flops / self.device_time_s) / peak["flops_per_s"]
+            busy_util = (self.timed_flops / self.device_time_s) / peak["flops_per_s"]
         return {
             "key": self.key,
             "scope": self.scope,
@@ -196,7 +198,7 @@ class ProgramRecord:
             "platform": self.platform,
             "device_kind": self.device_kind,
             "interpret_only": self.interpret_only,
-            "mfu": mfu,
+            "busy_util": busy_util,
         }
 
 
@@ -366,9 +368,9 @@ class ProgramRegistry:
         timed_bytes = sum(r.timed_bytes for r in records)
         achieved_flops = timed_flops / device_time if device_time > 0 else None
         achieved_bytes = timed_bytes / device_time if device_time > 0 else None
-        mfu = membw_util = None
+        busy_util = membw_util = None
         if peak is not None and achieved_flops is not None:
-            mfu = achieved_flops / peak["flops_per_s"]
+            busy_util = achieved_flops / peak["flops_per_s"]
         if peak is not None and achieved_bytes is not None:
             membw_util = achieved_bytes / peak["hbm_bytes_per_s"]
         return {
@@ -385,7 +387,7 @@ class ProgramRegistry:
             "timed_bytes": timed_bytes,
             "achieved_flops_per_s": achieved_flops,
             "achieved_bytes_per_s": achieved_bytes,
-            "mfu": mfu,
+            "busy_util": busy_util,
             "membw_util": membw_util,
         }
 
@@ -424,7 +426,7 @@ class ProgramRegistry:
             "program.hbm_bytes": float(max(r.hbm_bytes for r in records)),
         }
         for name, value in (
-            ("program.mfu", roof["mfu"]),
+            ("program.busy_util", roof["busy_util"]),
             ("program.achieved_flops_per_s", roof["achieved_flops_per_s"]),
             ("program.achieved_bytes_per_s", roof["achieved_bytes_per_s"]),
         ):

@@ -444,7 +444,7 @@ def _programs_section(programs: Dict[str, Any]) -> List[str]:
         lines.append("ROOFLINE")
         lines.append(
             f"  device: {roof.get('device_kind', '?')}"
-            + ("  (interpret-only — no peak spec, MFU unavailable)"
+            + ("  (interpret-only — no peak spec, busy_util unavailable)"
                if roof.get("interpret_only") else "")
         )
         lines.append(
@@ -452,9 +452,9 @@ def _programs_section(programs: Dict[str, Any]) -> List[str]:
             f"  flops_total: {_fmt_num(roof.get('flops_total', 0))}"
             f"  device_time: {_fmt_s(roof.get('device_time_s'))}"
         )
-        if roof.get("mfu") is not None:
+        if roof.get("busy_util") is not None:
             lines.append(
-                f"  mfu: {_as_num(roof.get('mfu')):.4f}"
+                f"  busy_util: {_as_num(roof.get('busy_util')):.4f}"
                 f"  membw_util: {_fmt_num(roof.get('membw_util', '-'))}"
                 f"  achieved_flops_per_s:"
                 f" {_fmt_num(roof.get('achieved_flops_per_s', '-'))}"

@@ -46,7 +46,7 @@ def roofline_markdown(
         lines += [
             f"Measured on `{kind}` — **interpret-only** (no peak spec: "
             "analyzed FLOPs/bytes below are real XLA cost-analysis "
-            "output, the MFU/bandwidth columns stay null rather than "
+            "output, the busy-util/bandwidth columns stay null rather than "
             "divide by a made-up peak).",
             "",
         ]
@@ -59,12 +59,12 @@ def roofline_markdown(
         ]
     lines += [
         "| program | invocations | FLOPs/inv | bytes/inv | HBM bytes "
-        "| device s | MFU |",
+        "| device s | busy util |",
         "|---|---|---|---|---|---|---|",
     ]
     for row in snapshot:
         lines.append(
-            "| `{key}` | {inv} | {flops} | {bytes} | {hbm} | {dev} | {mfu} |"
+            "| `{key}` | {inv} | {flops} | {bytes} | {hbm} | {dev} | {util} |"
             .format(
                 key=row.get("key", "?"),
                 inv=row.get("invocations", 0),
@@ -72,21 +72,21 @@ def roofline_markdown(
                 bytes=_fmt_count(row.get("bytes_accessed")),
                 hbm=_fmt_count(row.get("hbm_bytes")),
                 dev=f"{row.get('device_time_s', 0.0):.4f}",
-                mfu=_fmt_pct(row.get("mfu")),
+                util=_fmt_pct(row.get("busy_util")),
             )
         )
     lines += [
         "",
         "Aggregate: {n} programs, {flops} total FLOPs, {bytes} total "
         "bytes, {dev:.4f} s device time — achieved {af}, {ab}, "
-        "MFU {mfu}, HBM bandwidth {bw}.".format(
+        "busy util {util}, HBM bandwidth {bw}.".format(
             n=roofline.get("programs", len(snapshot)),
             flops=_fmt_count(roofline.get("flops_total")),
             bytes=_fmt_count(roofline.get("bytes_total")),
             dev=float(roofline.get("device_time_s") or 0.0),
             af=_fmt_count(roofline.get("achieved_flops_per_s"), "FLOP/s"),
             ab=_fmt_count(roofline.get("achieved_bytes_per_s"), "B/s"),
-            mfu=_fmt_pct(roofline.get("mfu")),
+            util=_fmt_pct(roofline.get("busy_util")),
             bw=_fmt_pct(roofline.get("membw_util")),
         ),
         "",

@@ -199,19 +199,34 @@ ROOFLINE = {
 }
 
 
+def _port_rows(rows):
+    """The port's names of the JAX package's rows: its "mfu", a utilization
+    of the card's busy time, is the port's "busy_util"."""
+    return {"busy_util" if k == "mfu" else k: v for k, v in rows.items()}
+
+
+def _port_words(md):
+    return (md.replace("| MFU |", "| busy util |").replace(" MFU ", " busy util ")
+            .replace("the MFU/bandwidth", "the busy-util/bandwidth"))
+
+
 @pytest.mark.parametrize("roof", [ROOFLINE, {"device_kind": "cpu", "interpret_only": True}])
 def test_roofline_markdown_equals_the_jax_package(roof, tmp_path):
-    md = report.roofline_markdown(SNAPSHOT, roof)
-    assert md == jax_report.roofline_markdown(SNAPSHOT, roof)
+    snapshot, port_roof = [_port_rows(row) for row in SNAPSHOT], _port_rows(roof)
+    md = report.roofline_markdown(snapshot, port_roof)
+    assert md == _port_words(jax_report.roofline_markdown(SNAPSHOT, roof))
+    assert "MFU" not in md and "mfu" not in md
     assert md.startswith(report.BEGIN_MARK) and md.rstrip().endswith(report.END_MARK)
     doc = f"# Roofline\n\nabove\n\n{report.BEGIN_MARK}\nOLD\n{report.END_MARK}\n\nbelow\n"
     for text in (doc, "# no fence\n"):
         assert report.splice_generated_section(text, md) \
             == jax_report.splice_generated_section(text, md)
-    (tmp_path / "programs.json").write_text(json.dumps({"programs": SNAPSHOT,
-                                                        "roofline": roof}))
+    (tmp_path / "programs.json").write_text(json.dumps({"programs": snapshot,
+                                                        "roofline": port_roof}))
+    (tmp_path / "jax_programs.json").write_text(json.dumps({"programs": SNAPSHOT,
+                                                            "roofline": roof}))
     assert report.report_from_programs_json(tmp_path / "programs.json") \
-        == jax_report.report_from_programs_json(tmp_path / "programs.json")
+        == _port_words(jax_report.report_from_programs_json(tmp_path / "jax_programs.json"))
 
 
 # -- tuned profiles --------------------------------------------------------------
