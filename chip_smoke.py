@@ -33,7 +33,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  wgmma fails).  ``kernel_flash`` also times K2 at the train
                  step's shapes, and ``kernel_flash_grad`` holds K2 under
                  autograd (output and dq/dk/dv) against the plain version in
-                 f32 at those shapes;
+                 f32 at those shapes; ``kernel_plain_attention`` holds K4
+                 (the plain "xla" formulation as one kernel) against
+                 ``xla_attention`` at the base buckets, 6 heads and odd
+                 lengths (a lost key tile, unnormalised weights and
+                 unrounded scores must fail the same check; Tk > 512 must
+                 be routed to the plain formulation), and times it beside
+                 the plain formulation, K2 and SDPA;
 4. ``main_path`` the port's corpus-scoring path end to end at the full width of
                  ``configs/config_memory_longctx.json`` (BERT-base, 4096
                  positions, bf16, flash attention): deterministic vocabulary,
@@ -103,14 +109,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  at its widths (the encoder stacked, bert-base's table): a
                  few updates, the held-out loss and perplexity, the encoder
                  carried bit for bit into a memory model's training and
-                 refused by an unstacked one; a dropout-0 run whose updates
-                 must launch K2 12 layers × grad_accum times;
+                 refused by an unstacked one (the updates' forwards must run
+                 the plain "xla" formulation, the evaluate's launch K4 12
+                 times a batch); a dropout-0 run whose updates must launch
+                 K2 12 layers × grad_accum times;
    ``single_path`` MemVul-m: ``configs/config_single.json`` trained at full
                  width with flash attention, validated, archived, then 512
                  reports scored with ``configs/test_config_single.json``
                  verbatim (K2 counted and held against its plain version at
-                 every auto shape) and again through the "xla" attention,
-                 which must agree;
+                 every auto shape) and again through the "xla" attention
+                 (K4 12 times a forward, no plain call), which must agree;
    ``cnn_path``  TextCNN: ``configs/config_cnn.json`` on a corpus-built word
                  vocabulary, trained, archived, 512 reports scored with
                  ``configs/test_config_cnn.json`` verbatim;
@@ -494,17 +502,18 @@ def train_flash_shapes() -> list:
     return [[rows, b] for rows in dedup_capacities(int(tr["batch_size"])) for b in buckets]
 
 
-def _ptxas_report(kernel: str) -> dict:
+def _ptxas_report(kernel: str, template: bool = True) -> dict:
     """What ptxas said about each instantiation of ``kernel`` (a template
-    over one int) in this run's build, keyed by its template argument:
-    registers, spill bytes, and whether it serialized the wgmmas
-    (C7513/C7514, "wgmma ... serialized", which name the function)."""
+    over one int, or with ``template`` false a plain function, keyed 0) in
+    this run's build, keyed by its template argument: registers, spill
+    bytes, and whether it serialized the wgmmas (C7513/C7514, "wgmma ...
+    serialized", which name the function)."""
     import re
 
     from memvul_tpu_torch.ops import _kernels
 
     lines = _kernels.build_log.splitlines()
-    name = re.compile(rf"{kernel}ILi(\d+)E")
+    name = re.compile(rf"{kernel}ILi(\d+)E" if template else rf"{kernel}E\w*")
     out = {}
     for start, line in enumerate(lines):
         found = name.search(line)
@@ -517,12 +526,13 @@ def _ptxas_report(kernel: str) -> dict:
             block.append(later)
         text = " ".join(block)
         number = lambda pattern: int(re.search(pattern, text).group(1))  # noqa: E731
-        arg = int(found.group(1))
+        arg = int(found.group(1)) if template else 0
+        mangled = found.group(0)
         out[arg] = {
             "registers": number(r"Used (\d+) registers"),
             "spill_store_bytes": number(r"(\d+) bytes spill stores"),
             "spill_load_bytes": number(r"(\d+) bytes spill loads"),
-            "wgmma_serialized": any("serialized" in l and f"{kernel}ILi{arg}E" in l for l in lines),
+            "wgmma_serialized": any("serialized" in l and mangled in l for l in lines),
         }
     return out
 
@@ -685,6 +695,162 @@ def emit_flash_shapes(records: dict, bucket_batches: dict, anchor_chunks: int,
          main_path_launches=rec["launches"], card=nvidia_smi_line())
     if not ok:
         raise SystemExit(f"flash launches by shape ({total}) != main_path's ({rec['launches']})")
+
+
+# [B, T] of the base configuration's buckets at 262144 tokens a batch
+PLAIN_BASE_SHAPES = [(4096, 64), (2048, 128), (1024, 256), (512, 512)]
+
+
+def _plain_shortcut(q, k, v, bias, shortcut: str):
+    """The formulation with one of its rounding points dropped, as a kernel
+    might be tempted to: ``"unnormalised"`` rounds exp(s - max) to bf16
+    before the division by the sum (an online softmax), ``"f32_scores"``
+    never rounds the scores to bf16."""
+    import torch
+
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / 8.0
+    if shortcut != "f32_scores":
+        s = s.to(torch.bfloat16)
+    if bias is not None:
+        s = s + bias
+    e = torch.exp(s.float() - s.float().amax(-1, keepdim=True))
+    total = e.sum(-1, keepdim=True)
+    if shortcut == "unnormalised":
+        o = torch.einsum("bhqk,bkhd->bqhd", e.to(torch.bfloat16).float(), v.float())
+        return (o / total.permute(0, 2, 1, 3)).to(torch.bfloat16)
+    w = (e / total).to(torch.bfloat16).float()
+    return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(torch.bfloat16)
+
+
+def _plain_ptxas() -> dict:
+    """ptxas on K4, with a block's dynamic shared memory at 512 keys."""
+    from memvul_tpu_torch.ops import _kernels
+
+    report = _ptxas_report("plain_attn_fwd_kernel", template=False)
+    if sorted(report) != [0]:
+        raise SystemExit(f"ptxas output lacks the plain attention kernel: {sorted(report)}")
+    return dict(report[0], dynamic_smem_bytes=_kernels.library().memvul_plain_attn_smem_bytes(512))
+
+
+def phase_plain_attention(records: dict) -> None:
+    """K4, the plain ("xla") attention kernel, against ``xla_attention`` on
+    the card by ``plain_attention.agreement``: the base configuration's four
+    buckets at 12 heads (timed: the kernel, the plain formulation, K2 on the
+    same inputs and, as the yardstick the port never calls, SDPA), a
+    tensor-parallel rank's 6 heads, odd lengths, T = 1, no bias, a bias
+    broadcast over the batch and unaligned views; every case with random
+    key lengths and a fully masked row.  A lost key tile, unnormalised
+    weights and unrounded scores must each fail the check; 1024 keys must
+    be refused by the wrapper and run the plain formulation when routed."""
+    import torch
+    import torch.nn.functional as F
+
+    from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.ops import plain_attention as pa
+    from memvul_tpu_torch.ops.attention import dot_product_attention, mask_to_bias, xla_attention
+
+    ptxas = _plain_ptxas()
+    _check_ptxas("kernel_plain_attention", {0: ptxas})
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    lengths_cpu = torch.Generator().manual_seed(12)
+
+    def inputs(b, t, h, pad=0):
+        q, k, v = (torch.randn(b, t, h, 64 + pad, device="cuda", generator=gen)
+                   .to(torch.bfloat16)[..., :64] for _ in range(3))
+        lens = torch.randint(1, t + 1, (b,), generator=lengths_cpu).tolist()
+        if b > 1:
+            lens[-1] = 0
+        mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
+        for i, n in enumerate(lens):
+            mask[i, n:] = 0
+        return q, k, v, mask_to_bias(mask, torch.bfloat16)
+
+    cases = [(b, t, 12, "bias", 0) for b, t in PLAIN_BASE_SHAPES] + [
+        # (B, T, H, bias, view padding)
+        (512, 512, 6, "bias", 0), (3, 300, 12, "bias", 0), (2, 37, 12, "bias", 0),
+        (2, 1, 12, "bias", 0), (8, 200, 12, "none", 0), (8, 200, 12, "batch_1", 0),
+        (8, 200, 12, "bias", 4),
+    ]
+    launches0 = pa.launches
+    results = []
+    for n, (b, t, h, bias_kind, pad) in enumerate(cases):
+        q, k, v, bias = inputs(b, t, h, pad)
+        bias = None if bias_kind == "none" else bias[:1] if bias_kind == "batch_1" else bias
+        got = pa.plain_attention_cuda(q, k, v, bias)
+        want = xla_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        row = {"shape": [b, t, h, 64], "bias": bias_kind, "view_pad": pad,
+               **pa.agreement(got, want, v)}
+        if t >= 64 and bias is not None:
+            lost = bias.clone()
+            lost[..., :64] = torch.finfo(torch.bfloat16).min
+            faults = {"lost_tile": xla_attention(q, k, v, lost)}
+            if b * h * t * t <= 2**26:  # the shortcuts' f32 scores stay small
+                for shortcut in ("unnormalised", "f32_scores"):
+                    faults[shortcut] = _plain_shortcut(q, k, v, bias, shortcut)
+            row["faults"] = {name: pa.agreement(out, want, v) for name, out in faults.items()}
+            if any(f["ok"] for f in row["faults"].values()):
+                emit("kernel_plain_attention", ok=False, cases=results + [row])
+                raise SystemExit(f"the plain attention check passes a fault: {row}")
+            del faults
+        if n < len(PLAIN_BASE_SHAPES) or [b, t, h] == [512, 512, 6]:
+            _, top = _kernel_breakdown(lambda: pa.plain_attention_cuda(q, k, v, bias))
+            row["kernel_name"] = top[0][0] if top else "no device activity profiled"
+            nbytes = 4 * b * t * h * 64 * 2 + b * t * 2
+            flops = 4 * b * h * t * t * 64
+            row["kernel_ms"] = time_ms(lambda: pa.plain_attention_cuda(q, k, v, bias), 10)
+            row["plain_ms"] = time_ms(lambda: xla_attention(q, k, v, bias), 3)
+            row["k2_ms"] = time_ms(lambda: fa.flash_attention(q, k, v, bias), 10)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            row["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias), 5)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+            row["bound_rate"] = "989 TFLOP/s bf16 tensor cores, 3.35 TB/s"
+            row["roofline_share"] = row["bound_ms"] / row["kernel_ms"]
+        del q, k, v, bias, got, want
+        results.append(row)
+        if not row["ok"]:
+            emit("kernel_plain_attention", ok=False, cases=results)
+            raise SystemExit(f"the plain attention kernel disagrees with xla_attention: {row}")
+    launched = pa.launches - launches0
+
+    # past 512 keys: the wrapper refuses, the routing runs the plain formulation
+    q, k, v, bias = inputs(4, 1024, 12)
+    try:
+        pa.plain_attention_cuda(q, k, v, bias)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    on_card, before = pa.plain_on_card, pa.launches
+    routed = dot_product_attention(q, k, v, bias=bias, impl="xla")
+    long_keys = {"refused": refused, "plain_on_card": pa.plain_on_card - on_card,
+                 "launches": pa.launches - before,
+                 "bitwise_plain": bool(torch.equal(routed, xla_attention(q, k, v, bias)))}
+    del q, k, v, bias, routed
+    long_ok = (refused is not None and "keys" in refused and long_keys["plain_on_card"] == 1
+               and long_keys["launches"] == 0 and long_keys["bitwise_plain"])
+    emit("kernel_plain_attention", ok=long_ok, ptxas=ptxas, cases=results,
+         comparison_launches=launched, long_keys=long_keys,
+         check={"bitwise_share": pa.BITWISE_SHARE, "max_ulps": pa.MAX_ULPS},
+         card=nvidia_smi_line())
+    if not long_ok:
+        raise SystemExit(f"1024 keys were not routed to the plain formulation: {long_keys}")
+    main = next(r for r in results if r["shape"] == [512, 512, 12, 64])
+    records["plain_attention"] = {
+        "name": "plain_attention",
+        "route": "cuda",
+        "source": "memvul_tpu_torch/csrc/plain_attn.cu",
+        "replaces": "none: XLA's fusion of memvul_tpu/ops/attention.py::_xla_attention",
+        # the paths' launches, counted from 0 around each (pretrain_path,
+        # single_path), not this phase's comparisons
+        "launches": 0,
+        "max_abs_err": main["max_abs_err"],
+        "ms": main["kernel_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+    }
 
 
 # K2's gradients in bf16 against f32: the worst element's error over its
@@ -1109,6 +1275,7 @@ def phase_main_path(workdir: Path, records: dict, reports_wanted: int = 512) -> 
     from memvul_tpu_torch.build import evaluate_from_archive
     from memvul_tpu_torch.ops import anchor_match as am
     from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.ops import plain_attention as pa
 
     t0 = time.perf_counter()
     reports, anchors, tok, cfg = _write_corpus(workdir, reports_wanted)
@@ -1124,8 +1291,7 @@ def phase_main_path(workdir: Path, records: dict, reports_wanted: int = 512) -> 
     setup_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
-    am.launches = 0
+    fa.launches = am.launches = pa.launches = pa.plain_on_card = 0
     t1 = time.perf_counter()
     metrics = evaluate_from_archive(
         archive, test_path, workdir / "eval",
@@ -1134,6 +1300,7 @@ def phase_main_path(workdir: Path, records: dict, reports_wanted: int = 512) -> 
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t1
     flash_launches, match_launches = fa.launches, am.launches
+    xla_calls = pa.launches + pa.plain_on_card
     peak_bytes = torch.cuda.max_memory_allocated()
 
     # what came out: one record per report, 129 finite probabilities in [0, 1]
@@ -1155,11 +1322,12 @@ def phase_main_path(workdir: Path, records: dict, reports_wanted: int = 512) -> 
     warm = "s_warmup_s" in metrics
     shapes = len(metrics["s_stream_shapes"]) if warm else 0
     layers = 12
-    if flash_launches != layers * (shapes + batches + chunks) or match_launches != shapes + batches:
+    if flash_launches != layers * (shapes + batches + chunks) or match_launches != shapes + batches \
+            or xla_calls:
         raise SystemExit(
             f"launch counts off: flash {flash_launches} (want "
             f"{layers * (shapes + batches + chunks)}), anchor_match {match_launches} "
-            f"(want {shapes + batches})"
+            f"(want {shapes + batches}), xla attention {xla_calls} (want 0)"
         )
     anchor = records["anchor_match"]
     anchor["launches"] += match_launches
@@ -1369,32 +1537,36 @@ def _anchor_match_at_rows(row_counts, a: int = 129, dtype=None) -> list:
 def _evaluate_counted(archive: Path, test_path: Path, out_dir: Path, overrides):
     """``evaluate_from_archive`` on the card with the launch counts set to
     0 just before it and read just after: (metrics, wall s, peak GiB,
-    {kernel: launches}, int8 GEMMs)."""
+    {kernel: launches, and "plain_on_card": the "xla" attention calls the
+    routing kept off K4}, int8 GEMMs)."""
     import torch
 
     from memvul_tpu_torch.build import evaluate_from_archive
     from memvul_tpu_torch.ops import anchor_match as am
     from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.ops import plain_attention as pa
     from memvul_tpu_torch.ops import quant
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = am.launches = quant.calls = 0
+    fa.launches = am.launches = pa.launches = pa.plain_on_card = quant.calls = 0
     t0 = time.perf_counter()
     metrics = evaluate_from_archive(archive, test_path, out_dir, overrides=overrides, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": fa.launches, "anchor_match": am.launches}
+    launches = {"flash_attention": fa.launches, "anchor_match": am.launches,
+                "plain_attention": pa.launches, "plain_on_card": pa.plain_on_card}
     return metrics, wall, torch.cuda.max_memory_allocated() / 2**30, launches, quant.calls
 
 
 def _check_path_launches(phase: str, metrics: dict, launches: dict, layers: int = 12) -> dict:
     """K2 runs in every layer of every forward (warmup shapes, batches,
-    anchor chunks) and K1 once per scored block: the counts the run must
-    show, by shape."""
+    anchor chunks), K1 once per scored block, and no "xla" attention call
+    at all: the counts the run must show, by shape."""
     warm = len(metrics["s_stream_shapes"]) if "s_warmup_s" in metrics else 0
     batches, chunks = int(metrics["s_batches"]), int(metrics["s_anchor_chunks"])
-    want = {"flash_attention": layers * (warm + batches + chunks), "anchor_match": warm + batches}
+    want = {"flash_attention": layers * (warm + batches + chunks), "anchor_match": warm + batches,
+            "plain_attention": 0, "plain_on_card": 0}
     if launches != want:
         raise SystemExit(f"{phase}: launch counts {launches}, want {want}")
     rows = {length: r for r, length in metrics["s_stream_shapes"]}
@@ -2195,6 +2367,7 @@ def _kernel_breakdown(fn, attempts: int = 3):
     for name, ms in by_name.items():
         low = name.lower()
         group = ("flash_fwd" if "flash_fwd" in low else
+                 "plain_attn" if "plain_attn" in low else
                  "ragged_fwd" if "ragged_fwd" in low or "tile_ranges" in low else
                  "anchor_match" if "anchor_match" in low else
                  "gemm" if any(s in low for s in ("gemm", "cutlass", "xmma", "nvjet", "sm90")) else
@@ -2575,6 +2748,7 @@ def phase_pretrain_path(workdir: Path, ws: dict, records: dict, updates: int = 8
     from memvul_tpu_torch.data.synthetic import corpus_texts
     from memvul_tpu_torch.models.convert import encoder_from_flax
     from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.ops import plain_attention as pa
     from memvul_tpu_torch.training.trainer import MemoryTrainer
 
     splits = ws["splits"]
@@ -2592,15 +2766,19 @@ def phase_pretrain_path(workdir: Path, ws: dict, records: dict, updates: int = 8
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
+    fa.launches = pa.launches = pa.plain_on_card = 0
     t0 = time.perf_counter()
     report = build.pretrain_from_config(cfg, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = _peak_gib()
     launches_shipped = fa.launches  # attention dropout 0.1 and "xla" attention: none
+    # the updates' forwards (dropout, gradients) run the plain formulation;
+    # the held-out evaluate's (no gradient) launch K4, 12 a batch
+    k4_shipped, plain_shipped = pa.launches, pa.plain_on_card
     epoch = report["train"]["epochs"][0]
     losses = epoch["losses"]
+    eval_batches = -(-int(report["eval_lines"]) // int(cfg["trainer"]["batch_size"]))
 
     # the encoder carried into the memory model's training
     mem = _train_config(ws, num_epochs=1, steps_per_epoch=2, warmup_steps=2, sync_every=1)
@@ -2640,11 +2818,12 @@ def phase_pretrain_path(workdir: Path, ws: dict, records: dict, updates: int = 8
     cfg0["encoder"] = dict(cfg["encoder"], attention_dropout=0.0, attention_impl="flash")
     cfg0.update(validation_data_path=None, output_dir=str(workdir / "out_wwm_flash"))
     cfg0["trainer"] = dict(cfg["trainer"], steps_per_epoch=2)
-    fa.launches = 0
+    fa.launches = pa.launches = pa.plain_on_card = 0
     with _LaunchRecorder() as rec0:
         report0 = build.pretrain_from_config(cfg0, device="cuda")
     torch.cuda.synchronize()
     flash0 = fa.launches
+    xla0 = pa.launches + pa.plain_on_card
     want0 = layers * accum * 2
 
     checks = {
@@ -2652,11 +2831,15 @@ def phase_pretrain_path(workdir: Path, ws: dict, records: dict, updates: int = 8
         "losses_finite": bool(np.isfinite(losses).all()),
         "eval_finite": bool(np.isfinite(report["eval_loss"])) and report["perplexity"] > 1.0,
         "shipped_attention_launches_no_k2": launches_shipped == 0,
+        "shipped_updates_plain_eq_layers_x_accum_x_updates":
+            plain_shipped == layers * accum * len(losses),
+        "shipped_eval_k4_launches_eq_layers_x_batches": k4_shipped == layers * eval_batches,
         "transplant_bit_equal_before_first_step": bool(seen.get("bit_equal")),
         "transplant_trained": len(transplant["history"][0]["training_losses"]) == 2
         and bool(np.isfinite(transplant["history"][0]["training_losses"]).all()),
         "layout_refused": refusal is not None and "scan_layers" in refusal,
         "dropout0_k2_launches_eq_layers_x_accum_x_updates": flash0 == want0,
+        "dropout0_no_xla_attention": xla0 == 0,
         "dropout0_losses_finite": bool(np.isfinite(report0["train"]["epochs"][0]["losses"]).all()),
     }
     timed = records["flash_attention"]["shapes"].get((16, 256), {})
@@ -2672,6 +2855,8 @@ def phase_pretrain_path(workdir: Path, ws: dict, records: dict, updates: int = 8
         "peak_memory_gib": peak, "eval_s": report["train"]["eval_s"],
         "eval_loss": report["eval_loss"], "perplexity": report["perplexity"],
         "eval_masked_tokens": report["masked_tokens"], "first_loss": losses[0],
+        "shipped_launches": {"k2": launches_shipped, "k4": k4_shipped,
+                             "plain_on_card": plain_shipped, "eval_batches": eval_batches},
         "last_loss": losses[-1], "losses": losses,
         "transplant": {"config": "configs/config_memory_longctx.json (positions 512)",
                        "train_from_config_s": transplant_s,
@@ -2690,6 +2875,7 @@ def phase_pretrain_path(workdir: Path, ws: dict, records: dict, updates: int = 8
     if not line["ok"]:
         raise SystemExit(f"pretrain_path failed: {checks}")
     records["flash_attention"]["launches"] += launches_shipped + flash0
+    records["plain_attention"]["launches"] += k4_shipped
 
 
 def phase_pretrain_reference(updates: int = 4) -> None:
@@ -2839,6 +3025,10 @@ def phase_single_path(workdir: Path, ws: dict, records: dict, steps: int = 8) ->
     xla, xla_wall, _, xla_launches, _ = _evaluate_counted(
         archive, test_path, workdir / "single_eval_xla",
         merge_overrides(loads_config(text), {"model": {"encoder": {"attention_impl": "xla"}}}))
+    # through "xla" every bf16 forward launches K4 12 times and none runs
+    # the plain formulation
+    want_xla = {"flash_attention": 0, "anchor_match": 0, "plain_on_card": 0,
+                "plain_attention": 12 * (len(xla["stream_shapes"]) + int(xla["batches"]))}
     xrecs = {r["Issue_Url"]: r for r in _result_records(
         workdir / "single_eval_xla" / "model_single_result.json")}
     prob_err = max(abs(r["prob"] - xrecs[r["Issue_Url"]]["prob"]) for r in recs)
@@ -2853,9 +3043,9 @@ def phase_single_path(workdir: Path, ws: dict, records: dict, steps: int = 8) ->
         "train_steps_k2_launches_zero_with_attention_dropout": train_k2 == val_k2,
         "records": len(recs) == 512 and set(xrecs) == {r["Issue_Url"] for r in recs}
         and bool(np.isfinite(probs).all()) and probs.min() >= 0.0 and probs.max() <= 1.0,
-        "k2_launches_12_a_forward": launches["flash_attention"] == want_k2
-        and launches["anchor_match"] == 0,
-        "xla_launches_no_k2": xla_launches["flash_attention"] == 0,
+        "k2_launches_12_a_forward": launches == {"flash_attention": want_k2, "anchor_match": 0,
+                                                 "plain_attention": 0, "plain_on_card": 0},
+        "xla_k4_launches_12_a_forward_none_plain": xla_launches == want_xla,
         "flash_vs_xla_prob_within_3e-2": prob_err <= 3e-2,
         "flash_vs_xla_decisions_agree": flips == 0,
     }
@@ -2874,6 +3064,7 @@ def phase_single_path(workdir: Path, ws: dict, records: dict, steps: int = 8) ->
         "validation_f1": epoch["validation_pos_f1-score"], "losses": epoch["training_losses"],
         "scoring": _single_scoring(metrics, recs, wall, peak),
         "k2_launches": launches["flash_attention"], "k2_launches_want": want_k2,
+        "xla_launches": xla_launches, "xla_launches_want": want_xla,
         "xla_scoring": {"reports_per_s": len(recs) / xla["elapsed_s"], "scoring_s": xla["elapsed_s"],
                         "wall_s": xla_wall},
         "flash_vs_xla": {"prob_max_abs_err": prob_err, "decided": len(decided), "flips": flips},
@@ -2884,6 +3075,7 @@ def phase_single_path(workdir: Path, ws: dict, records: dict, steps: int = 8) ->
     if not line["ok"]:
         raise SystemExit(f"single_path failed: {checks}")
     records["flash_attention"]["launches"] += train_k2 + launches["flash_attention"]
+    records["plain_attention"]["launches"] += xla_launches["plain_attention"]
 
 
 def phase_cnn_path(workdir: Path, ws: dict, records: dict, steps: int = 8) -> None:
@@ -2918,7 +3110,8 @@ def phase_cnn_path(workdir: Path, ws: dict, records: dict, steps: int = 8) -> No
         "validation_ran": "validation_pos_f1-score" in epoch,
         "records": len(recs) == 512 and bool(np.isfinite(probs).all())
         and probs.min() >= 0.0 and probs.max() <= 1.0,
-        "no_attention_kernels": launches == {"flash_attention": 0, "anchor_match": 0},
+        "no_attention_kernels": launches == {"flash_attention": 0, "anchor_match": 0,
+                                             "plain_attention": 0, "plain_on_card": 0},
         "stream_shape": [list(x) for x in metrics["stream_shapes"]] == [[64, 512]],
     }
     checks = {k: bool(v) for k, v in checks.items()}
@@ -6505,6 +6698,7 @@ def main() -> int:
     records: dict = {}
     phase_anchor_match(records)
     phase_flash(records)
+    phase_plain_attention(records)
     phase_flash_grad()
     phase_ragged(records)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:

@@ -28,7 +28,11 @@ Inside reachable functions (own body only — nested defs are reached via
 edges) it flags: ``print``, ``time.*``, ``random.*`` / ``np.random.*``,
 the device→host syncs ``.item()``, ``.tolist()``, ``.cpu()``,
 ``.numpy()``, ``.synchronize()`` (``torch.cuda``'s, an event's or a
-stream's) and the JAX names ``jax.device_get`` / ``.block_until_ready()``,
+stream's), the host→device copies ``torch.tensor(..., device=...)`` and
+``torch.as_tensor(..., device=...)`` (a copy from pageable host memory,
+which waits for the card: a constant belongs on the host, or in
+``torch.full`` on the device), and the JAX names ``jax.device_get`` /
+``.block_until_ready()``,
 telemetry emission chains (``...counter(...).inc()`` etc. and registry
 ``event``/``span``/``heartbeat`` calls), and ``float()`` / ``int()``
 applied directly to a parameter of the function.
@@ -63,6 +67,8 @@ SYNC_METHODS = {
     "synchronize": ".synchronize() waits for the device to drain",
     "block_until_ready": ".block_until_ready() waits for the device",
 }
+# torch constructors that copy host data to the device named by device=
+HOST_COPY_CONSTRUCTORS = {"tensor", "as_tensor"}
 _TELEMETRY_CHAIN = {"counter", "gauge", "histogram"}
 _TELEMETRY_TERMINALS = {"inc", "observe", "set"}
 _REGISTRY_CALLS = {"event", "span", "heartbeat", "progress"}
@@ -150,6 +156,12 @@ def _host_effect(node: ast.AST, params: Set[str]) -> Optional[Tuple[str, str]]:
             return f"np.{name}", f"np.{name}() host RNG call"
         if value.id == "jax" and name == "device_get":
             return "jax.device_get", "jax.device_get() device→host sync"
+        if (value.id == "torch" and name in HOST_COPY_CONSTRUCTORS
+                and any(kw.arg == "device" for kw in node.keywords)):
+            return f"torch.{name}", (
+                f"torch.{name}(..., device=...) host→device copy from pageable "
+                "memory, which waits for the card"
+            )
     if (
         isinstance(value, ast.Attribute)
         and value.attr == "random"

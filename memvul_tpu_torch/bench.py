@@ -84,7 +84,7 @@ BASELINE_RPS_512 = 190.0
 _CHILD_ENV_FLAG = "MEMVUL_BENCH_CHILD"
 
 # the kernels whose launch counts a child's telemetry.json carries
-KERNEL_MODULES = ("anchor_match", "flash_attention", "ragged_attention")
+KERNEL_MODULES = ("anchor_match", "flash_attention", "ragged_attention", "plain_attention")
 
 
 def _metric_name() -> str:
@@ -1630,12 +1630,15 @@ def _supervise(cmd, attempts: int, attempt_timeout: float, backoff: float, env=N
 def _record_launches() -> None:
     """The kernels' launch counts of this child into the process registry
     (``kernels.launches.<kernel>`` in telemetry.json)."""
-    from memvul_tpu_torch.ops import anchor_match, flash_attention, ragged_attention
+    from memvul_tpu_torch.ops import (anchor_match, flash_attention, plain_attention,
+                                      ragged_attention)
     from memvul_tpu_torch.telemetry import get_registry
 
     tel = get_registry()
-    for name, module in zip(KERNEL_MODULES, (anchor_match, flash_attention, ragged_attention)):
+    modules = (anchor_match, flash_attention, ragged_attention, plain_attention)
+    for name, module in zip(KERNEL_MODULES, modules):
         tel.counter(f"kernels.launches.{name}").inc(int(module.launches))
+    tel.counter("kernels.plain_on_card").inc(int(plain_attention.plain_on_card))
 
 
 def _error_record(error: str) -> dict:

@@ -61,6 +61,11 @@ PROTOTYPES = {
     # the wgmma flash kernel's dynamic shared memory per block, in bytes,
     # for 2 or 3 consumer warpgroups
     "memvul_flash_fwd_wgmma_smem_bytes": [_I],
+    # q, k, v, bias (or null), out, B, H, Tq, Tk, 12 strides, bias_sb,
+    # 1 / divisor, stream
+    "memvul_plain_attn_fwd": [_P] * 5 + [_I] * 4 + [_L] * 13 + [_F, _P],
+    # the plain attention kernel's dynamic shared memory per block at Tk keys
+    "memvul_plain_attn_smem_bytes": [_I],
 }
 
 _lock = threading.Lock()

@@ -6,7 +6,12 @@
 
 * ``"xla"``   the plain einsum formulation of the JAX package's
               ``_xla_attention``: scores scaled in the query dtype, softmax
-              in f32, weights cast back before the PV product;
+              in f32, weights cast back before the PV product.  On the card
+              the hand-written kernel of :mod:`.plain_attention` computes it
+              with the same rounding points wherever
+              :func:`.plain_attention.kernel_takes` holds (bf16, head dim
+              64, at most 512 keys, a key-only bias, no dropout, no
+              gradient); every other call runs :func:`xla_attention`;
 * ``"flash"`` blockwise exact attention (:mod:`.flash_attention`): the
               hand-written CUDA kernel on the card, its plain version on
               the CPU;
@@ -33,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from . import plain_attention
 from .flash_attention import flash_attention
 from .ragged_attention import ragged_flash_attention
 
@@ -61,7 +67,8 @@ def dot_product_attention(
     if impl == "flash":
         if not dropout:
             return flash_attention(query, key, value, bias)
-    elif impl == "ring":
+        return xla_attention(query, key, value, bias, dropout_rate, generator)
+    if impl == "ring":
         if dropout:
             raise ValueError(
                 "ring attention has no dropout support: set attention_dropout=0 "
@@ -70,9 +77,13 @@ def dot_product_attention(
         from ..parallel.ring import current_group, ring_attention
 
         return ring_attention(query, key, value, key_bias=bias, group=current_group())
-    elif impl != "xla":
+    if impl != "xla":
         raise ValueError(f"unknown attention impl {impl!r} (want xla | flash | ring)")
-    return xla_attention(query, key, value, bias, dropout_rate if dropout else 0.0, generator)
+    rate = dropout_rate if dropout else 0.0
+    if plain_attention.kernel_takes(query, key, value, bias, rate):
+        return plain_attention.launch_taken(query, key, value, bias)
+    plain_attention.count_plain_on_card(query)
+    return xla_attention(query, key, value, bias, rate, generator)
 
 
 def xla_attention(
@@ -81,10 +92,12 @@ def xla_attention(
 ) -> torch.Tensor:
     """The JAX package's ``_xla_attention``: scores in the query dtype,
     softmax in f32, weights cast back, then (``dropout_rate`` > 0) the
-    weights dropped with masks from ``generator`` and rescaled."""
-    depth = query.shape[-1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", query, key) / torch.sqrt(
-        torch.tensor(depth, dtype=query.dtype, device=query.device)
+    weights dropped with masks from ``generator`` and rescaled.  The
+    scores' divisor is ``sqrt(depth)`` in the query dtype, computed on the
+    host and filled on the device, so no call waits for the card."""
+    divisor = plain_attention.score_divisor(query.shape[-1], query.dtype)
+    scores = torch.einsum("bqhd,bkhd->bhqk", query, key) / torch.full(
+        (), divisor, dtype=query.dtype, device=query.device
     )
     if bias is not None:
         scores = scores + bias

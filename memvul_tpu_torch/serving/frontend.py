@@ -19,9 +19,10 @@ service's threads.
   first.
 * ``GET /programz`` → the program registry's rows, newest first (a router
   stamps each with its replica, a balancer with its host), the roofline,
-  and ``kernels``: this process's launch count of each hand-written
+  ``kernels``: this process's launch count of each hand-written
   kernel (``ops.*.launches``), which the JAX package has no counterpart
-  of;
+  of, and ``plain_on_card``: its plain-attention calls on the card that
+  the routing kept off the kernel (``ops.plain_attention``);
 * ``GET /metricsz[?window=S&metric=PREFIX]`` → the metrics history and
   ``GET /alertz`` → the alert rules and what fires, when the flight
   recorder is attached (``serving/incident.py``); else ``{"enabled":
@@ -63,11 +64,12 @@ _RESULT_SLACK_S = 30.0
 
 def kernel_launches():
     """This process's launches of each hand-written kernel."""
-    from ..ops import anchor_match, flash_attention, ragged_attention
+    from ..ops import anchor_match, flash_attention, plain_attention, ragged_attention
 
     return {"anchor_match": anchor_match.launches,
             "flash_attention": flash_attention.launches,
-            "ragged_flash_attention": ragged_attention.launches}
+            "ragged_flash_attention": ragged_attention.launches,
+            "plain_attention": plain_attention.launches}
 
 
 class ScoringHTTPServer(ThreadingHTTPServer):
@@ -141,8 +143,11 @@ class ScoreHandler(BaseHTTPRequestHandler):
             return
         if path == "/programz":
             programs = service.programs_snapshot()
+            from ..ops import plain_attention
+
             payload = {"count": len(programs), "programs": programs,
-                       "kernels": kernel_launches()}
+                       "kernels": kernel_launches(),
+                       "plain_on_card": plain_attention.plain_on_card}
             roofline = getattr(service, "programs_roofline", None)
             if roofline is not None:
                 payload["roofline"] = roofline()

@@ -325,6 +325,38 @@ def test_purity_roots_autograd_functions_and_checkpointed_functions(tmp_path):
     ]
 
 
+def test_purity_flags_host_to_device_constructors(tmp_path):
+    """A constant copied to the card inside a forward (the plain attention's
+    old ``torch.sqrt(torch.tensor(depth, ..., device=...))``) waits for the
+    card; on the host, or filled on the device, it does not."""
+    _write_tree(tmp_path, {
+        "pkg/attn.py": (
+            "import torch\n"
+            "from torch import nn\n"
+            "def scale(scores, query):\n"
+            "    depth = query.shape[-1]\n"
+            "    return scores / torch.sqrt(\n"
+            "        torch.tensor(depth, dtype=query.dtype, device=query.device)\n"
+            "    )\n"
+            "def shift(x):\n"
+            "    return x + torch.as_tensor([1.0, 2.0], device=x.device)\n"
+            "def host_and_filled(x):\n"
+            "    d = float(torch.sqrt(torch.tensor(x.shape[-1], dtype=x.dtype)))\n"
+            "    return x / torch.full((), d, dtype=x.dtype, device=x.device)\n"
+            "class Attention(nn.Module):\n"
+            "    def forward(self, q):\n"
+            "        return host_and_filled(shift(scale(q, q)))\n"
+            "def never_in_a_forward(x):\n"
+            "    return torch.tensor(1.0, device=x.device)\n"
+        ),
+    })
+    result = _run(analyze, tmp_path, select=["MV201"])
+    assert sorted((f.path, f.line, f.symbol) for f in result.active) == [
+        ("pkg/attn.py", 6, "torch.tensor"),
+        ("pkg/attn.py", 9, "torch.as_tensor"),
+    ]
+
+
 def test_eager_syncs_block_handlers_and_lock_holders(tmp_path):
     """MV102 and MV301 count eager PyTorch's device→host syncs as blocking;
     the JAX engine, whose names they add to, does not see these."""
