@@ -39,7 +39,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
                  lengths (a lost key tile, unnormalised weights and
                  unrounded scores must fail the same check; Tk > 512 must
                  be routed to the plain formulation), and times it beside
-                 the plain formulation, K2 and SDPA;
+                 the plain formulation, K2 and SDPA; ``kernel_grouped_gemm``
+                 holds the LFM2 cell's kernels at its shapes, K5 (w13 with
+                 the SwiGLU, then w2, at 262144 slots over 32 experts) by
+                 ``moe.agreement`` (a shifted expert offset must fail) and
+                 causal grouped K2 at ``[4096, 64]`` and ``[64, 4096]``,
+                 times both beside their plain versions and libraries, and
+                 counts K5 and causal K2 from 0 in one encode of
+                 LFM2-8B-A1B's first four layers at the published widths
+                 under ``set_sync_debug_mode("error")``;
 4. ``main_path`` the port's corpus-scoring path end to end at the full width of
                  ``configs/config_memory_longctx.json`` (BERT-base, 4096
                  positions, bf16, flash attention): deterministic vocabulary,
@@ -502,18 +510,18 @@ def train_flash_shapes() -> list:
     return [[rows, b] for rows in dedup_capacities(int(tr["batch_size"])) for b in buckets]
 
 
-def _ptxas_report(kernel: str, template: bool = True) -> dict:
+def _ptxas_report(kernel: str, template: bool = True, args: str = r"Li(\d+)E") -> dict:
     """What ptxas said about each instantiation of ``kernel`` (a template
-    over one int, or with ``template`` false a plain function, keyed 0) in
-    this run's build, keyed by its template argument: registers, spill
-    bytes, and whether it serialized the wgmmas (C7513/C7514, "wgmma ...
-    serialized", which name the function)."""
+    whose mangled arguments match ``args``, one group keying it, or with
+    ``template`` false a plain function, keyed 0) in this run's build:
+    registers, spill bytes, and whether it serialized the wgmmas
+    (C7513/C7514, "wgmma ... serialized", which name the function)."""
     import re
 
     from memvul_tpu_torch.ops import _kernels
 
     lines = _kernels.build_log.splitlines()
-    name = re.compile(rf"{kernel}ILi(\d+)E" if template else rf"{kernel}E\w*")
+    name = re.compile(rf"{kernel}I{args}" if template else rf"{kernel}E\w*")
     out = {}
     for start, line in enumerate(lines):
         found = name.search(line)
@@ -546,11 +554,12 @@ def _check_ptxas(phase: str, report: dict) -> None:
 
 
 def _wgmma_ptxas() -> dict:
-    """ptxas on the wgmma flash kernel's instantiations (2 and 3 consumer
-    warpgroups), with each block's dynamic shared memory."""
+    """ptxas on the wgmma flash kernel's non-causal, ungrouped
+    instantiations (2 and 3 consumer warpgroups), with each block's dynamic
+    shared memory."""
     from memvul_tpu_torch.ops import _kernels
 
-    report = _ptxas_report("flash_fwd_wgmma_kernel")
+    report = _ptxas_report("flash_fwd_wgmma_kernel", args=r"Li(\d+)ELb0ELb0E")
     if sorted(report) != [2, 3]:
         raise SystemExit(f"ptxas output lacks a wgmma flash instantiation: {sorted(report)}")
     return {f"consumers_{n}": dict(p, dynamic_smem_bytes=_kernels.library()
@@ -850,6 +859,177 @@ def phase_plain_attention(records: dict) -> None:
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
+    }
+
+
+# K5's shape and the causal K2 buckets of the LFM2 cell (score.lfm2.corpus):
+# 262144 token slots a batch, top 4 of 32 experts of width 1792 over 2048,
+# causal attention of 32 query heads over 8 K/V heads of 64
+LFM2_SLOTS = 262144
+LFM2_CAUSAL_SHAPES = ((4096, 64), (64, 4096))
+
+
+def _grouped_gemm_library(x, w, offsets):
+    """The yardstick the port does not call: one cuBLAS bf16 product an
+    expert, its row counts read on the host."""
+    import torch
+
+    bounds = offsets.tolist()
+    return [torch.matmul(x[bounds[e] : bounds[e + 1]], w[e].t()) for e in range(w.shape[0])]
+
+
+def phase_kernel_grouped_gemm(records: dict) -> None:
+    """The LFM2 cell's own kernels at its shapes.  K5 (``grouped_gemm``)
+    against ``grouped_gemm_reference`` at the cell's routing, w13 with the
+    SwiGLU and then w2, by ``moe.agreement``; an expert offset shifted by
+    one row must fail it.  K2's causal grouped instance against
+    ``flash_attention_reference`` at two of the cell's buckets; the
+    non-causal answer must fail the same tolerance.  Then one encode of
+    LFM2-8B-A1B's first four layers at the published widths (conv, conv,
+    attention, conv: two dense FFNs, two MoE layers) under
+    ``set_sync_debug_mode("error")``, with K5 and causal K2 counted from 0:
+    2 products in each MoE layer, 1 attention launch."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from memvul_tpu_torch.models.lfm2 import LAYER_TYPES_8B, Lfm2Config
+    from memvul_tpu_torch.models.memory import MemoryModel
+    from memvul_tpu_torch.ops import flash_attention as fa
+    from memvul_tpu_torch.ops import moe
+    from memvul_tpu_torch.ops.attention import mask_to_bias
+
+    ptxas = {"grouped_gemm_swiglu_" + ("on" if on else "off"): p for on, p in
+             _ptxas_report("grouped_gemm_kernel", args=r"Lb(\d)E").items()}
+    ptxas.update({f"flash_causal_grouped_consumers_{n}": p for n, p in _ptxas_report(
+        "flash_fwd_wgmma_kernel", args=r"Li(\d+)ELb1ELb1E").items()})
+    if len(ptxas) != 4:
+        raise SystemExit(f"ptxas output lacks a K5 or causal K2 instantiation: {sorted(ptxas)}")
+    _check_ptxas("kernel_grouped_gemm", ptxas)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    d, f, e, top_k = 2048, 1792, 32, 4
+
+    # K5 at the cell's routing
+    x = torch.randn(LFM2_SLOTS, d, device="cuda", generator=gen).to(torch.bfloat16)
+    gate = (torch.randn(e, d, device="cuda", generator=gen) / math.sqrt(d)).to(torch.bfloat16)
+    expert_bias = (torch.randn(e, device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+    selected, _ = moe.route(x, gate, expert_bias, top_k)
+    order, offsets = moe.dispatch(selected, e)
+    rows = x.index_select(0, torch.div(order, top_k, rounding_mode="floor"))
+    del x, selected, order
+    w13 = (torch.randn(e, 2 * f, d, device="cuda", generator=gen) / math.sqrt(d)).to(torch.bfloat16)
+    w2 = (torch.randn(e, d, f, device="cuda", generator=gen) / math.sqrt(f)).to(torch.bfloat16)
+    pairs = rows.shape[0]
+    counts = (offsets[1:] - offsets[:-1]).tolist()
+    k5 = {}
+    for name, inp, w, swiglu in (("w13_swiglu", rows, w13, True), ("w2", None, w2, False)):
+        inp = k5["w13_swiglu"].pop("want") if inp is None else inp
+        got = moe.grouped_gemm(inp, w, offsets, swiglu=swiglu)
+        want = moe.grouped_gemm_reference(inp, w, offsets, swiglu=swiglu)
+        row = {"shape": [pairs, w.shape[2], w.shape[1]], **moe.agreement(got, want),
+               "max_abs_err": float((got.float() - want.float()).abs().max())}
+        n = w.shape[1] // 2 if swiglu else w.shape[1]
+        flops = 2.0 * pairs * w.shape[1] * w.shape[2]
+        nbytes = 2.0 * (pairs * w.shape[2] + w.numel() + pairs * n)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+        row["kernel_ms"] = time_ms(lambda: moe.grouped_gemm(inp, w, offsets, swiglu=swiglu), 5)
+        row["plain_ms"] = time_ms(lambda: moe.grouped_gemm_reference(inp, w, offsets, swiglu), 1)
+        row["library_ms"] = time_ms(lambda: _grouped_gemm_library(inp, w, offsets), 5)
+        row["roofline_share"] = row["bound_ms"] / row["kernel_ms"]
+        if swiglu:
+            shifted = offsets.clone()
+            shifted[3] += 1
+            row["fault_shifted_offset"] = moe.agreement(
+                moe.grouped_gemm(inp, w, shifted, swiglu=True), want)
+            row["want"] = want
+        k5[name] = row
+        del got
+    del rows, w13, w2
+    k5_ok = all(r["ok"] for r in k5.values()) and not k5["w13_swiglu"]["fault_shifted_offset"]["ok"]
+
+    # causal grouped K2 at two of the cell's buckets
+    lengths_cpu = torch.Generator().manual_seed(22)
+    k2 = []
+    for b, t in LFM2_CAUSAL_SHAPES:
+        q = (torch.randn(b, t, 32, 64, device="cuda", generator=gen) * 2).to(torch.bfloat16)
+        k = (torch.randn(b, t, 8, 64, device="cuda", generator=gen) * 2).to(torch.bfloat16)
+        v = torch.randn(b, t, 8, 64, device="cuda", generator=gen).to(torch.bfloat16)
+        mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
+        for i, n in enumerate(torch.randint(1, t + 1, (b,), generator=lengths_cpu).tolist()):
+            mask[i, n:] = 0
+        bias = mask_to_bias(mask, torch.float32)
+        launched = fa.causal_launches
+        got = fa.flash_attention(q, k, v, bias, causal=True)
+        launched = fa.causal_launches - launched
+        want = fa.flash_attention_reference(q, k, v, bias, causal=True)
+        err, ok = max_err(got, want, 3e-2, 3e-2)
+        _, past_ok = max_err(fa.flash_attention_reference(q, k, v, bias), want, 3e-2, 3e-2)
+        flops = 2.0 * b * 32 * 64 * t * (t + 1)
+        nbytes = 2.0 * b * t * 64 * (2 * 32 + 2 * 8) + 4.0 * b * t
+        row = {"shape": [b, t, 32, 8, 64], "max_abs_err": err, "ok": ok and launched == 1,
+               "launches": launched, "fault_past_diagonal_passes": past_ok}
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+        row["kernel_ms"] = time_ms(lambda: fa.flash_attention(q, k, v, bias, causal=True), 10)
+        row["plain_ms"] = time_ms(lambda: fa.flash_attention_reference(q, k, v, bias, causal=True), 1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 5)
+        row["roofline_share"] = row["bound_ms"] / row["kernel_ms"]
+        k2.append(row)
+        del q, k, v, bias, got, want, qt, kt, vt
+    k2_ok = all(r["ok"] and not r["fault_past_diagonal_passes"] for r in k2)
+
+    # one encode of the published widths' first four layers, no host sync
+    cfg = Lfm2Config(num_layers=4, layer_types=LAYER_TYPES_8B[:4])
+    torch.cuda.reset_peak_memory_stats()
+    with torch.device("cuda"):
+        model = MemoryModel(cfg).eval()
+    b, t = 512, 512
+    ids = torch.randint(0, cfg.vocab_size, (b, t), device="cuda", generator=gen)
+    mask = torch.ones(b, t, dtype=torch.int32, device="cuda")
+    for i, n in enumerate(torch.randint(1, t + 1, (b,), generator=lengths_cpu).tolist()):
+        mask[i, n:] = 0
+    with torch.no_grad():
+        model.encode(ids, mask)
+        torch.cuda.synchronize()
+        moe.launches, fa.causal_launches = 0, 0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            u = model.encode(ids, mask)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        counted = {"grouped_gemm": moe.launches, "flash_attention_causal": fa.causal_launches}
+        encode_ms = time_ms(lambda: model.encode(ids, mask), 3)
+    encode = {"layers": list(cfg.layer_types), "batch": [b, t], "launches": counted,
+              "finite": bool(torch.isfinite(u).all()), "ms": encode_ms,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, ids, mask, u
+    torch.cuda.empty_cache()
+    encode_ok = encode["finite"] and counted == {"grouped_gemm": 4, "flash_attention_causal": 1}
+    ok = k5_ok and k2_ok and encode_ok
+    emit("kernel_grouped_gemm", ok=ok, ptxas=ptxas, grouped_gemm=k5, expert_rows=counts,
+         causal_flash=k2, lfm2_encode=encode,
+         check={"bitwise_share": moe.BITWISE_SHARE, "max_ulps": moe.MAX_ULPS, "k2_tol": 3e-2},
+         card=nvidia_smi_line())
+    if not ok:
+        raise SystemExit("K5, causal K2 or the LFM2 encode failed their checks")
+    w13_row, main = k5["w13_swiglu"], k2[-1]
+    records["grouped_gemm"] = {
+        "name": "grouped_gemm", "route": "cuda", "source": "memvul_tpu_torch/csrc/grouped_gemm.cu",
+        "replaces": "none: the JAX package has no experts",
+        "launches": counted["grouped_gemm"], "max_abs_err": w13_row["max_abs_err"],
+        "ms": w13_row["kernel_ms"], "plain_ms": w13_row["plain_ms"],
+        "bound_ms": w13_row["bound_ms"], "bound_by": w13_row["bound_by"],
+        "library_ms": w13_row["library_ms"],
+    }
+    records["flash_attention_causal"] = {
+        "name": "flash_attention_causal", "route": "cuda",
+        "source": "memvul_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "memvul_tpu/ops/pallas/flash_kernel.py:244 (causal, grouped)",
+        "launches": counted["flash_attention_causal"], "max_abs_err": main["max_abs_err"],
+        "ms": main["kernel_ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
     }
 
 
@@ -6699,6 +6879,7 @@ def main() -> int:
     phase_anchor_match(records)
     phase_flash(records)
     phase_plain_attention(records)
+    phase_kernel_grouped_gemm(records)
     phase_flash_grad()
     phase_ragged(records)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:

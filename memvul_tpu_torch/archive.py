@@ -132,8 +132,19 @@ def load_archive(
 
     device = resolve_device(device)
     members, config, tokenizer = _config_and_tokenizer(archive_path, overrides)
-    model = build_model(config.get("model") or {}, tokenizer.vocab_size)
     params = _msgpack.unpackb(members["weights.msgpack"])
+    del members
+    if "lfm2" in params.get("params", params):
+        import torch
+
+        # an LFM2 model is built on the meta device and takes the archive's
+        # tensors as they are: no second full-size copy on the host
+        with torch.device("meta"):
+            model = build_model(config.get("model") or {}, tokenizer.vocab_size)
+        model.load_state_dict(params_from_flax(params), assign=True)
+        model.to(device).eval()
+        return Archive(config=config, model=model, params=params, tokenizer=tokenizer)
+    model = build_model(config.get("model") or {}, tokenizer.vocab_size)
     model.load_state_dict(params_from_flax(params, getattr(model, "config", None)))
     model.to(device).eval()
     return Archive(config=config, model=model, params=params, tokenizer=tokenizer)

@@ -84,7 +84,8 @@ BASELINE_RPS_512 = 190.0
 _CHILD_ENV_FLAG = "MEMVUL_BENCH_CHILD"
 
 # the kernels whose launch counts a child's telemetry.json carries
-KERNEL_MODULES = ("anchor_match", "flash_attention", "ragged_attention", "plain_attention")
+KERNEL_MODULES = ("anchor_match", "flash_attention", "ragged_attention", "plain_attention",
+                  "grouped_gemm")
 
 
 def _metric_name() -> str:
@@ -1630,15 +1631,17 @@ def _supervise(cmd, attempts: int, attempt_timeout: float, backoff: float, env=N
 def _record_launches() -> None:
     """The kernels' launch counts of this child into the process registry
     (``kernels.launches.<kernel>`` in telemetry.json)."""
-    from memvul_tpu_torch.ops import (anchor_match, flash_attention, plain_attention,
+    from memvul_tpu_torch.ops import (anchor_match, flash_attention, moe, plain_attention,
                                       ragged_attention)
     from memvul_tpu_torch.telemetry import get_registry
 
     tel = get_registry()
-    modules = (anchor_match, flash_attention, ragged_attention, plain_attention)
+    modules = (anchor_match, flash_attention, ragged_attention, plain_attention, moe)
     for name, module in zip(KERNEL_MODULES, modules):
         tel.counter(f"kernels.launches.{name}").inc(int(module.launches))
+    tel.counter("kernels.launches.flash_attention_causal").inc(int(flash_attention.causal_launches))
     tel.counter("kernels.plain_on_card").inc(int(plain_attention.plain_on_card))
+    tel.counter("moe.pairs_routed").inc(int(moe.pairs_routed))
 
 
 def _error_record(error: str) -> dict:

@@ -60,9 +60,23 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
 
 
 def encoder_config(cfg: Optional[Dict[str, Any]], vocab_size: Optional[int] = None):
+    """A BERT encoder section (``preset``) → :class:`BertConfig`; one with
+    ``"arch": "lfm2_moe"`` (the published LFM2-MoE keys) →
+    :class:`~memvul_tpu_torch.models.lfm2.Lfm2Config`."""
     from .models.bert import BertConfig
+    from .models.lfm2 import ARCH, Lfm2Config
 
     cfg = dict(cfg or {})
+    arch = cfg.pop("arch", "bert")
+    if arch not in ("bert", ARCH):
+        raise ValueError(f"unknown encoder arch {arch!r} (want 'bert' or {ARCH!r})")
+    if arch == ARCH:
+        dtype = cfg.get("dtype")
+        if isinstance(dtype, str):
+            cfg["dtype"] = DTYPES[dtype]
+        if vocab_size is not None:
+            cfg.setdefault("vocab_size", vocab_size)
+        return Lfm2Config.from_config(cfg)
     preset = cfg.pop("preset", "base")
     dtype = cfg.pop("dtype", None)
     if isinstance(dtype, str):
@@ -98,8 +112,10 @@ def build_reader(cfg: Optional[Dict[str, Any]], seed: Optional[int] = None):
 
 
 def build_model(model_cfg: Dict[str, Any], vocab_size: int):
-    """The model named by ``model_cfg["type"]`` (params f32, on the CPU):
-    ``model_memory``, ``model_single`` or ``model_cnn``."""
+    """The model named by ``model_cfg["type"]`` (params f32, on the
+    caller's default device, the CPU unless it sets one; an LFM2 encoder's
+    in its own dtype): ``model_memory``, ``model_single`` or
+    ``model_cnn``."""
     from .models.memory import MemoryModel
     from .models.single import SingleModel
     from .models.textcnn import TextCNN
@@ -113,7 +129,12 @@ def build_model(model_cfg: Dict[str, Any], vocab_size: int):
     models = {"model_memory": MemoryModel, "model_single": SingleModel}
     if model_type not in models:
         raise ValueError(f"unknown model type {model_type!r}")
-    return models[model_type](encoder_config(cfg.pop("encoder", None), vocab_size), **cfg)
+    encoder = encoder_config(cfg.pop("encoder", None), vocab_size)
+    if model_type != "model_memory" and getattr(encoder, "arch", "bert") != "bert":
+        from .models.lfm2 import refuse
+
+        refuse(f"{model_type} model (it encodes for model_memory)")
+    return models[model_type](encoder, **cfg)
 
 
 def init_params(model, seed: int = 0):
@@ -127,7 +148,12 @@ def init_params(model, seed: int = 0):
     if isinstance(model, MemoryModel):
         std = model.config.initializer_range
         with torch.no_grad():
-            init_weights(model, std, generator=gen)
+            if model.lfm2:
+                model.model.reset_parameters(gen)
+                if model.use_header:
+                    init_weights(model.header, std, generator=gen)
+            else:
+                init_weights(model, std, generator=gen)
             model.pair_kernel.normal_(0.0, std, generator=gen)
     else:
         model.init_weights(gen)
@@ -366,6 +392,10 @@ def train_from_config(
         seed = int(config.get("random_seed", 2021))
         tokenizer = build_tokenizer(config.get("tokenizer"))
         reader = build_reader(config.get("dataset_reader"), seed=seed)
+        from .models.lfm2 import ARCH, refuse
+
+        if (model_cfg.get("encoder") or {}).get("arch") == ARCH:
+            refuse("training path")
         model = init_params(build_model(model_cfg, tokenizer.vocab_size), seed)
         ckpt = model_cfg.get("pretrained_checkpoint")
         if ckpt:

@@ -15,6 +15,13 @@
 // whose keys are all masked averages its values uniformly instead of giving
 // NaN.  Keys at or beyond Tk add exactly 0.
 //
+// Two options, for a causal decoder's self-attention (Tq = Tk): `causal`
+// drops every key j > t (it adds exactly 0, as a key past Tk does), and a
+// KV-group count G = H / Hkv lets query head h read K/V head ⌊h / G⌋ of
+// k, v [B, T, Hkv, Dh] (grouped-query attention).  Both are compile-time
+// on the wgmma path, so the non-causal, ungrouped instance is the kernel
+// it was before they existed.
+//
 // What bounds it on this card: 4·B·H·Tq·Tk·Dh operations against
 // 4·B·T·H·Dh elements of q, k, v and out, so from a few hundred keys on it
 // is bound by operations, at the bf16 tensor cores' 989 TFLOP/s
@@ -89,7 +96,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
                  T* __restrict__ out, int H, int Tq, int Tk, Strides qs,
                  Strides ks_, Strides vs_, Strides os, long long bias_sb,
-                 float scale) {
+                 float scale, int group, bool causal) {
   constexpr int kBlockK = 4096 / HD;  // 16 KB of f32 per staged tile
   static_assert(HD % 4 == 0, "head dim must be a multiple of 4");
   static_assert(kBlockK % kKeysPerStep == 0, "key tile must hold whole steps");
@@ -113,12 +120,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < HD; ++d) acc[d] = 0.f;
   float m = kF32Min, l = 0.f;
 
-  const T* kb = k + b * ks_.b + h * ks_.h;
-  const T* vb = v + b * vs_.b + h * vs_.h;
+  const T* kb = k + b * ks_.b + (h / group) * ks_.h;
+  const T* vb = v + b * vs_.b + (h / group) * vs_.h;
   const float* bb = bias + b * bias_sb;
+  // causal: no key past the block's last query row is read
+  const int k_end = causal ? min(Tk, (int)(blockIdx.y + 1) * kBlockQ) : Tk;
 
-  for (int k0 = 0; k0 < Tk; k0 += kBlockK) {
-    const int nk = min(kBlockK, Tk - k0);
+  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
+    const int nk = min(kBlockK, k_end - k0);
     __syncthreads();  // the previous tile is consumed
     for (int i = threadIdx.x; i < nk * HD; i += kBlockQ) {
       const int j = i / HD, d = i % HD;
@@ -134,7 +143,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < kKeysPerStep; ++jj) {
         const int j = j0 + jj;
-        if (j < nk) {
+        if (j < nk && !(causal && k0 + j > row)) {
           const float4* kr = reinterpret_cast<const float4*>(k_tile[j]);
           float dot0 = 0.f, dot1 = 0.f;
 #pragma unroll
@@ -165,7 +174,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < kKeysPerStep; ++jj) {
         const int j = j0 + jj;
-        if (j < nk) {
+        if (j < nk && !(causal && k0 + j > row)) {
           const float p = expf(s[jj] - m_new);
           l += p;
           const float pv = round_to<T>(p);
@@ -226,14 +235,23 @@ struct WgConfig {
 // and V stay in L2.  The grid is persistent: block i takes items i, i +
 // gridDim.x, ... in turn, and the producer loads the next item's Q and
 // first tiles while the consumers finish this one and write it out.
-template <int NC>
+//
+// CAUSAL: an item reads only the key tiles up to its last query row, so
+// the item of query tile q costs about q + 1 tiles; items are then taken
+// heaviest first (item = (n_qtiles − 1 − qtile) · B·H + bh), which keeps
+// the persistent grid's blocks evenly loaded to the end, and the H heads
+// of one (batch, tile) run side by side, so the G heads of a KV group
+// read its K and V from L2.  The tiles that hold the diagonal mask each
+// score past its row element-wise.  GROUPED: the K/V tensor maps run over
+// the Hkv heads, and head h loads K/V head h / group.
+template <int NC, bool CAUSAL, bool GROUPED>
 __global__ void __launch_bounds__(WgConfig<NC>::kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
                        const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
                        int H, int Tq, int Tk, int n_qtiles, int n_items, Strides os,
-                       long long bias_sb, float scale_log2) {
+                       long long bias_sb, float scale_log2, int group) {
   using C = WgConfig<NC>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -248,6 +266,21 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* empty = v_full + kWgStages;
 
   const int n_tiles = (Tk + kWgKeys - 1) / kWgKeys;
+  const int n_bh = n_items / n_qtiles;
+  // (query tile, batch · head) of an item, and the key tiles it reads
+  auto decode = [&](int item, int& qtile, int& bh) {
+    if constexpr (CAUSAL) {
+      qtile = n_qtiles - 1 - item / n_bh;
+      bh = item % n_bh;
+    } else {
+      qtile = item % n_qtiles;
+      bh = item / n_qtiles;
+    }
+  };
+  auto item_tiles = [&](int qtile) {
+    if constexpr (CAUSAL) return min(n_tiles, (qtile * C::kRows + C::kRows + kWgKeys - 1) / kWgKeys);
+    return n_tiles;
+  };
   // the warpgroup index through a shuffle, so the compiler knows it is
   // uniform and keeps the wgmma descriptors in uniform registers
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
@@ -276,8 +309,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     if (warp != 0) return;
     int g = 0;  // K/V tiles loaded by this block, over all its items
     for (int item = blockIdx.x, n = 0; item < n_items; item += gridDim.x, ++n) {
-      const int qtile = item % n_qtiles, bh = item / n_qtiles;
+      int qtile, bh;
+      decode(item, qtile, bh);
       const int b = bh / H, h = bh % H;
+      const int kvh = GROUPED ? h / group : h;
+      const int nt = item_tiles(qtile);
       const int qb = n % kWgQBufs;
       // a Q buffer's first use passes at once, as does a stage's
       mbar_wait(&q_empty[qb], ((n / kWgQBufs) & 1) ^ 1);
@@ -286,15 +322,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         tma_load_4d(q_s + qb * C::kRows * kWgDim, &q_map, &q_full[qb], 0, qtile * C::kRows, h, b);
       }
       const float* bb = bias + b * bias_sb;
-      for (int it = 0; it < n_tiles; ++it, ++g) {
+      for (int it = 0; it < nt; ++it, ++g) {
         const int s = g % kWgStages;
         mbar_wait(&empty[s], ((g / kWgStages) & 1) ^ 1);
         const int k0 = it * kWgKeys;
         if (lane == 0) {  // the copies first, so the bias load overlaps them
           mbar_expect_tx(&k_full[s], kWgTileBytes);
-          tma_load_4d(k_s + s * kWgKeys * kWgDim, &k_map, &k_full[s], 0, k0, h, b);
+          tma_load_4d(k_s + s * kWgKeys * kWgDim, &k_map, &k_full[s], 0, k0, kvh, b);
           mbar_arrive_expect_tx(&v_full[s], kWgTileBytes);
-          tma_load_4d(v_s + s * kWgKeys * kWgDim, &v_map, &v_full[s], 0, k0, h, b);
+          tma_load_4d(v_s + s * kWgKeys * kWgDim, &v_map, &v_full[s], 0, k0, kvh, b);
         }
         float* bs = bias_s + s * kWgKeys;
         for (int j = lane; j < kWgKeys; j += 32) {
@@ -319,6 +355,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   uint32_t pf[8][4];  // P of the tile in PV: bf16 A fragments, one per 16 keys
   float corr0, corr1;
   int g = 0;          // K/V tiles consumed by this block before this item
+  int first_row = 0;  // CAUSAL: the first query row of this warp's 16
 
   const WgmmaFlags flags;
   // K-major Q and K: 8-row groups 1024 bytes apart, 32 bytes per 16 dims
@@ -351,6 +388,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   auto softmax = [&](int it) {
     const float* bs = bias_s + ((g + it) % kWgStages) * kWgKeys;
     const bool partial = (it + 1) * kWgKeys > Tk;
+    // CAUSAL: a tile with a key past one of this warp's rows; key j of
+    // row t adds 0 where j > t (every row keeps key 0, so m stays finite)
+    const bool diagonal = CAUSAL && it * kWgKeys + kWgKeys - 1 > first_row;
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
@@ -362,6 +402,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       if (partial) {
         if (bk.x == -CUDART_INF_F) s0 = s2 = -CUDART_INF_F;
         if (bk.y == -CUDART_INF_F) s1 = s3 = -CUDART_INF_F;
+      }
+      if (diagonal) {
+        const int key = it * kWgKeys + i * 8 + quad_col - first_row - quad_row;
+        if (key > 0) s0 = -CUDART_INF_F;
+        if (key + 1 > 0) s1 = -CUDART_INF_F;
+        if (key > 8) s2 = -CUDART_INF_F;
+        if (key + 1 > 8) s3 = -CUDART_INF_F;
       }
       sc[4 * i + 0] = s0;
       sc[4 * i + 1] = s1;
@@ -441,10 +488,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   };
 
   for (int item = blockIdx.x, n = 0; item < n_items; item += gridDim.x, ++n) {
-    const int qtile = item % n_qtiles, bh = item / n_qtiles;
+    int qtile, bh;
+    decode(item, qtile, bh);
     const int b = bh / H, h = bh % H;
     const int qb = n % kWgQBufs;
+    const int nt = item_tiles(qtile);
     const int row0 = qtile * C::kRows + cw * 64 + warp * 16 + quad_row;
+    if constexpr (CAUSAL) first_row = qtile * C::kRows + cw * 64 + warp * 16;
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] = 0.f;
     m0 = m1 = kF32Min;
@@ -470,7 +520,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     fence_regs(sc);
     softmax(0);
     pack_p();
-    for (int it = 0; it + 1 < n_tiles; ++it) {
+    for (int it = 0; it + 1 < nt; ++it) {
       wait_k(it + 1);
       wait_v(it);
       k_descs(it + 1);
@@ -486,14 +536,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       release(it);
       pack_p();  // PV of it no longer reads pf
     }
-    wait_v(n_tiles - 1);
-    v_descs(n_tiles - 1);
+    wait_v(nt - 1);
+    v_descs(nt - 1);
     rescale_o();
     pin_inputs();
     wgmma_fence();
     issue_pv();
-    release(n_tiles - 1);
-    g += n_tiles;
+    release(nt - 1);
+    g += nt;
     // every QKᵀ of this item has landed: its Q buffer may take item n + 2's
     if (lane == 0) mbar_arrive(&q_empty[qb]);
 
@@ -526,15 +576,15 @@ int wgmma_consumers(int Tq) {
   return rows3 * 8 <= rows2 * 9 ? 3 : 2;
 }
 
-template <int NC>
+template <int NC, bool CAUSAL, bool GROUPED>
 int launch_wgmma(const void* q, const void* k, const void* v, const float* bias, void* out,
-                 int B, int H, int Tq, int Tk, Strides qs, Strides ks, Strides vs, Strides os,
-                 long long bias_sb, float scale, cudaStream_t stream) {
+                 int B, int H, int Hkv, int Tq, int Tk, Strides qs, Strides ks, Strides vs,
+                 Strides os, long long bias_sb, float scale, cudaStream_t stream) {
   using C = WgConfig<NC>;
   CUtensorMap q_map, k_map, v_map;
   if (!encode_bf16_rows(&q_map, q, B, Tq, H, qs, C::kRows) ||
-      !encode_bf16_rows(&k_map, k, B, Tk, H, ks, kWgKeys) ||
-      !encode_bf16_rows(&v_map, v, B, Tk, H, vs, kWgKeys))
+      !encode_bf16_rows(&k_map, k, B, Tk, Hkv, ks, kWgKeys) ||
+      !encode_bf16_rows(&v_map, v, B, Tk, Hkv, vs, kWgKeys))
     return (int)cudaErrorInvalidValue;
   const int n_qtiles = (Tq + C::kRows - 1) / C::kRows;
   const long long items = (long long)n_qtiles * B * H;
@@ -543,37 +593,38 @@ int launch_wgmma(const void* q, const void* k, const void* v, const float* bias,
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<NC>,
+    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<NC, CAUSAL, GROUPED>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (int)(items < sms ? items : sms);  // one resident block per SM
-  flash_fwd_wgmma_kernel<NC><<<blocks, C::kThreads, C::kSmemBytes, stream>>>(
+  flash_fwd_wgmma_kernel<NC, CAUSAL, GROUPED><<<blocks, C::kThreads, C::kSmemBytes, stream>>>(
       q_map, k_map, v_map, bias, static_cast<__nv_bfloat16*>(out), H, Tq, Tk, n_qtiles,
-      (int)items, os, bias_sb, scale * kLog2e);
+      (int)items, os, bias_sb, scale * kLog2e, H / Hkv);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
 void launch(const void* q, const void* k, const void* v, const float* bias,
             void* out, int B, int H, int Tq, int Tk, Strides qs, Strides ks,
-            Strides vs, Strides os, long long bias_sb, float scale,
-            cudaStream_t stream) {
+            Strides vs, Strides os, long long bias_sb, float scale, int group,
+            bool causal, cudaStream_t stream) {
   const dim3 grid(B * H, (Tq + kBlockQ - 1) / kBlockQ);
   flash_fwd_kernel<T, HD><<<grid, kBlockQ, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, static_cast<T*>(out), H, Tq, Tk, qs, ks,
-      vs, os, bias_sb, scale);
+      vs, os, bias_sb, scale, group, causal);
 }
 
 template <typename T>
 int dispatch_head_dim(int D, const void* q, const void* k, const void* v,
                       const float* bias, void* out, int B, int H, int Tq,
                       int Tk, Strides qs, Strides ks, Strides vs, Strides os,
-                      long long bias_sb, float scale, cudaStream_t stream) {
+                      long long bias_sb, float scale, int group, bool causal,
+                      cudaStream_t stream) {
   switch (D) {
-    case 16: launch<T, 16>(q, k, v, bias, out, B, H, Tq, Tk, qs, ks, vs, os, bias_sb, scale, stream); break;
-    case 32: launch<T, 32>(q, k, v, bias, out, B, H, Tq, Tk, qs, ks, vs, os, bias_sb, scale, stream); break;
-    case 64: launch<T, 64>(q, k, v, bias, out, B, H, Tq, Tk, qs, ks, vs, os, bias_sb, scale, stream); break;
+    case 16: launch<T, 16>(q, k, v, bias, out, B, H, Tq, Tk, qs, ks, vs, os, bias_sb, scale, group, causal, stream); break;
+    case 32: launch<T, 32>(q, k, v, bias, out, B, H, Tq, Tk, qs, ks, vs, os, bias_sb, scale, group, causal, stream); break;
+    case 64: launch<T, 64>(q, k, v, bias, out, B, H, Tq, Tk, qs, ks, vs, os, bias_sb, scale, group, causal, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -582,20 +633,25 @@ int dispatch_head_dim(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
-// [B, T, H, Dh] layout (the last dim contiguous); bias is f32 [B, Tk] with
-// row stride bias_sb.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue when an argument (or a tensor map) is refused.
+// [B, T, H, Dh] layout of q and out and [B, T, Hkv, Dh] of k and v (the
+// last dim contiguous; H a multiple of Hkv); bias is f32 [B, Tk] with row
+// stride bias_sb; causal (0 or 1) needs Tq = Tk.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue when an
+// argument (or a tensor map) is refused.
 extern "C" int memvul_flash_fwd(const void* q, const void* k, const void* v,
                                 const void* bias, void* out, int B, int H,
-                                int Tq, int Tk, int D, long long q_sb,
+                                int Tq, int Tk, int D, int Hkv, int causal,
+                                long long q_sb,
                                 long long q_st, long long q_sh, long long k_sb,
                                 long long k_st, long long k_sh, long long v_sb,
                                 long long v_st, long long v_sh, long long o_sb,
                                 long long o_st, long long o_sh,
                                 long long bias_sb, float scale, int dtype,
                                 void* stream) {
-  if (B < 0 || H < 1 || Tq < 0 || Tk < 1 || (dtype != 0 && dtype != 1))
+  if (B < 0 || H < 1 || Tq < 0 || Tk < 1 || (dtype != 0 && dtype != 1) || Hkv < 1 ||
+      H % Hkv || (causal != 0 && causal != 1) || (causal && Tq != Tk))
     return (int)cudaErrorInvalidValue;
+  const int group = H / Hkv;
   if (B == 0 || Tq == 0) return (int)cudaGetLastError();
   const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh}, vs{v_sb, v_st, v_sh},
       os{o_sb, o_st, o_sh};
@@ -604,13 +660,22 @@ extern "C" int memvul_flash_fwd(const void* q, const void* k, const void* v,
   const void* ptrs[4] = {q, k, v, out};
   const Strides all[4] = {qs, ks, vs, os};
   if (dtype == 1 && D == kWgDim && tensor_core_eligible(ptrs, all, 4)) {
-    return wgmma_consumers(Tq) == 3
-               ? launch_wgmma<3>(q, k, v, bp, out, B, H, Tq, Tk, qs, ks, vs, os, bias_sb, scale, s)
-               : launch_wgmma<2>(q, k, v, bp, out, B, H, Tq, Tk, qs, ks, vs, os, bias_sb, scale, s);
+    const bool three = wgmma_consumers(Tq) == 3;
+#define MEMVUL_WGMMA(CAUSAL, GROUPED)                                                       \
+  (three ? launch_wgmma<3, CAUSAL, GROUPED>(q, k, v, bp, out, B, H, Hkv, Tq, Tk, qs, ks, vs, \
+                                            os, bias_sb, scale, s)                          \
+         : launch_wgmma<2, CAUSAL, GROUPED>(q, k, v, bp, out, B, H, Hkv, Tq, Tk, qs, ks, vs, \
+                                            os, bias_sb, scale, s))
+    if (causal) return MEMVUL_WGMMA(true, true);
+    if (group > 1) return MEMVUL_WGMMA(false, true);
+    return MEMVUL_WGMMA(false, false);
+#undef MEMVUL_WGMMA
   }
   if (dtype == 0)
-    return dispatch_head_dim<float>(D, q, k, v, bp, out, B, H, Tq, Tk, qs, ks, vs, os, bias_sb, scale, s);
-  return dispatch_head_dim<__nv_bfloat16>(D, q, k, v, bp, out, B, H, Tq, Tk, qs, ks, vs, os, bias_sb, scale, s);
+    return dispatch_head_dim<float>(D, q, k, v, bp, out, B, H, Tq, Tk, qs, ks, vs, os, bias_sb,
+                                    scale, group, causal != 0, s);
+  return dispatch_head_dim<__nv_bfloat16>(D, q, k, v, bp, out, B, H, Tq, Tk, qs, ks, vs, os,
+                                          bias_sb, scale, group, causal != 0, s);
 }
 
 // dynamic shared memory of the wgmma kernel's block with `consumers`

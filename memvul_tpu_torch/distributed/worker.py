@@ -68,12 +68,14 @@ def _record_device_counts(tel, device) -> None:
     memory on the card, into the worker's telemetry."""
     import torch
 
-    from ..ops import anchor_match, flash_attention, plain_attention, ragged_attention
+    from ..ops import anchor_match, flash_attention, moe, plain_attention, ragged_attention
 
     for name, module in (("anchor_match", anchor_match), ("flash_attention", flash_attention),
                          ("ragged_attention", ragged_attention),
-                         ("plain_attention", plain_attention)):
+                         ("plain_attention", plain_attention), ("grouped_gemm", moe)):
         tel.counter(f"kernels.launches.{name}").inc(int(module.launches))
+    tel.counter("kernels.launches.flash_attention_causal").inc(
+        int(flash_attention.causal_launches))
     tel.counter("kernels.plain_on_card").inc(int(plain_attention.plain_on_card))
     if device.type == "cuda":
         tel.gauge("device.peak_bytes").set(torch.cuda.max_memory_allocated(device))

@@ -108,6 +108,7 @@ from ..data.batching import (
 )
 from ..data.readers import MemoryReader
 from ..models.memory import MemoryModel, anchor_probs
+from ..ops import moe
 from ..parallel.mesh import (
     DATA_AXIS, MODEL_AXIS, any_rank, broadcast_object, gather_blocks, shard_batch,
 )
@@ -165,6 +166,10 @@ class SiamesePredictor:
                 f"'cascade', got {score_impl!r}"
             )
         refuse_mesh_score_impl(score_impl, mesh)
+        if score_impl in ("ragged", "continuous") and getattr(model, "lfm2", False):
+            from ..models.lfm2 import refuse
+
+            refuse(f"packed serving path (score_impl={score_impl!r})")
         self.mesh = mesh
         # a serving mesh's leader (rank 0) sends each command here first
         # (serving/mesh.py); None elsewhere
@@ -634,6 +639,7 @@ class SiamesePredictor:
             )
         seconds: Dict[int, float] = {}
         counts: Dict[int, int] = {}
+        pairs_before = moe.pairs_routed
         # per bucket length: live rows (reports) and row slots (with dead rows)
         rows: Dict[int, int] = {}
         slots: Dict[int, int] = {}
@@ -748,6 +754,18 @@ class SiamesePredictor:
             yield drain()
         self.stats.update({k: v / 1e9 for k, v in host.items()})
         self.stats["batches"] = sum(counts.values())
+        if getattr(self.model, "lfm2", False):
+            self._book_experts(pairs_before)
+
+    def _book_experts(self, pairs_before: int) -> None:
+        """An LFM2 stream's expert routing into the telemetry: the pairs it
+        routed (``moe.pairs_routed``) and each expert's rows since the
+        process began (``moe.expert_rows.<e>``), which stay on the device
+        until this one read at the stream's end."""
+        tel = self.telemetry
+        tel.counter("moe.pairs_routed").inc(moe.pairs_routed - pairs_before)
+        for e, rows in enumerate(moe.expert_rows(self.device)):
+            tel.gauge(f"moe.expert_rows.{e}").set(rows)
 
     def predict_single(self, text: str) -> Dict:
         """Score one report: per-anchor probabilities, the best score and

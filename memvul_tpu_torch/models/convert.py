@@ -202,6 +202,9 @@ def params_from_flax(params: Dict, config: Optional[BertConfig] = None) -> Dict[
     TextCNN, which has none)."""
     p = params["params"] if "params" in params else params
     sd: Dict[str, torch.Tensor] = {}
+    if "lfm2" in p:  # an LFM2 model's state dict, by the port's names (lfm2_params)
+        return {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+                for k, v in p["lfm2"].items()}
     if "bert" in p:
         sd.update({"bert." + k: v for k, v in encoder_from_flax(p["bert"], config).items()})
     for name in ("pooler", "header"):
@@ -327,3 +330,10 @@ def convert_bert_state_dict(
         pooler = {"dense.weight": _f32(sd["pooler.dense.weight"]),
                   "dense.bias": _f32(sd["pooler.dense.bias"])}
     return encoder, pooler
+
+
+def lfm2_params(model) -> Dict:
+    """The archive tree of a ``MemoryModel`` with an LFM2 encoder: its
+    state dict by the port's names, in the dtypes it holds (the JAX package
+    has no such model, so no flax layout is owed)."""
+    return {"params": {"lfm2": {k: v.detach().cpu() for k, v in model.state_dict().items()}}}

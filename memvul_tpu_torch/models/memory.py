@@ -2,8 +2,13 @@
 ``models/memory.py``).
 
 Encode a text with BERT, take the tanh-pooled CLS, optionally pass the
-ReLU projection header.  Training classifies each pair ``[u, v, |u−v|]``
-with the bias-free pair kernel (:meth:`MemoryModel.pair_logits`, a plain
+ReLU projection header.  With an :class:`~memvul_tpu_torch.models.lfm2.
+Lfm2Config` the encoder is LFM2-MoE (``model.*``, a causal decoder) and the
+text's embedding is its last real token's final-normed hidden state
+(BERT's tanh pooler is BERT's own pretrained layer, so it has none); the
+header and the classifier are the same.  That encoder scores only: the
+packed paths and training refuse it.  Training classifies each pair
+``[u, v, |u−v|]`` with the bias-free pair kernel (:meth:`MemoryModel.pair_logits`, a plain
 matmul) and :func:`pair_loss` takes the cross-entropy of the logits over
 the temperature.  Inference matches the report against the whole anchor
 bank through the decomposed classifier
@@ -24,6 +29,7 @@ from torch import nn
 
 from ..ops.anchor_match import anchor_match
 from .bert import BertConfig, BertEncoder, BertPooler, dropout, init_weights, linear
+from .lfm2 import Lfm2Model, is_lfm2, refuse
 from .losses import masked_cross_entropy
 
 
@@ -53,14 +59,22 @@ class MemoryModel(nn.Module):
         self.config = config
         self.use_header = use_header
         self.temperature = temperature
-        self.bert = BertEncoder(config)
-        self.pooler = BertPooler(config)
+        self.lfm2 = is_lfm2(config)
+        if self.lfm2:
+            self.model = Lfm2Model(config)
+            self.pooler = None
+        else:
+            self.bert = BertEncoder(config)
+            self.pooler = BertPooler(config)
         if use_header:
             self.header = ProjectionHeader(config, header_dim)
         out_dim = header_dim if use_header else config.hidden_size
         # the bias-free pair classifier over [u, v, |u-v|]
         self.pair_kernel = nn.Parameter(torch.empty(3 * out_dim, num_classes))
-        init_weights(self, config.initializer_range)
+        if not self.lfm2:
+            init_weights(self, config.initializer_range)
+        elif use_header:  # the LFM2 encoder drew its own parameters
+            init_weights(self.header, config.initializer_range)
         nn.init.normal_(self.pair_kernel, std=config.initializer_range)
 
     def encode(
@@ -68,6 +82,9 @@ class MemoryModel(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Token batch → [B, D] embeddings in ``config.dtype``."""
+        if self.lfm2:
+            pooled = self.model.encode_last(input_ids, attention_mask)
+            return self.header(pooled, generator) if self.use_header else pooled
         hidden = self.bert(input_ids, attention_mask, token_type_ids, generator=generator)
         return self._pool(hidden, generator)
 
@@ -84,6 +101,8 @@ class MemoryModel(nn.Module):
         per request; each row's first (CLS) token is then gathered by
         ``row_starts`` and goes through the same pooler and header as the
         padded path.  Dead rows gather position 0; callers slice them off."""
+        if self.lfm2:
+            refuse("packed (ragged or continuous) serving path")
         hidden = self.bert(
             sample["input_ids"], sample["attention_mask"], sample.get("token_type_ids"),
             position_ids=sample["position_ids"], segment_ids=sample["segment_ids"],
@@ -124,6 +143,8 @@ class MemoryModel(nn.Module):
         sample2 then holds only the batch's unique rows, and each pair's
         embedding is gathered back (``index_select``, whose backward
         scatter-adds).  Dropout masks come from ``generator``."""
+        if self.lfm2 and (sample2 is not None or self.training):
+            refuse("training path")
         u = self.encode(
             sample1["input_ids"], sample1["attention_mask"], sample1.get("token_type_ids"),
             generator=generator,

@@ -50,9 +50,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 PROTOTYPES = {
     # u, v, w, out, B, A, D, C, dtype, stream
     "memvul_anchor_match": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, k, v, bias, out, B, H, Tq, Tk, D, 12 strides, bias_sb, scale,
-    # dtype, stream
-    "memvul_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 13 + [_F, _I, _P],
+    # q, k, v, bias, out, B, H, Tq, Tk, D, Hkv, causal, 12 strides, bias_sb,
+    # scale, dtype, stream
+    "memvul_flash_fwd": [_P] * 5 + [_I] * 7 + [_L] * 13 + [_F, _I, _P],
     # segment_ids, ranges, B, T, seg_sb, stream
     "memvul_ragged_tile_ranges": [_P, _P, _I, _I, _L, _P],
     # q, k, v, segment_ids, ranges, out, B, H, T, D, 12 strides, seg_sb,
@@ -66,6 +66,8 @@ PROTOTYPES = {
     "memvul_plain_attn_fwd": [_P] * 5 + [_I] * 4 + [_L] * 13 + [_F, _P],
     # the plain attention kernel's dynamic shared memory per block at Tk keys
     "memvul_plain_attn_smem_bytes": [_I],
+    # x, w, offsets, out, P, K, E, N, swiglu, stream
+    "memvul_grouped_gemm": [_P] * 4 + [_L] + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

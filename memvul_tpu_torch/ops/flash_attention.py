@@ -15,8 +15,13 @@ key-only bias (the encoder's padding mask, broadcastable to
   elements (the main path: TMA-fed tiles, wgmma, a producer warpgroup
   and two or three consumer warpgroups), and ``flash_fwd_kernel`` on the
   CUDA cores for f32, head dims 16 and 32, and unaligned views.
-  :data:`launches` counts its launches.  A CPU tensor goes to the plain
-  version.  Under a gradient (grad enabled, an input that requires it)
+  :data:`launches` counts its launches, :data:`causal_launches` those of
+  them with ``causal=True``.  Two options serve a causal decoder's
+  self-attention: ``causal`` drops every key past the query's own
+  position (Tq = Tk), and k/v may carry fewer heads than q, ``[B, T, Hkv,
+  D]`` with H a multiple of Hkv, query head h reading K/V head
+  ``h // (H // Hkv)`` (grouped-query attention).  A CPU tensor goes to
+  the plain version.  Under a gradient (grad enabled, an input that requires it)
   the call goes through :class:`FlashAttentionFunction`, the counterpart
   of the TPU kernel's ``jax.custom_vjp``: the kernel's forward, and a
   backward that recomputes through the plain ``xla_attention``.
@@ -25,7 +30,8 @@ key-only bias (the encoder's padding mask, broadcastable to
   (a fully masked row averages its values uniformly), p rounded to the
   value dtype before the PV product, the denominator clamped at 1e-30.
   It walks the queries in chunks so the ``[B, H, chunk, Tk]`` scores stay
-  within ``max_score_bytes``.
+  within ``max_score_bytes``.  A key past a causal query's position adds
+  exactly 0, as in the kernel.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from . import _kernels
 # incremented under the lock, since a fleet's replicas launch from
 # several threads
 launches = 0
+causal_launches = 0
 _launches_lock = threading.Lock()
 
 HEAD_DIMS = (16, 32, 64)
@@ -68,19 +75,39 @@ def key_bias(bias: Optional[torch.Tensor], b: int, t_k: int, device) -> torch.Te
     return out.contiguous()
 
 
+def kv_group(query: torch.Tensor, key: torch.Tensor) -> int:
+    """Query heads per K/V head (1 without grouped-query attention);
+    raises unless q's heads are a multiple of k's."""
+    h, h_kv = query.shape[2], key.shape[2]
+    if h_kv < 1 or h % h_kv:
+        raise ValueError(f"{h} query heads do not split into groups over {h_kv} K/V heads")
+    return h // h_kv
+
+
+def check_causal(query: torch.Tensor, key: torch.Tensor, causal: bool) -> None:
+    if causal and query.shape[1] != key.shape[1]:
+        raise ValueError(
+            f"causal attention is self-attention: Tq = {query.shape[1]} but Tk = {key.shape[1]}")
+
+
 def flash_attention_reference(
     query: torch.Tensor,
     key: torch.Tensor,
     value: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     max_score_bytes: int = 1 << 30,
+    causal: bool = False,
 ) -> torch.Tensor:
-    """Plain-PyTorch twin of the kernel: [B, Tq, H, D] in, [B, Tq, H, D]
-    out in the query dtype."""
+    """Plain-PyTorch twin of the kernel: [B, Tq, H, D] in (k/v [B, Tk,
+    Hkv, D]), [B, Tq, H, D] out in the query dtype."""
     b, t_q, h, d = query.shape
     t_k = key.shape[1]
+    group = kv_group(query, key)
+    check_causal(query, key, causal)
     kb = key_bias(bias, b, t_k, query.device)[:, None, None, :]  # [B, 1, 1, Tk]
     scale = 1.0 / math.sqrt(d)
+    if group > 1:
+        key, value = (t.repeat_interleave(group, dim=2) for t in (key, value))
     k32 = key.to(torch.float32).permute(0, 2, 3, 1)  # [B, H, D, Tk]
     v32 = value.to(torch.float32).permute(0, 2, 1, 3)  # [B, H, Tk, D]
     out = torch.empty_like(query)
@@ -88,6 +115,9 @@ def flash_attention_reference(
     for start in range(0, t_q, chunk):
         q32 = query[:, start : start + chunk].to(torch.float32).permute(0, 2, 1, 3)
         s = torch.matmul(q32, k32) * scale + kb  # [B, H, c, Tk]
+        if causal:
+            rows = torch.arange(start, start + s.shape[2], device=s.device)[:, None]
+            s = s.masked_fill(torch.arange(t_k, device=s.device)[None, :] > rows, float("-inf"))
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
         denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
         pv = torch.matmul(p.to(value.dtype).to(torch.float32), v32)
@@ -107,10 +137,11 @@ def flash_attention_cuda(
     key: torch.Tensor,
     value: torch.Tensor,
     key_bias_f32: torch.Tensor,
+    causal: bool = False,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on [B, T, H, D] tensors and an f32 [B, Tk]
-    key bias.  Raises on anything it does not take."""
-    global launches
+    """Launch the CUDA kernel on [B, T, H, D] q and [B, T, Hkv, D] k/v
+    and an f32 [B, Tk] key bias.  Raises on anything it does not take."""
+    global launches, causal_launches
     tensors = (query, key, value, key_bias_f32)
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError("flash_attention_cuda takes CUDA tensors only")
@@ -127,9 +158,11 @@ def flash_attention_cuda(
             f"{tuple(key.shape)}, {tuple(value.shape)}"
         )
     b, t_q, h, d = query.shape
-    t_k = key.shape[1]
-    if key.shape[0] != b or key.shape[2] != h or key.shape[3] != d:
+    t_k, h_kv = key.shape[1], key.shape[2]
+    if key.shape[0] != b or key.shape[3] != d:
         raise ValueError(f"q {tuple(query.shape)} and k/v {tuple(key.shape)} disagree")
+    kv_group(query, key)
+    check_causal(query, key, causal)
     if d not in HEAD_DIMS:
         raise ValueError(f"flash kernel head dims are {HEAD_DIMS}, got {d}")
     if t_k < 1:
@@ -145,7 +178,7 @@ def flash_attention_cuda(
     code = lib.memvul_flash_fwd(
         query.data_ptr(), key.data_ptr(), value.data_ptr(),
         key_bias_f32.data_ptr(), out.data_ptr(),
-        b, h, t_q, t_k, d,
+        b, h, t_q, t_k, d, h_kv, int(causal),
         *_strides(query), *_strides(key), *_strides(value), *_strides(out),
         key_bias_f32.stride(0), 1.0 / math.sqrt(d), _kernels.DTYPE_CODES[query.dtype],
         _kernels.stream_handle(query),
@@ -153,12 +186,14 @@ def flash_attention_cuda(
     _kernels.check("memvul_flash_fwd", code)
     with _launches_lock:
         launches += 1
+        causal_launches += int(causal)
     return out
 
 
-def _reference_forward(query, key, value, key_bias_f32):
+def _reference_forward(query, key, value, key_bias_f32, causal=False):
     """The plain version on an f32 [B, Tk] key bias (the CPU's forward)."""
-    return flash_attention_reference(query, key, value, key_bias_f32[:, None, None, :])
+    return flash_attention_reference(query, key, value, key_bias_f32[:, None, None, :],
+                                     causal=causal)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -193,10 +228,12 @@ def flash_attention(
     key: torch.Tensor,
     value: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
+    causal: bool = False,
 ) -> torch.Tensor:
     """Blockwise exact attention, [B, T, H, D] in and out: the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors, each through
-    :class:`FlashAttentionFunction` when a gradient is wanted."""
+    :class:`FlashAttentionFunction` when a gradient is wanted (which the
+    causal and grouped forms, inference paths, refuse)."""
     if query.ndim != 4:
         raise ValueError(f"expected [B, T, H, D], got {tuple(query.shape)}")
     if query.device.type not in ("cuda", "cpu"):
@@ -204,5 +241,9 @@ def flash_attention(
     kb = key_bias(bias, query.shape[0], key.shape[1], query.device)
     kernel = flash_attention_cuda if query.device.type == "cuda" else _reference_forward
     if torch.is_grad_enabled() and any(t.requires_grad for t in (query, key, value)):
+        if causal or key.shape[2] != query.shape[2]:
+            raise ValueError("causal or grouped-query flash attention has no backward")
         return FlashAttentionFunction.apply(query, key, value, kb, kernel)
+    if causal:
+        return kernel(query, key, value, kb, causal=True)
     return kernel(query, key, value, kb)

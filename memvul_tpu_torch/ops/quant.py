@@ -119,10 +119,12 @@ class QuantLinear(nn.Linear):
     contracts in int8: ``mode`` ``"int8_dynamic"`` quantizes the weight at
     every call, ``"int8"`` once, into the non-persistent buffers
     ``weight_q`` [out, in] and ``weight_scale`` [out] (inference only: the
-    weights must not change after the first call)."""
+    weights must not change after the first call).  ``bias=False`` makes
+    it bias-free, as ``nn.Linear``'s own flag does."""
 
-    def __init__(self, in_features: int, out_features: int, mode: str) -> None:
-        super().__init__(in_features, out_features)
+    def __init__(self, in_features: int, out_features: int, mode: str, bias: bool = True,
+                 device=None, dtype=None) -> None:
+        super().__init__(in_features, out_features, bias=bias, device=device, dtype=dtype)
         if mode not in QUANT_MODES:
             raise ValueError(f"unknown quant mode {mode!r}")
         self.mode = mode
@@ -143,14 +145,17 @@ class QuantLinear(nn.Linear):
     def quantized(self, x: torch.Tensor, dtype) -> torch.Tensor:
         """The int8 projection of ``x`` in ``dtype``, bias added in ``dtype``."""
         w_q, w_s = self.quantized_weight()
-        return _contract(x.to(dtype), w_q, w_s, dtype) + self.bias.to(dtype)
+        out = _contract(x.to(dtype), w_q, w_s, dtype)
+        return out if self.bias is None else out + self.bias.to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.quantized(x, x.dtype)
 
 
-def make_linear(in_features: int, out_features: int, quant: Optional[str]) -> nn.Linear:
-    """``nn.Linear``, or its int8 twin when ``quant`` names a mode."""
+def make_linear(in_features: int, out_features: int, quant: Optional[str], bias: bool = True,
+                dtype=None) -> nn.Linear:
+    """``nn.Linear``, or its int8 twin when ``quant`` names a mode (params
+    in ``dtype``, f32 by default)."""
     if quant is None:
-        return nn.Linear(in_features, out_features)
-    return QuantLinear(in_features, out_features, quant)
+        return nn.Linear(in_features, out_features, bias=bias, dtype=dtype)
+    return QuantLinear(in_features, out_features, quant, bias=bias, dtype=dtype)

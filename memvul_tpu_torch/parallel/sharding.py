@@ -92,6 +92,10 @@ def shard_params(model: torch.nn.Module, mesh: Mesh, rules=DEFAULT_TP_RULES) -> 
     replicate(model, mesh)
     if mesh.size(MODEL_AXIS) == 1:
         return model
+    from ..models.lfm2 import is_lfm2, refuse
+
+    if is_lfm2(getattr(model, "config", None)):
+        refuse("tensor-parallel rules (a model axis)")
     bad = validate_divisibility(model, mesh, rules)
     if bad:
         raise ValueError(f"tensor parallelism over model={mesh.size(MODEL_AXIS)}: {bad}")

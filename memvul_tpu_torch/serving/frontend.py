@@ -64,12 +64,14 @@ _RESULT_SLACK_S = 30.0
 
 def kernel_launches():
     """This process's launches of each hand-written kernel."""
-    from ..ops import anchor_match, flash_attention, plain_attention, ragged_attention
+    from ..ops import anchor_match, flash_attention, moe, plain_attention, ragged_attention
 
     return {"anchor_match": anchor_match.launches,
             "flash_attention": flash_attention.launches,
+            "flash_attention_causal": flash_attention.causal_launches,
             "ragged_flash_attention": ragged_attention.launches,
-            "plain_attention": plain_attention.launches}
+            "plain_attention": plain_attention.launches,
+            "grouped_gemm": moe.launches}
 
 
 class ScoringHTTPServer(ThreadingHTTPServer):

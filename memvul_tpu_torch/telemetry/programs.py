@@ -116,7 +116,9 @@ def score_cost(
 ) -> Tuple[float, float]:
     """(FLOPs, bytes) of one encoder call and anchor match.
 
-    ``config`` is the encoder's ``BertConfig``; ``processed_tokens`` every
+    ``config`` is the encoder's ``BertConfig`` (or a config with its own
+    ``encoder_flops``, as LFM2's: a decoder with no pooler, its attention
+    causal); ``processed_tokens`` every
     token slot the GEMMs run over (a block's ``rows × T``, a pack's
     budget); ``live_lengths`` each row's (or packed segment's) live
     tokens, at which the attention is counted; ``rows`` the embeddings
@@ -124,12 +126,16 @@ def score_cost(
     Bytes: the weights once, the ids and mask in, the embeddings or the
     ``[rows, A]`` probabilities out, and the bank read once."""
     d = int(config.hidden_size)
-    f = int(config.intermediate_size)
-    layers = int(config.num_layers)
     tokens = float(processed_tokens)
     attn = float(sum(int(n) * int(n) for n in live_lengths))
-    flops = layers * (2.0 * d * (4 * d + 2 * f) * tokens + 4.0 * d * attn)
-    flops += 2.0 * d * d * rows  # pooler
+    encoder_flops = getattr(config, "encoder_flops", None)
+    if encoder_flops is not None:
+        flops = encoder_flops(tokens, attn)
+    else:
+        f = int(config.intermediate_size)
+        layers = int(config.num_layers)
+        flops = layers * (2.0 * d * (4 * d + 2 * f) * tokens + 4.0 * d * attn)
+        flops += 2.0 * d * d * rows  # pooler
     out_dim = d
     if header_dim:
         flops += 2.0 * d * header_dim * rows

@@ -488,7 +488,8 @@ def test_ops_plane_endpoints_answer_naming_their_slice(setup, path):
         if path == "/programz":
             assert body["count"] == len(body["programs"]) and "roofline" in body
             assert set(body["kernels"]) == {"anchor_match", "flash_attention",
-                                            "ragged_flash_attention", "plain_attention"}
+                                            "flash_attention_causal", "ragged_flash_attention",
+                                            "plain_attention", "grouped_gemm"}
             assert body["plain_on_card"] == 0
         else:
             assert body["enabled"] is False
